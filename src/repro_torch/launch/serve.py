@@ -1,0 +1,161 @@
+"""Serving launcher: batched prefill + greedy decode loop.
+
+Measures prefill latency, aggregate decode throughput and per-step
+decode latency percentiles, with each step ended by a device
+synchronize, so the times are device work and not enqueue time. It also
+records how many times each CUDA kernel launched in prefill and in
+decode. ``--json`` prints the machine-readable summary with the JAX
+package's keys, plus the device the run used.
+
+    python -m repro_torch.launch.serve --json            # on the card
+    python -m repro_torch.launch.serve --smoke --device cpu
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import numpy as np
+import torch
+
+from .._device import device_info, resolve_device
+from ..configs import get_config, reduced
+from ..kernels import launch_counts
+from ..models import build
+from .steps import make_prefill_step, make_serve_step
+
+__all__ = ["serve_loop", "generate"]
+
+
+def _sync(device: torch.device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _delta(after: dict, before: dict) -> dict:
+    return {k: after[k] - before[k] for k in after}
+
+
+def generate(model, params, prompts, gen_tokens: int):
+    """Greedy prefill-then-decode of ``prompts`` (B, S); the first token
+    comes from the prefill logits. Returns the tokens (B, gen_tokens),
+    the timings and the kernel launches of each phase."""
+    dev = model.device
+    batch, prompt_len = prompts.shape
+    prefill = make_prefill_step(model, max_len=prompt_len + gen_tokens)
+    decode = make_serve_step(model)
+    prompts = prompts.to(dev)
+
+    c0 = launch_counts()
+    _sync(dev)
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, {"tokens": prompts})
+    tok = logits[:, -1:].argmax(dim=-1)
+    _sync(dev)
+    t_prefill = time.perf_counter() - t0
+    c1 = launch_counts()
+
+    out_tokens = [tok]
+    step_s = []
+    t0 = time.perf_counter()
+    for _ in range(gen_tokens - 1):
+        ts = time.perf_counter()
+        logits, cache = decode(params, cache, {"token": tok})
+        tok = logits.argmax(dim=-1)
+        _sync(dev)
+        step_s.append(time.perf_counter() - ts)
+        out_tokens.append(tok)
+    t_decode = time.perf_counter() - t0
+    c2 = launch_counts()
+
+    steps = np.asarray(step_s) if step_s else np.zeros(1)
+    return {
+        "generated": torch.cat(out_tokens, dim=1),
+        "prefill_s": t_prefill,
+        "decode_s": t_decode,
+        "decode_tok_s": batch * (gen_tokens - 1) / max(t_decode, 1e-9),
+        "step_p50_s": float(np.percentile(steps, 50)),
+        "step_p99_s": float(np.percentile(steps, 99)),
+        "launches": {"prefill": _delta(c1, c0), "decode": _delta(c2, c1)},
+    }
+
+
+def serve_loop(
+    cfg,
+    *,
+    batch: int = 4,
+    prompt_len: int = 64,
+    gen_tokens: int = 32,
+    strategy: str = "dos",
+    mesh_shape=(1, 1),
+    seed: int = 0,
+    greedy: bool = True,
+    device=None,
+):
+    """Serve ``cfg`` with random weights and prompts made from ``seed``.
+
+    Runs on ``cuda`` unless ``device="cpu"``; raises without a card.
+    ``strategy`` names the reference's sharding rules, which place
+    nothing on one device; decoding is greedy, as in the reference.
+    Weights and prompts are drawn on the CPU, so one seed gives the same
+    run on either device."""
+    dev = resolve_device(device)
+    if tuple(mesh_shape) != (1, 1):
+        raise NotImplementedError(
+            "multi-device serving is not ported yet (ROADMAP queue 1 item 10)"
+        )
+    model = build(cfg, device=dev)
+    params = model.compute_params(model.init(torch.Generator().manual_seed(seed)))
+    prompts = torch.randint(0, cfg.vocab, (batch, prompt_len),
+                            generator=torch.Generator().manual_seed(seed + 1))
+    out = generate(model, params, prompts, gen_tokens)
+    out["device"] = device_info(dev)
+    return out
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--arch", default="smollm-135m")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--gen-tokens", type=int, default=32)
+    ap.add_argument("--strategy", default="dos")
+    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("--json", action="store_true",
+                    help="emit the machine-readable summary")
+    args = ap.parse_args(argv)
+
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = reduced(cfg)
+    r = serve_loop(
+        cfg, batch=args.batch, prompt_len=args.prompt_len,
+        gen_tokens=args.gen_tokens, strategy=args.strategy, device=args.device,
+    )
+    if args.json:
+        print(json.dumps({
+            "arch": args.arch,
+            "batch": args.batch,
+            "prompt_len": args.prompt_len,
+            "gen_tokens": args.gen_tokens,
+            "prefill_s": r["prefill_s"],
+            "decode_tok_s": r["decode_tok_s"],
+            "step_p50_s": r["step_p50_s"],
+            "step_p99_s": r["step_p99_s"],
+            "launches": r["launches"],
+            "device": r["device"],
+        }, indent=1))
+        return
+    print(
+        f"prefill {r['prefill_s']*1e3:.1f}ms; decode {r['decode_tok_s']:.1f} tok/s "
+        f"(step p50 {r['step_p50_s']*1e3:.2f}ms, p99 {r['step_p99_s']*1e3:.2f}ms) "
+        f"on {r['device']['kind']}; sample: {r['generated'][0, :16].tolist()}"
+    )
+
+
+if __name__ == "__main__":
+    main()

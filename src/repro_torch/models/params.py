@@ -1,0 +1,104 @@
+"""Parameter definition trees.
+
+A model is described by a nested dict of ``ParamDef`` leaves (shape,
+logical axes, GEMM contraction/output axis indices, initializer), as in
+the JAX package. ``materialize`` turns one into real tensors with the
+same init rules (normal x 1/sqrt(fan_in), or the def's own scale; ones;
+zeros) drawn from a ``torch.Generator``, whose stream differs from
+``jax.random``'s: parity tests load the reference's weights instead
+(``models.convert``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+__all__ = ["ParamDef", "materialize", "tree_size", "stack_defs", "map_tree", "leaves", "unflatten"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamDef:
+    shape: tuple
+    axes: tuple  # logical axis names, len == len(shape)
+    contract: int | None = None  # GEMM contraction axis index
+    out: int | None = None  # GEMM output axis index
+    init: str = "normal"  # normal | zeros | ones
+    scale: float | None = None  # None -> 1/sqrt(fan_in)
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} and axes {self.axes} differ in rank")
+
+
+def map_tree(fn, tree):
+    """Apply ``fn`` to the leaves of nested dicts."""
+    if isinstance(tree, dict):
+        return {k: map_tree(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def leaves(tree, path=()):
+    """(path, leaf) pairs of nested dicts in the reference's flattening
+    order (sorted keys)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from leaves(tree[k], path + (k,))
+    else:
+        yield path, tree
+
+
+def unflatten(pairs) -> dict:
+    """Nested dicts from (path, leaf) pairs, the inverse of ``leaves``."""
+    out: dict = {}
+    for path, leaf in pairs:
+        node = out
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = leaf
+    return out
+
+
+def materialize(defs, generator: torch.Generator, dtype=torch.float32, device=None):
+    """Initialize real parameters for a ParamDef tree. Values are drawn
+    on the generator's device, in the reference's leaf order, then moved
+    to ``device``: one seed gives the same weights on every device."""
+    gen_device = generator.device
+
+    def one(d: ParamDef):
+        if d.init == "zeros":
+            t = torch.zeros(d.shape, dtype=dtype, device=gen_device)
+        elif d.init == "ones":
+            t = torch.ones(d.shape, dtype=dtype, device=gen_device)
+        elif d.init == "normal":
+            fan_in = d.shape[d.contract] if d.contract is not None else d.shape[0]
+            scale = d.scale if d.scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
+            t = (torch.randn(d.shape, generator=generator, device=gen_device) * scale).to(dtype)
+        else:
+            raise ValueError(f"init {d.init!r} is not ported")
+        return t.to(device) if device is not None else t
+
+    return unflatten((path, one(d)) for path, d in leaves(defs))  # a fixed draw order
+
+
+def tree_size(defs) -> int:
+    """Total parameter count of a ParamDef tree."""
+    return sum(math.prod(d.shape) for _, d in leaves(defs))
+
+
+def stack_defs(defs, n: int, axis_name: str = "layers"):
+    """Prepend a stacked-layers dimension to every leaf."""
+
+    def one(d: ParamDef):
+        return ParamDef(
+            shape=(n,) + d.shape,
+            axes=(axis_name,) + d.axes,
+            contract=None if d.contract is None else d.contract + 1,
+            out=None if d.out is None else d.out + 1,
+            init=d.init,
+            scale=d.scale,
+        )
+
+    return map_tree(one, defs)
