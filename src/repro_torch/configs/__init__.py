@@ -1,4 +1,4 @@
-"""Architecture config registry of the port: the dense families.
+"""Architecture config registry of the port: the dense and hybrid families.
 
 ``get_config(name)`` returns the full ArchConfig; ``reduced(cfg)``
 (from repro_torch.config) gives the smoke-test sizing. The configs are
@@ -13,9 +13,10 @@ from .gemma3_1b import CONFIG as gemma3_1b
 from .qwen25_3b import CONFIG as qwen25_3b
 from .qwen2_72b import CONFIG as qwen2_72b
 from .smollm_135m import CONFIG as smollm_135m
+from .zamba2_27b import CONFIG as zamba2_27b
 
 REGISTRY: dict[str, ArchConfig] = {
-    c.name: c for c in [smollm_135m, qwen25_3b, qwen2_72b, gemma3_1b]
+    c.name: c for c in [smollm_135m, qwen25_3b, qwen2_72b, gemma3_1b, zamba2_27b]
 }
 
 # Archs of the JAX package whose families the port does not run yet
@@ -23,7 +24,6 @@ REGISTRY: dict[str, ArchConfig] = {
 NOT_PORTED = {
     "llama-3.2-vision-11b": "vlm",
     "whisper-medium": "encdec",
-    "zamba2-2.7b": "hybrid",
     "deepseek-moe-16b": "moe",
     "llama4-scout-17b-a16e": "moe",
     "xlstm-125m": "ssm",

@@ -20,7 +20,8 @@
 // in f32; moving them to the tensor cores (P rounded to bf16, as the
 // usual flash kernels do) is a later change.
 //
-// Layouts are the JAX package's public ones, read through strides:
+// Head dims 32, 64, 80 (zamba2's shared attention), 128 and 256 are
+// built. Layouts are the JAX package's public ones, read through strides:
 // q, o (B, Sq, H, D) and k, v (B, Skv, KVH, D); query head h reads KV
 // head h / (H / KVH). Sq and Skv may be any length (tails are masked).
 // The window test k > q - window runs in 64-bit integers, so the global
@@ -71,6 +72,7 @@ __global__ void __launch_bounds__(NT) flash_fwd(const T* __restrict__ q, const T
   constexpr int TPR = NT / BT;   // threads per row
   constexpr int SPT = BT / TPR;  // scores per thread per KV step
   constexpr int DPT = D / TPR;   // output columns per thread
+  static_assert(D % TPR == 0, "head dim does not split over a row's threads");
   constexpr int LDQ = D + 1, LDK = D + 1, LDV = D, LDS = BT + 1;
 
   extern __shared__ float smem[];
@@ -202,6 +204,7 @@ int launch_d(int D, const void* q, const void* k, const void* v, void* o, const 
   switch (D) {
     case 32: return launch<T, 32>(q, k, v, o, a, s);
     case 64: return launch<T, 64>(q, k, v, o, a, s);
+    case 80: return launch<T, 80>(q, k, v, o, a, s);  // zamba2's shared attention
     case 128: return launch<T, 128>(q, k, v, o, a, s);
     case 256: return launch<T, 256>(q, k, v, o, a, s);
     default: return (int)cudaErrorInvalidValue;

@@ -24,7 +24,7 @@ from .ref import attention_ref
 __all__ = ["flash_attention", "decode_attention"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 128, 256)
+_HEAD_DIMS = (32, 64, 80, 128, 256)
 _NO_WINDOW = 2**62  # wider than any sequence: no window mask
 _LIB = None
 

@@ -8,6 +8,7 @@ decode. ``--json`` prints the machine-readable summary with the JAX
 package's keys, plus the device the run used.
 
     python -m repro_torch.launch.serve --json            # on the card
+    python -m repro_torch.launch.serve --arch zamba2-2.7b --json
     python -m repro_torch.launch.serve --smoke --device cpu
 """
 
@@ -100,17 +101,22 @@ def serve_loop(
     ``strategy`` names the reference's sharding rules, which place
     nothing on one device; decoding is greedy, as in the reference.
     Weights and prompts are drawn on the CPU, so one seed gives the same
-    run on either device."""
+    run on either device; ``init_s`` is the time that takes (weights
+    drawn, moved and cast), outside the prefill and decode times."""
     dev = resolve_device(device)
     if tuple(mesh_shape) != (1, 1):
         raise NotImplementedError(
             "multi-device serving is not ported yet (ROADMAP queue 1 item 10)"
         )
+    t0 = time.perf_counter()
     model = build(cfg, device=dev)
     params = model.compute_params(model.init(torch.Generator().manual_seed(seed)))
+    _sync(dev)
+    init_s = time.perf_counter() - t0
     prompts = torch.randint(0, cfg.vocab, (batch, prompt_len),
                             generator=torch.Generator().manual_seed(seed + 1))
     out = generate(model, params, prompts, gen_tokens)
+    out["init_s"] = init_s
     out["device"] = device_info(dev)
     return out
 

@@ -1,4 +1,4 @@
-"""Model zoo of the port: the dense decoder."""
+"""Model zoo of the port: the dense and hybrid (Mamba2) decoders."""
 
 from .zoo import Model, build
 

@@ -1,15 +1,17 @@
-"""Decoder LM, dense branch (llama/smollm/qwen and gemma3's local:global).
+"""Decoder LM: the dense branch (llama/smollm/qwen and gemma3's
+local:global) and the hybrid branch (zamba2: groups of Mamba2 layers,
+each group followed by one weight-shared attention+MLP block).
 
-The reference scans a stacked layer tree with ``lax.scan`` and carries
+The reference scans stacked layer trees with ``lax.scan`` and carries
 each layer's window and rope theta as scanned arrays. The port keeps the
-stacked parameter layout (``layers.wq`` is (L, E, H*hd), and so on) but
-runs the layers in a Python loop, so each layer's window and theta are
-Python numbers: the window reaches the flash kernel as a launch
-argument. The other families raise ``NotImplementedError`` naming their
-ROADMAP item.
+stacked parameter layout (``layers.wq`` is (L, E, H*hd); the hybrid's
+``layers.wx`` is (n_groups, period, E, Di), and so on) but runs the
+layers in a Python loop, so each layer's window and theta are Python
+numbers: the window reaches the flash kernel as a launch argument. The
+other families raise ``NotImplementedError`` naming their ROADMAP item.
 
-Modes: ``prefill`` (whole prompt; returns the KV cache) and ``decode``
-(one token; the cache advances in place).
+Modes: ``prefill`` (whole prompt; returns the cache) and ``decode`` (one
+token; the cache advances in place).
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from .layers import (
     rmsnorm_def, unembed,
 )
 from .params import map_tree, stack_defs
+from .ssm import mamba_block, mamba_defs, mamba_init_state
 
 __all__ = ["decoder_defs", "decoder_forward", "init_cache", "layer_metadata"]
 
@@ -32,13 +35,12 @@ _NOT_PORTED = {
     "moe": "ROADMAP queue 1 item 9",
     "vlm": "ROADMAP queue 1 item 9",
     "encdec": "ROADMAP queue 1 item 9",
-    "hybrid": "ROADMAP queue 1 item 8",
     "ssm": "ROADMAP queue 1 item 8",
 }
 
 
 def _check_family(cfg: ArchConfig):
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "hybrid"):
         where = _NOT_PORTED.get(cfg.family, "no ROADMAP item")
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported to repro_torch: {where}"
@@ -54,13 +56,21 @@ def _block_defs(cfg: ArchConfig):
     }
 
 
+def _groups(cfg: ArchConfig):
+    """Hybrid layout: (n_groups, period) Mamba2 layers."""
+    return cfg.n_layers // cfg.attn_every, cfg.attn_every
+
+
 def decoder_defs(cfg: ArchConfig):
     _check_family(cfg)
-    return {
-        "embed": embed_defs(cfg),
-        "final_norm": rmsnorm_def(cfg.d_model),
-        "layers": stack_defs(_block_defs(cfg), cfg.n_layers),
-    }
+    defs = {"embed": embed_defs(cfg), "final_norm": rmsnorm_def(cfg.d_model)}
+    if cfg.family == "hybrid":
+        n_groups, period = _groups(cfg)
+        defs["layers"] = stack_defs(stack_defs(mamba_defs(cfg), period), n_groups)
+        defs["shared_attn"] = _block_defs(cfg)  # ONE set of weights, applied every period
+    else:
+        defs["layers"] = stack_defs(_block_defs(cfg), cfg.n_layers)
+    return defs
 
 
 def layer_metadata(cfg: ArchConfig, n: int | None = None):
@@ -82,15 +92,26 @@ def layer_metadata(cfg: ArchConfig, n: int | None = None):
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16,
                device=None):
-    """Decode-ready cache: stacked (L, B, max_len, KVH, D) k/v buffers and
-    one ``length`` for all layers (the reference keeps a copy per layer)."""
+    """Decode-ready cache and one ``length`` for all layers (the
+    reference keeps a copy per layer). Dense: stacked (L, B, max_len,
+    KVH, D) k/v buffers under ``layers``. Hybrid: the Mamba2 states
+    stacked (n_groups, period, ...) under ``mamba`` (``ssm`` in f32,
+    ``conv`` in ``dtype``) and the shared block's (n_groups, B, max_len,
+    KVH, D) k/v under ``attn``."""
     _check_family(cfg)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim_)
+
+    def kv(n):
+        shape = (n, batch, max_len, cfg.n_kv_heads, cfg.head_dim_)
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+    if cfg.family == "dense":
+        return {"layers": kv(cfg.n_layers), "length": 0}
+    n_groups, period = _groups(cfg)
+    m = mamba_init_state(cfg, batch, dtype, device)
     return {
-        "layers": {
-            "k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device),
-        },
+        "mamba": {k: t.expand((n_groups, period) + t.shape).clone() for k, t in m.items()},
+        "attn": kv(n_groups),
         "length": 0,
     }
 
@@ -104,11 +125,8 @@ def _attn_mlp_block(lp, x, cfg, *, mode, cache, window, theta):
     return x + mlp(lp["ffn"], rmsnorm(x, lp["ln2"], cfg.norm_eps)), new_cache
 
 
-def decoder_forward(params, tokens, cfg: ArchConfig, *, mode: str, cache=None,
-                    max_len: int = 0):
-    """tokens (B, S) int -> (logits (B, S, V) f32, new cache)."""
-    _check_family(cfg)
-    x = embed_tokens(params["embed"], tokens, getattr(torch, cfg.compute_dtype))
+def _dense_layers(params, x, cfg, *, mode, cache):
+    """The dense stack; prefill returns its k/v stacked (L, B, S, KVH, D)."""
     wins, thetas = layer_metadata(cfg)
     ks, vs = [], []  # prefill: each layer's new k, v
     for i in range(cfg.n_layers):
@@ -122,26 +140,72 @@ def decoder_forward(params, tokens, cfg: ArchConfig, *, mode: str, cache=None,
         if mode == "prefill":
             ks.append(nc["k"])
             vs.append(nc["v"])
+    if mode == "decode":
+        return x, {"layers": cache["layers"]}
+    return x, {"layers": {"k": torch.stack(ks), "v": torch.stack(vs)}}
+
+
+def _hybrid_layers(params, x, cfg, *, mode, cache):
+    """Groups of ``period`` residual Mamba2 layers, each group followed by
+    the shared attention+MLP block (no window, ``cfg.rope_theta``).
+    Decode writes the new states into the stacked cache in place."""
+    n_groups, period = _groups(cfg)
+    states, ks, vs = [], [], []  # prefill: each layer's state, each group's k, v
+    for g in range(n_groups):
+        for i in range(period):
+            lp = map_tree(lambda a: a[g, i], params["layers"])
+            st = None
+            if mode == "decode":
+                st = {k: t[g, i] for k, t in cache["mamba"].items()}
+            y, nst = mamba_block(lp, x, cfg, mode=mode, state=st)
+            x = x + y
+            if mode == "decode":
+                for k, t in st.items():
+                    t.copy_(nst[k])
+            else:
+                states.append(nst)
+        cache_a = None
+        if mode == "decode":
+            cache_a = {"k": cache["attn"]["k"][g], "v": cache["attn"]["v"][g],
+                       "length": cache["length"]}
+        x, nc = _attn_mlp_block(params["shared_attn"], x, cfg, mode=mode, cache=cache_a,
+                                window=None, theta=cfg.rope_theta)
+        if mode == "prefill":
+            ks.append(nc["k"])
+            vs.append(nc["v"])
+    if mode == "decode":
+        return x, {"mamba": cache["mamba"], "attn": cache["attn"]}
+    mamba = {k: torch.stack([st[k] for st in states]).unflatten(0, (n_groups, period))
+             for k in ("ssm", "conv")}
+    return x, {"mamba": mamba, "attn": {"k": torch.stack(ks), "v": torch.stack(vs)}}
+
+
+def decoder_forward(params, tokens, cfg: ArchConfig, *, mode: str, cache=None,
+                    max_len: int = 0):
+    """tokens (B, S) int -> (logits (B, S, V) f32, new cache)."""
+    _check_family(cfg)
+    x = embed_tokens(params["embed"], tokens, getattr(torch, cfg.compute_dtype))
+    layers = _hybrid_layers if cfg.family == "hybrid" else _dense_layers
+    x, new_cache = layers(params, x, cfg, mode=mode, cache=cache)
 
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     logits = unembed(params["embed"], x, cfg.tie_embeddings)
 
     if mode == "decode":
-        return logits, {"layers": cache["layers"], "length": cache["length"] + 1}
-    new_cache = {"layers": {"k": torch.stack(ks), "v": torch.stack(vs)},
-                 "length": tokens.shape[1]}
+        new_cache["length"] = cache["length"] + 1
+        return logits, new_cache
+    new_cache["length"] = tokens.shape[1]
     if max_len:
         new_cache = _pad_cache_tree(new_cache, max_len)
     return logits, new_cache
 
 
 def _pad_cache_tree(cache, max_len):
-    """Pad the k/v buffers (dim -3 = seq) up to max_len."""
-    s = cache["layers"]["k"].shape[-3]
+    """Pad the k/v buffers (dim -3 = seq; under ``layers`` or ``attn``)
+    up to max_len."""
+    kv = "attn" if "attn" in cache else "layers"
+    s = cache[kv]["k"].shape[-3]
     if s >= max_len:
         return cache
     pad = (0, 0, 0, 0, 0, max_len - s)  # (D, KVH, S) from the last dim back
-    return {
-        "layers": {n: F.pad(t, pad) for n, t in cache["layers"].items()},
-        "length": cache["length"],
-    }
+    return {**cache, kv: {n: F.pad(t, pad) for n, t in cache[kv].items()}}

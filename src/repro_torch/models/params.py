@@ -4,7 +4,7 @@ A model is described by a nested dict of ``ParamDef`` leaves (shape,
 logical axes, GEMM contraction/output axis indices, initializer), as in
 the JAX package. ``materialize`` turns one into real tensors with the
 same init rules (normal x 1/sqrt(fan_in), or the def's own scale; ones;
-zeros) drawn from a ``torch.Generator``, whose stream differs from
+zeros; Mamba's ``A`` as -[1..H] over the stacking dims) drawn from a ``torch.Generator``, whose stream differs from
 ``jax.random``'s: parity tests load the reference's weights instead
 (``models.convert``).
 """
@@ -25,7 +25,7 @@ class ParamDef:
     axes: tuple  # logical axis names, len == len(shape)
     contract: int | None = None  # GEMM contraction axis index
     out: int | None = None  # GEMM output axis index
-    init: str = "normal"  # normal | zeros | ones
+    init: str = "normal"  # normal | zeros | ones | neg_linspace
     scale: float | None = None  # None -> 1/sqrt(fan_in)
 
     def __post_init__(self):
@@ -72,6 +72,10 @@ def materialize(defs, generator: torch.Generator, dtype=torch.float32, device=No
             t = torch.zeros(d.shape, dtype=dtype, device=gen_device)
         elif d.init == "ones":
             t = torch.ones(d.shape, dtype=dtype, device=gen_device)
+        elif d.init == "neg_linspace":  # mamba A: -[1..H], broadcast over stacking
+            h = d.shape[-1]
+            v = -torch.linspace(1.0, float(h), h, device=gen_device).to(dtype)
+            t = v.expand(d.shape).contiguous()
         elif d.init == "normal":
             fan_in = d.shape[d.contract] if d.contract is not None else d.shape[0]
             scale = d.scale if d.scale is not None else 1.0 / math.sqrt(max(fan_in, 1))

@@ -1,0 +1,112 @@
+"""Mamba2 (SSD) block, the zamba2 backbone.
+
+Structure, as in the JAX package (conv on the x branch only, one B/C
+group):
+
+  x -> in-projections: x_in, z (gate), B, C, dt
+  x_in -> causal depthwise conv (width 4) -> silu
+  y  = SSD-scan(u = dt*x_in, log-decay = dt*A_h, B, C) + D*x_in
+  out = W_o (rmsnorm(y) * silu(z))
+
+Prefill runs the chunked scan (``ssm_scan``: the CUDA kernel on the
+card); decode advances the recurrence one step with the plain
+``ssm_step_ref`` on every device, as the reference does (it has no
+kernel for the step either), carrying (ssm state, conv state). B and C
+are broadcast over the heads as views (stride 0), never copied.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels import ssm_scan, ssm_step_ref
+from .layers import proj, rmsnorm
+from .params import ParamDef
+
+__all__ = ["mamba_defs", "mamba_block", "mamba_init_state"]
+
+_CONV_W = 4
+
+
+def mamba_defs(cfg):
+    e = cfg.d_model
+    di = cfg.ssm_expand * e
+    n = cfg.ssm_state
+    h = di // cfg.ssm_head_dim
+    return {
+        "wx": ParamDef((e, di), ("embed", "ssm_inner"), contract=0, out=1),
+        "wz": ParamDef((e, di), ("embed", "ssm_inner"), contract=0, out=1),
+        "wB": ParamDef((e, n), ("embed", "state"), contract=0, out=1),
+        "wC": ParamDef((e, n), ("embed", "state"), contract=0, out=1),
+        "wdt": ParamDef((e, h), ("embed", "ssm_heads"), contract=0, out=1),
+        "dt_bias": ParamDef((h,), ("ssm_heads",), init="zeros"),
+        "A": ParamDef((h,), ("ssm_heads",), init="neg_linspace"),
+        "D": ParamDef((h,), ("ssm_heads",), init="ones"),
+        "conv_w": ParamDef((_CONV_W, di), ("conv", "ssm_inner"), init="normal", scale=0.5),
+        "norm": ParamDef((di,), ("ssm_inner",), init="ones"),
+        "wo": ParamDef((di, e), ("ssm_inner", "embed"), contract=0, out=1),
+    }
+
+
+def _causal_conv(x, w, state=None):
+    """Depthwise causal conv, width 4. x: (B, S, Di); state: (B, 3, Di)
+    carries the last 3 inputs for decode. Returns (y, new_state)."""
+    b, s, di = x.shape
+    pad = state if state is not None else x.new_zeros((b, _CONV_W - 1, di))
+    xp = torch.cat([pad.to(x.dtype), x], dim=1)  # (B, S+3, Di)
+    w = w.to(x.dtype)
+    y = xp[:, 0:s] * w[0]
+    for i in range(1, _CONV_W):
+        y = y + xp[:, i : i + s] * w[i]
+    return y, xp[:, -(_CONV_W - 1):]
+
+
+def mamba_init_state(cfg, batch, dtype=torch.float32, device=None):
+    di = cfg.ssm_expand * cfg.d_model
+    h = di // cfg.ssm_head_dim
+    return {
+        "ssm": torch.zeros((batch, h, cfg.ssm_state, cfg.ssm_head_dim),
+                           dtype=torch.float32, device=device),
+        "conv": torch.zeros((batch, _CONV_W - 1, di), dtype=dtype, device=device),
+    }
+
+
+def mamba_block(p, x, cfg, *, mode: str, state=None):
+    """Returns (y, new_state). ``state`` is required for decode; prefill
+    starts from zeros and returns the state for the decode loop."""
+    b, s, e = x.shape
+    di = cfg.ssm_expand * e
+    hd = cfg.ssm_head_dim
+    h = di // hd
+    n = cfg.ssm_state
+
+    x_in = proj(x, p["wx"])  # (B, S, Di)
+    z = proj(x, p["wz"])
+    Bm = proj(x, p["wB"])  # (B, S, N)
+    Cm = proj(x, p["wC"])
+    dt = F.softplus(proj(x, p["wdt"]).float() + p["dt_bias"].float())  # (B, S, H)
+
+    x_c, new_conv = _causal_conv(x_in, p["conv_w"], state["conv"] if mode == "decode" else None)
+    xh = F.silu(x_c).reshape(b, s, h, hd)
+
+    A = p["A"].float()
+    u = (dt[..., None] * xh.float()).to(x.dtype)
+    ld = dt * A  # (B, S, H) log-decay, f32
+    Bh = Bm[:, :, None, :].expand(b, s, h, n)
+    Ch = Cm[:, :, None, :].expand(b, s, h, n)
+
+    if mode == "decode":
+        if state is None or s != 1:
+            raise ValueError("decode takes one token and a state")
+        y1, new_ssm = ssm_step_ref(state["ssm"], u[:, 0], ld[:, 0], Bh[:, 0], Ch[:, 0])
+        y = y1[:, None]  # (B, 1, H, hd)
+    elif mode == "prefill":
+        y, new_ssm = ssm_scan(u, ld, Bh, Ch)
+    else:
+        raise NotImplementedError(f"mode {mode!r}: training is ROADMAP queue 1 item 7")
+
+    y = y + p["D"].to(x.dtype)[None, None, :, None] * xh
+    y = rmsnorm(y.reshape(b, s, di), p["norm"], cfg.norm_eps) * F.silu(z)
+    out = proj(y.to(x.dtype), p["wo"])
+    return out, {"ssm": new_ssm, "conv": new_conv}

@@ -20,7 +20,9 @@ from .params import materialize, tree_size
 
 __all__ = ["Model", "build"]
 
-_FLOAT_LEAVES_KEPT = ("ln1", "ln2", "final_norm", "q_norm", "k_norm")
+# Leaves the reference reads in f32: the norm scales (rmsnorm), and
+# Mamba2's A, dt_bias and its gated-norm scale ``norm`` (ssm.py).
+_FLOAT_LEAVES_KEPT = ("ln1", "ln2", "final_norm", "q_norm", "k_norm", "A", "dt_bias", "norm")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,10 +40,12 @@ class Model:
         return materialize(self.defs, generator, dtype, self.device)
 
     def compute_params(self, params):
-        """The parameter tree with every GEMM weight, bias and the
-        embedding table cast once to the compute dtype; the norm scales
-        stay as they are (rmsnorm reads them in f32). ``proj`` would cast
-        the same weights to the same values on every call."""
+        """The parameter tree with every GEMM weight, bias, Mamba2's
+        ``conv_w`` and ``D`` and the embedding table cast once to the
+        compute dtype; the leaves the reference reads in f32 (norm
+        scales, Mamba2's ``A`` and ``dt_bias``) stay as they are. The
+        reference casts the same weights to the same values on every
+        call."""
         dtype = getattr(torch, self.cfg.compute_dtype)
 
         def cast(tree, name=None):

@@ -7,15 +7,19 @@ Marked ``cuda``: without a card each test skips. Run on the card with
 Tolerances: f32, 1e-5 of max|ref| for the matmul (summation order) and
 1e-5 absolute for attention (f32 math on both sides, O(1) outputs);
 bf16 output, one bf16 rounding more: 2**-8 of each entry, measured
-against the f32 result of the same bf16 operands.
+against the f32 result of the same bf16 operands. The SSD scan: 1e-4 of
+max|ref| in f32 (summation order over T*N terms, and the chunk's
+cumulative log-decay summed in another order inside the exp), plus
+2**-8 of each entry of a bf16 y.
 """
 
 import pytest
 import torch
 
-from repro_torch.kernels import dos_matmul, flash_attention
+from repro_torch.kernels import dos_matmul, flash_attention, ssm_scan
 from repro_torch.kernels.dos_matmul import matmul_ref
 from repro_torch.kernels.flash_attention import attention_ref
+from repro_torch.kernels.ssm_scan import CHUNKS, ssm_scan_chunked
 
 pytestmark = pytest.mark.cuda
 
@@ -56,6 +60,7 @@ def test_dos_matmul_rejects_mixed_dtypes(gen):
     (2, 33, 90, 4, 2, 32, True, None, 57),
     (1, 70, 70, 2, 2, 128, False, None, 0),
     (1, 70, 70, 2, 1, 64, True, 0, 0),  # no visible key: mean(v), as the reference
+    (4, 128, 128, 32, 32, 80, True, None, 0),  # zamba2's shared attention, D 80
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel(gen, case, dtype):
@@ -77,3 +82,44 @@ def test_dos_matmul_rejects_b_without_unit_stride(gen):
     b = torch.randn(16, 12, generator=gen, device="cuda")[::2, ::2]
     with pytest.raises(ValueError):
         dos_matmul(a, b)
+
+
+def _ssm_inputs(gen, bt, s, h, p, n, dtype, shared_bc):
+    """Mamba2's inputs: ld = dt * A, dt = softplus(normal), A = -[1..H]."""
+    u = torch.randn(bt, s, h, p, generator=gen, device="cuda").to(dtype)
+    dt = torch.nn.functional.softplus(torch.randn(bt, s, h, generator=gen, device="cuda"))
+    ld = -dt * torch.arange(1, h + 1, device="cuda", dtype=torch.float32)
+    nb = 1 if shared_bc else h
+    B, C = (torch.randn(bt, s, nb, n, generator=gen, device="cuda").to(dtype).expand(-1, -1, h, -1)
+            for _ in range(2))
+    return u, ld, B, C
+
+
+@pytest.mark.parametrize("case", [
+    (4, 128, 80, 64, 64, True),   # zamba2's prefill, B/C broadcast over the heads
+    (2, 200, 8, 64, 64, True),    # ragged S
+    (2, 20, 4, 64, 64, False),    # S below the chunk
+    (1, 512, 4, 64, 64, True),    # many chunks
+    (2, 40, 16, 16, 16, False),   # the reduced configs' N = P = 16
+    (1, 100, 2, 192, 96, False),  # P over several tiles, N 96
+    (1, 33, 2, 1, 96, False),     # P = 1, N 96: mLSTM's normaliser
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("chunk", CHUNKS)
+def test_ssm_scan_kernel(gen, case, dtype, chunk):
+    u, ld, B, C = _ssm_inputs(gen, *case[:5], dtype, case[5])
+    before = ssm_scan.launches
+    y, state = ssm_scan(u, ld, B, C, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssm_scan.launches == before + 1
+    assert y.dtype == dtype and state.dtype == torch.float32
+    ey, es = ssm_scan_chunked(u.float(), ld, B.float(), C.float(), chunk=chunk)
+    ytol = 1e-4 * ey.abs().max() + (2.0**-8 * ey.abs() if dtype == torch.bfloat16 else 0)
+    assert bool(((y.float() - ey).abs() <= ytol).all())
+    assert bool(((state - es).abs() <= 1e-4 * es.abs().max()).all())
+
+
+def test_ssm_scan_rejects_unbuilt_state_dims(gen):
+    u, ld, B, C = _ssm_inputs(gen, 1, 8, 2, 8, 24, torch.float32, False)
+    with pytest.raises(ValueError, match="state dim"):
+        ssm_scan(u, ld, B, C)

@@ -41,7 +41,7 @@ def test_serve_loop_cpu():
     assert 0 < r["step_p50_s"] <= r["step_p99_s"]
     assert r["device"] == {"platform": "cpu", "kind": "cpu", "count": 1}
     # the CPU runs the plain versions: no kernel launched in either phase
-    assert r["launches"] == {p: {"dos_matmul": 0, "flash_attention": 0}
+    assert r["launches"] == {p: {"dos_matmul": 0, "flash_attention": 0, "ssm_scan": 0}
                              for p in ("prefill", "decode")}
     again = serve_loop(cfg, batch=2, prompt_len=16, gen_tokens=6, device="cpu")
     assert torch.equal(again["generated"], gen)  # one seed, one run
@@ -82,6 +82,16 @@ def test_main_json_keys(capsys):
     assert out["device"]["platform"] == "cpu"
 
 
+def test_main_json_keys_hybrid(capsys):
+    serve.main(["--arch", "zamba2-2.7b", "--smoke", "--device", "cpu", "--json", "--batch", "2",
+                "--prompt-len", "8", "--gen-tokens", "3"])
+    out = json.loads(capsys.readouterr().out)
+    assert JSON_KEYS <= set(out)
+    assert out["arch"] == "zamba2-2.7b"
+    assert out["device"]["platform"] == "cpu"
+    assert out["launches"]["prefill"] == {"dos_matmul": 0, "flash_attention": 0, "ssm_scan": 0}
+
+
 def test_entry_points_need_a_card_unless_cpu_is_asked():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid here")
@@ -95,7 +105,7 @@ def test_entry_points_need_a_card_unless_cpu_is_asked():
 def test_unported_families_raise():
     with pytest.raises(KeyError, match="not ported"):
         get_config("deepseek-moe-16b")
-    for family in ("moe", "vlm", "hybrid", "ssm", "encdec"):
+    for family in ("moe", "vlm", "ssm", "encdec"):
         cfg = dataclasses.replace(get_config("smollm-135m"), family=family)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             decoder_defs(cfg)
