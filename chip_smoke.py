@@ -10,19 +10,25 @@ if it fails:
 1. device: a CUDA card must be present; prints its name, count,
    ``nvidia-smi`` name and power limit, and the torch/CUDA versions;
 2. build: compiles every kernel of ``src/repro_torch/kernels/csrc`` with
-   nvcc (one process per source, in parallel) and loads them;
+   nvcc (one process per source, in parallel) and loads them; prints
+   ptxas registers and spills per kernel (dos_matmul's tagged with their
+   variant);
 3. main paths, each with the launch counts set to 0 just before and
    read just after: ``serve_loop`` on smollm-135m (dense) and on
    zamba2-2.7b (hybrid: Mamba2 + shared attention), both at full width
    and depth (batch 4, prompt 128, 32 tokens). Each path must launch
    each of its kernels exactly as often as its layers call it, and the
-   two paths together every registered kernel;
+   two paths together every registered kernel; every ``dos_matmul``
+   launch must be a ``skinny`` or ``wgmma`` one (``general`` 0);
 4. kernels: calls each kernel's wrapper at the main paths' shapes (and
-   a few edge shapes), holds it against its plain PyTorch version on the
-   same inputs with the tolerance stated beside each check, and times
-   kernel, plain version and the one PyTorch call that computes the same
-   function (where there is one), next to the least time the card could
-   take (bound);
+   edge shapes: for dos_matmul M on both sides of each variant's
+   limits, ragged N, both B layouts, operands TMA cannot describe),
+   holds it against its plain PyTorch version on the same inputs with
+   the tolerance stated beside each check, and times kernel, plain
+   version and the one PyTorch call that computes the same function
+   (where there is one), next to the least time the card could take
+   (bound); checks that two calls of each dos_matmul variant give the
+   same bits, and times the dos_matmul wrapper's host cost per call;
 5. card against CPU (plain versions), the same weights and prompts:
    smollm-135m end to end in bf16 (prefill logits and 4 teacher-forced
    decode steps within the bf16 band); zamba2-2.7b at full width with
@@ -41,6 +47,9 @@ if it fails:
    ``{"ok": true, "device": {...}}``.
 
 ``--details PATH`` also writes every measurement to a JSON file.
+``--sweep`` runs phases 1 and 2, times each dos_matmul tiling (BN, K
+split) at every bf16 GEMM shape of the main paths beside torch.matmul,
+and stops.
 """
 
 from __future__ import annotations
@@ -187,10 +196,33 @@ def phase_build():
     for name, path in libs.items():
         log = os.path.splitext(path)[0] + ".log"
         if os.path.isfile(log):
+            fn = ""
             for line in open(log):
-                if "Used" in line or "spill" in line:
-                    print(f"[build] {name}: {line.strip()}")
+                if "Compiling entry function" in line:
+                    fn = _kernel_tag(line.split("'")[1])
+                elif "Used" in line or "spill" in line:
+                    print(f"[build] {name} {fn}: {line.strip().replace('ptxas info    : ', '')}")
     RESULTS["phases"]["build_s"] = dt
+
+
+# dos_matmul's kernels by variant (csrc/dos_matmul.cu)
+_DOS_VARIANT = {"dos_matmul_skinny": "skinny", "dos_matmul_wgmma": "wgmma",
+                "dos_matmul_wmma": "general", "dos_matmul_fma": "f32"}
+
+
+def _kernel_tag(mangled: str) -> str:
+    """A readable name for a compiled kernel: the demangled signature's
+    function and template arguments, led by the dos_matmul variant."""
+    try:
+        name = subprocess.run(["c++filt", mangled], capture_output=True, text=True,
+                              timeout=10).stdout.strip() or mangled
+    except OSError:
+        name = mangled
+    name = name.replace("(anonymous namespace)::", "").split("(")[0].replace("void ", "")
+    for key, variant in _DOS_VARIANT.items():
+        if key in mangled:
+            return f"[{variant}] {name}"
+    return name
 
 
 # ---------------------------------------------------------------------------
@@ -238,6 +270,13 @@ def phase_main_path(arch):
           f"{r['launches']['decode']}, total {counts}", flush=True)
     check(tuple(gen_tokens.shape) == (BATCH, GEN), f"generated shape {tuple(gen_tokens.shape)}")
     check(bool(((gen_tokens >= 0) & (gen_tokens < cfg.vocab)).all()), "token outside vocab")
+    variants = dict(dos_matmul.variants)
+    print(f"[main] {arch} dos_matmul launches by variant: {variants}", flush=True)
+    summary["dos_matmul_variants"] = variants
+    check(variants["general"] == 0 and variants["f32"] == 0,
+          f"{arch}: a bf16 main-path GEMM left the skinny and wgmma kernels: {variants}")
+    check(variants["skinny"] + variants["wgmma"] == counts["dos_matmul"],
+          f"{arch}: variants {variants} do not add up to {counts['dos_matmul']} launches")
     want = expected_launches(cfg)
     check(r["launches"] == want, f"{arch}: launches {r['launches']}, expected {want}")
     check(all(counts[k] > 0 for k, n in want["prefill"].items() if n),
@@ -251,12 +290,13 @@ def phase_main_path(arch):
 # ---------------------------------------------------------------------------
 
 
-def _gemm_case(gen, m, k, n, dtype, b_transposed, n_sets):
+def _gemm_case(gen, m, k, n, dtype, b_transposed, n_sets, offset=0):
     """Operand sets for a GEMM; the transposed case is the tied unembed
-    (B = tok.T, a strided view of the (N, K) embedding table)."""
+    (B = tok.T, a strided view of the (N, K) embedding table). ``offset``
+    elements shift A's base off 16 bytes."""
     sets = []
     for _ in range(n_sets):
-        a = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
+        a = torch.randn(m * k + offset, generator=gen, device="cuda").to(dtype)[offset:].view(m, k)
         if b_transposed:
             b = torch.randn(n, k, generator=gen, device="cuda").to(dtype).T
         else:
@@ -265,12 +305,27 @@ def _gemm_case(gen, m, k, n, dtype, b_transposed, n_sets):
     return sets
 
 
-def check_gemm(gen, m, k, n, dtype, b_transposed=False, time_it=True):
+def gemm_plan(a, b):
+    """The dos_matmul planner's choice for ``a @ b``, as the wrapper asks."""
+    from repro_torch.kernels.dos_matmul import plan
+
+    (m, k), n = a.shape, b.shape[1]
+    b_t = b.stride(1) != 1
+    return plan(m, n, k, a.dtype, b.stride(1) if b_t else b.stride(0), b_t,
+                (a.data_ptr() | b.data_ptr()) % 16 == 0,
+                n_sm=torch.cuda.get_device_properties(a.device).multi_processor_count)
+
+
+def check_gemm(gen, m, k, n, dtype, b_transposed=False, time_it=True, offset=0):
     es = 2 if dtype == torch.bfloat16 else 4
     n_sets = max(1, math.ceil(COLD_BYTES / ((m * k + k * n) * es))) if time_it else 1
-    sets = _gemm_case(gen, m, k, n, dtype, b_transposed, n_sets)
+    sets = _gemm_case(gen, m, k, n, dtype, b_transposed, n_sets, offset)
     a, b = sets[0]
+    p = gemm_plan(a, b)
+    before = dict(dos_matmul.variants)
     out = dos_matmul(a, b, out_dtype=dtype)
+    check(dos_matmul.variants[p.variant] == before[p.variant] + 1,
+          f"dos_matmul {m}x{k}x{n}: planned {p.variant}, counted {dos_matmul.variants}")
     plain = matmul_ref(a, b, dtype)
     exact = matmul_ref(a, b, torch.float32)  # f32 sums of the same operands
     torch.cuda.synchronize()
@@ -281,7 +336,8 @@ def check_gemm(gen, m, k, n, dtype, b_transposed=False, time_it=True):
     tol = (2.0**-8 * exact.abs() if dtype == torch.bfloat16 else 0.0) + 1e-5 * scale
     ok = bool((err <= tol).all())
     row = {"m": m, "k": k, "n": n, "dtype": str(dtype).split(".")[-1],
-           "b_transposed": b_transposed, "max_abs_err": (out.float() - plain.float()).abs().max().item(),
+           "b_transposed": b_transposed, "offset": offset, "variant": p.variant,
+           "plan": p._asdict(), "max_abs_err": (out.float() - plain.float()).abs().max().item(),
            "max_abs_err_vs_f32": err.max().item(), "max_ref": scale, "ok": ok}
     if time_it:
         row["bytes"], row["ops"] = (m * k + k * n + m * n) * es, 2.0 * m * n * k
@@ -289,14 +345,113 @@ def check_gemm(gen, m, k, n, dtype, b_transposed=False, time_it=True):
         row["ms"] = cuda_ms(lambda i: dos_matmul(*sets[i], out_dtype=dtype), len(sets))
         row["plain_ms"] = cuda_ms(lambda i: matmul_ref(*sets[i], dtype), len(sets))
         row["library_ms"] = cuda_ms(lambda i: torch.matmul(*sets[i]), len(sets))
-    print(f"[kernels] dos_matmul {m}x{k}x{n} {row['dtype']}{' B^T' if b_transposed else ''}: "
-          f"max|err| vs f32 {row['max_abs_err_vs_f32']:.3g} (max|ref| {scale:.3g}) "
+    tiling = "" if p.variant in ("general", "f32") else f" bn {p.bn} split {p.split}"
+    print(f"[kernels] dos_matmul {m}x{k}x{n} {row['dtype']}{' B^T' if b_transposed else ''}"
+          f"{f' A+{offset}' if offset else ''} [{p.variant}{tiling}]: max|err| vs f32 "
+          f"{row['max_abs_err_vs_f32']:.3g} (max|ref| {scale:.3g}) "
           + (f"kernel {row['ms']*1e3:.1f} us, plain {row['plain_ms']*1e3:.1f} us, "
              f"torch.matmul {row['library_ms']*1e3:.1f} us, bound {row['bound_ms']*1e3:.2f} us "
              f"({row['bound_by']})" if time_it else "")
           + ("" if ok else "  FAIL"), flush=True)
     check(ok, f"dos_matmul {m}x{k}x{n} {dtype} disagrees with its plain version")
     return row
+
+
+def check_bit_identical(gen) -> dict:
+    """Two calls of each variant on the same inputs give the same bits."""
+    cases = {"skinny": (4, 10240, 2560, False), "skinny B^T": (4, 576, 49152, True),
+             "wgmma": (512, 2560, 2560, False), "wgmma split": (512, 2560, 64, False),
+             "wgmma B^T": (512, 576, 49152, True), "general": (37, 200, 130, False),
+             "f32": (4, 576, 192, False)}
+    out = {}
+    for tag, (m, k, n, tr) in cases.items():
+        dtype = torch.float32 if tag == "f32" else torch.bfloat16
+        a, b = _gemm_case(gen, m, k, n, dtype, tr, 1)[0]
+        variant = gemm_plan(a, b).variant
+        check(variant == tag.split()[0], f"bit-identity case {tag} planned {variant}")
+        same = torch.equal(dos_matmul(a, b), dos_matmul(a, b))
+        out[tag] = same
+        print(f"[kernels] dos_matmul {tag} {m}x{k}x{n}: two calls bit-identical: {same}",
+              flush=True)
+        check(same, f"dos_matmul {tag}: two calls on the same inputs differ")
+    return out
+
+
+def wrapper_host_us(n_calls=1000) -> float:
+    """Host time per call of the dos_matmul wrapper at a decode shape
+    (smollm's 4x576x576, bf16): ``time.perf_counter`` over ``n_calls``
+    back-to-back enqueues, after a warm-up. The device work per call is
+    shorter than the host's, so the launch queue never fills."""
+    a = torch.randn(BATCH, 576, device="cuda").to(torch.bfloat16)
+    b = torch.randn(576, 576, device="cuda").to(torch.bfloat16)
+    for _ in range(50):
+        dos_matmul(a, b)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_calls):
+        dos_matmul(a, b)
+    us = (time.perf_counter() - t0) / n_calls * 1e6
+    torch.cuda.synchronize()
+    print(f"[kernels] dos_matmul wrapper host time at {BATCH}x576x576 bf16: {us:.3f} us per "
+          f"call ({n_calls} back-to-back enqueues)", flush=True)
+    return us
+
+
+def sweep_dos_matmul() -> list:
+    """Every bf16 GEMM shape of the main paths (prefill M = 512 and decode
+    M = 4) under each tiling its variant can take (BN, K split), timed as
+    phase 4 times kernels, beside torch.matmul: the measurements the
+    planner's constants (kernels/dos_matmul/ops.py) are fitted to. Each
+    tiling's output is held against the f32 result first."""
+    from repro_torch.kernels.dos_matmul import ops
+
+    lib, gen, rows = ops._lib(), torch.Generator(device="cuda").manual_seed(0), []
+    cdiv = lambda x, y: -(-x // y)  # noqa: E731
+    shapes = {(m, k, n, tr) for arch in PATHS for m in (BATCH * PROMPT, BATCH)
+              for (k, n, tr) in path_gemms(get_config(arch))}
+    for m, k, n, tr in sorted(shapes):
+        n_sets = max(1, math.ceil(COLD_BYTES / ((m * k + k * n) * 2)))
+        sets = _gemm_case(gen, m, k, n, torch.bfloat16, tr, n_sets)
+        outs = [torch.empty(m, n, device="cuda", dtype=torch.bfloat16) for _ in sets]
+        exact = matmul_ref(*sets[0], torch.float32)
+        chosen = gemm_plan(*sets[0])
+        cands = set()
+        if m <= ops.SKINNY_MAX_M:
+            for bn in ((64,) if tr else (64, 128)):
+                for split in range(1, ops.MAX_CLUSTER + 1):
+                    kc = max(8, cdiv(cdiv(k, split), 8) * 8)
+                    cands.add(ops.Plan("skinny", chosen.bm, bn, cdiv(k, kc), kc))
+        else:
+            for bn in (64, 128, 192, 256):
+                for split in range(1, ops._W_MAX_SPLIT + 1):
+                    per = cdiv(cdiv(k, ops.W_BK), split)
+                    cands.add(ops.Plan("wgmma", ops.W_BM, bn, cdiv(cdiv(k, ops.W_BK), per),
+                                       per * ops.W_BK))
+        line = []
+        for p in sorted(cands, key=lambda q: (q.bn, q.split)):
+            args = ops._Launch(m, n, k, sets[0][1].stride(0), sets[0][1].stride(1), 1, 1,
+                               ops._CODES[p.variant], p.bm, p.bn, p.split, p.k_chunk)
+
+            def fn(i, args=args):
+                a, b = sets[i]
+                err = lib.dos_matmul_launch(a.data_ptr(), b.data_ptr(), outs[i].data_ptr(), args,
+                                            torch.cuda.current_stream().cuda_stream)
+                check(err == 0, f"sweep launch {p} failed: {err}")
+
+            fn(0)
+            torch.cuda.synchronize()
+            check(bool(((outs[0].float() - exact).abs()
+                        <= 2.0**-8 * exact.abs() + 1e-5 * exact.abs().max()).all()),
+                  f"sweep {m}x{k}x{n} {p} disagrees with its plain version")
+            us = cuda_ms(fn, n_sets) * 1e3
+            rows.append(dict(m=m, k=k, n=n, b_transposed=tr, plan=p._asdict(), us=us,
+                             chosen=p == chosen))
+            line.append(f"{p.bn}/{p.split}:{us:.1f}{'*' if p == chosen else ''}")
+        lib_us = cuda_ms(lambda i: torch.matmul(*sets[i]), n_sets) * 1e3
+        rows.append(dict(m=m, k=k, n=n, b_transposed=tr, library_us=lib_us))
+        print(f"[sweep] {chosen.variant} {m}x{k}x{n}{' B^T' if tr else ''} torch.matmul "
+              f"{lib_us:.1f} us | BN/split: " + " ".join(line), flush=True)
+    return rows
 
 
 def _visible_pairs(sq, skv, causal, window, q_offset):
@@ -472,6 +627,18 @@ def phase_kernels():
     for dtype in (torch.bfloat16, torch.float32):
         check_gemm(gen, 37, 200, 130, dtype, time_it=False)  # ragged on every side
         check_gemm(gen, 37, 200, 130, dtype, b_transposed=True, time_it=False)
+    # each variant's edges: M on both sides of the skinny limit and of the
+    # wgmma tile, N ragged against the 64/128/256 tiles, both B layouts,
+    # K and ldb that TMA cannot describe (general at M > 16), A's base
+    # off 16 bytes
+    for m in (1, 2, 3, 16, 17, 63, 65, 200):
+        check_gemm(gen, m, 2560, 80, torch.bfloat16, time_it=False)
+        check_gemm(gen, m, 576, 1000, torch.bfloat16, b_transposed=True, time_it=False)
+        check_gemm(gen, m, 200, 130, torch.bfloat16, time_it=False)
+        check_gemm(gen, m, 100, 300, torch.bfloat16, b_transposed=True, time_it=False)
+        check_gemm(gen, m, 1536, 576, torch.bfloat16, time_it=False, offset=1)
+    RESULTS["dos_matmul_bit_identical"] = check_bit_identical(gen)
+    RESULTS["dos_matmul_host_us"] = wrapper_host_us()
 
     cfg = get_config(ARCH)
     hd, h, kvh = cfg.head_dim_, cfg.n_heads, cfg.n_kv_heads
@@ -703,13 +870,15 @@ def phase_profile(arch, model, params, cache, tok, step_p50_s):
             end = t1
     busy_ms = busy / 1e3 / PROFILE_STEPS
     idle = 1.0 - busy_ms / (step_p50_s * 1e3)
+    dos_ms = sum(us for n, us in by_name.items() if "dos_matmul" in n) / 1e3 / PROFILE_STEPS
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     print(f"[profile] {arch} decode step: device busy {busy_ms:.3f} ms of a {step_p50_s*1e3:.3f} ms "
           f"step (p50 without profiler): idle share {idle:.3f}; {len(spans) / PROFILE_STEPS:.0f} "
-          f"device ops per step", flush=True)
+          f"device ops per step; dos_matmul {dos_ms:.3f} ms per step", flush=True)
     for name, us in top:
         print(f"[profile]   {us / PROFILE_STEPS:9.1f} us/step  {name[:90]}")
     RESULTS["profile"][arch] = {"busy_ms_per_step": busy_ms, "idle_share": idle,
+                                "dos_matmul_ms_per_step": dos_ms,
                           "device_ops_per_step": len(spans) / PROFILE_STEPS,
                           "top_us_per_step": {n: us / PROFILE_STEPS for n, us in top}}
 
@@ -720,10 +889,19 @@ def phase_profile(arch, model, params, cache, tok, step_p50_s):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Drive the PyTorch/CUDA port on one GPU.")
     ap.add_argument("--details", metavar="PATH", help="write every measurement as JSON")
-    details = ap.parse_args(argv).details
+    ap.add_argument("--sweep", action="store_true",
+                    help="only time every dos_matmul tiling at the main paths' shapes, and stop")
+    args = ap.parse_args(argv)
+    details = args.details
     t0 = time.perf_counter()
     name, count, smi_line = phase_device()
     phase_build()
+    if args.sweep:
+        RESULTS["dos_matmul_sweep"] = sweep_dos_matmul()
+        if details:
+            with open(details, "w") as f:
+                json.dump(RESULTS, f, indent=1)
+        return 0
     counts, step_p50_s = {}, {}
     for arch in PATHS:  # first, so nothing else holds memory
         counts[arch], step_p50_s[arch] = phase_main_path(arch)

@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import dos_matmul, flash_attention, ssm_scan
-from repro_torch.kernels.dos_matmul import matmul_ref
+from repro_torch.kernels.dos_matmul import matmul_ref, plan
 from repro_torch.kernels.flash_attention import attention_ref
 from repro_torch.kernels.ssm_scan import CHUNKS, ssm_scan_chunked
 
@@ -46,6 +46,107 @@ def test_dos_matmul_kernel(gen, m, k, n, dtype, transposed):
     tol = 1e-5 * exact.abs().max() + (2.0**-8 * exact.abs() if dtype == torch.bfloat16 else 0)
     assert out.dtype == dtype
     assert bool(((out.float() - exact).abs() <= tol).all())
+
+
+def _gemm_operands(gen, m, k, n, transposed, offset=0, dtype=torch.bfloat16):
+    """A (m, k), and B (k, n) row-major or as the transposed view of an
+    (n, k) table; ``offset`` elements shift A's base off 16 bytes."""
+    a = torch.randn(m * k + offset, generator=gen, device="cuda").to(dtype)[offset:].view(m, k)
+    b = torch.randn(n, k, generator=gen, device="cuda").to(dtype)
+    return a, (b.T if transposed else b.reshape(k, n))
+
+
+def _plan_of(a, b, out_dtype=None):
+    (m, k), n = a.shape, b.shape[1]
+    b_t = b.stride(1) != 1
+    return plan(m, n, k, a.dtype, b.stride(1) if b_t else b.stride(0), b_t,
+                (a.data_ptr() | b.data_ptr()) % 16 == 0, out_dtype)
+
+
+def _check_variant(a, b, want, out_dtype=None):
+    """One call of the wrapper: it must run the planned variant, count it
+    once, and agree with the f32 result of the same operands."""
+    out_dtype = out_dtype or a.dtype
+    assert _plan_of(a, b, out_dtype).variant == want
+    before = dict(dos_matmul.variants)
+    out = dos_matmul(a, b, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    assert dos_matmul.variants == dict(before, **{want: before[want] + 1})
+    exact = matmul_ref(a, b, torch.float32)
+    tol = 1e-5 * exact.abs().max() + (2.0**-8 * exact.abs() if out_dtype == torch.bfloat16 else 0)
+    assert out.dtype == out_dtype
+    assert bool(((out.float() - exact).abs() <= tol).all())
+    return out
+
+
+@pytest.mark.parametrize("k", [576, 2560, 10240])
+@pytest.mark.parametrize("n", [64, 80, 192, 2560])
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 16])
+@pytest.mark.parametrize("transposed", [False, True])
+def test_dos_matmul_skinny(gen, m, n, k, transposed):
+    _check_variant(*_gemm_operands(gen, m, k, n, transposed), "skinny")
+
+
+@pytest.mark.parametrize("k", [576, 2560])
+@pytest.mark.parametrize("n", [64, 80, 2560, 32000])
+@pytest.mark.parametrize("m", [17, 64, 200, 512])
+@pytest.mark.parametrize("transposed", [False, True])
+def test_dos_matmul_wgmma(gen, m, n, k, transposed):
+    _check_variant(*_gemm_operands(gen, m, k, n, transposed), "wgmma")
+
+
+@pytest.mark.parametrize("m,want", [(4, "skinny"), (512, "wgmma")])
+def test_dos_matmul_tied_unembed_view(gen, m, want):
+    """smollm's tied head: x @ tok.T with tok (49152, 576), no copy."""
+    _check_variant(*_gemm_operands(gen, m, 576, 49152, True), want)
+
+
+@pytest.mark.parametrize("m,k,n,transposed,offset", [
+    (37, 200, 130, False, 0),  # ldb = N = 130
+    (64, 100, 256, False, 0),  # K = 100
+    (64, 256, 256, False, 1),  # A's base 2 bytes off 16
+    (65, 100, 300, True, 0),   # transposed, ldb = K = 100
+])
+def test_dos_matmul_general(gen, m, k, n, transposed, offset):
+    _check_variant(*_gemm_operands(gen, m, k, n, transposed, offset), "general")
+
+
+@pytest.mark.parametrize("m,k,n,transposed,offset", [(3, 200, 130, False, 1), (16, 100, 300, True, 0)])
+def test_dos_matmul_skinny_unaligned(gen, m, k, n, transposed, offset):
+    _check_variant(*_gemm_operands(gen, m, k, n, transposed, offset), "skinny")
+
+
+@pytest.mark.parametrize("m,k", [(4, 2560), (16, 576), (512, 2560)])
+@pytest.mark.parametrize("n", [80, 2560])
+@pytest.mark.parametrize("transposed", [False, True])
+def test_dos_matmul_f32_output_of_bf16(gen, m, k, n, transposed):
+    """bf16 operands asked for an f32 output run the general kernel at any
+    M (skinny and wgmma store bf16 only), held to the f32 tolerance."""
+    _check_variant(*_gemm_operands(gen, m, k, n, transposed), "general", torch.float32)
+
+
+# the bit-identity cases whose K is split over a cluster
+_SPLIT_CASES = {(4, 10240, 2560), (16, 2560, 64), (512, 2560, 64)}
+
+
+@pytest.mark.parametrize("m,k,n,transposed,offset,dtype,want", [
+    (4, 10240, 2560, False, 0, torch.bfloat16, "skinny"),
+    (16, 2560, 64, False, 0, torch.bfloat16, "skinny"),      # 4 row chunks, a K split
+    (4, 576, 49152, True, 0, torch.bfloat16, "skinny"),
+    (512, 2560, 64, False, 0, torch.bfloat16, "wgmma"),      # a K split over a cluster
+    (512, 2560, 2560, False, 0, torch.bfloat16, "wgmma"),
+    (512, 576, 4096, True, 0, torch.bfloat16, "wgmma"),
+    (37, 200, 130, False, 0, torch.bfloat16, "general"),
+    (4, 576, 192, False, 0, torch.float32, "f32"),
+])
+def test_dos_matmul_bit_identical(gen, m, k, n, transposed, offset, dtype, want):
+    """Two calls on the same inputs give the same bits: K splits meet in
+    a fixed order, with no atomics."""
+    a, b = _gemm_operands(gen, m, k, n, transposed, offset, dtype)
+    if (m, k, n) in _SPLIT_CASES:
+        assert _plan_of(a, b).split > 1  # partial tiles meet over the cluster
+    first = _check_variant(a, b, want)
+    assert torch.equal(first, dos_matmul(a, b))
 
 
 def test_dos_matmul_rejects_mixed_dtypes(gen):
