@@ -11,24 +11,27 @@ if it fails:
    ``nvidia-smi`` name and power limit, and the torch/CUDA versions;
 2. build: compiles every kernel of ``src/repro_torch/kernels/csrc`` with
    nvcc (one process per source, in parallel) and loads them; prints
-   ptxas registers and spills per kernel (dos_matmul's tagged with their
-   variant);
+   ptxas registers and spills per kernel, each tagged with its variant;
 3. main paths, each with the launch counts set to 0 just before and
    read just after: ``serve_loop`` on smollm-135m (dense) and on
    zamba2-2.7b (hybrid: Mamba2 + shared attention), both at full width
    and depth (batch 4, prompt 128, 32 tokens). Each path must launch
    each of its kernels exactly as often as its layers call it, and the
    two paths together every registered kernel; every ``dos_matmul``
-   launch must be a ``skinny`` or ``wgmma`` one (``general`` 0);
+   launch must be a ``skinny`` or ``wgmma`` one (``general`` 0), and
+   every ``flash_attention`` and ``ssm_scan`` launch an ``mma`` one
+   (``fma`` 0), each kernel's variants adding up to its launches;
 4. kernels: calls each kernel's wrapper at the main paths' shapes (and
    edge shapes: for dos_matmul M on both sides of each variant's
-   limits, ragged N, both B layouts, operands TMA cannot describe),
+   limits, ragged N, both B layouts, operands TMA cannot describe; for
+   attention and the scan every head dim, N and chunk, ragged tails,
+   and layouts that plan to ``fma``: a base off 16 bytes, a stride of 2),
    holds it against its plain PyTorch version on the same inputs with
    the tolerance stated beside each check, and times kernel, plain
    version and the one PyTorch call that computes the same function
    (where there is one), next to the least time the card could take
-   (bound); checks that two calls of each dos_matmul variant give the
-   same bits, and times the dos_matmul wrapper's host cost per call;
+   (bound); checks that two calls of each variant of each kernel give
+   the same bits, and times the dos_matmul wrapper's host cost per call;
 5. card against CPU (plain versions), the same weights and prompts:
    smollm-135m end to end in bf16 (prefill logits and 4 teacher-forced
    decode steps within the bf16 band); zamba2-2.7b at full width with
@@ -40,9 +43,11 @@ if it fails:
    own bf16 and f32 logits differ by O(1)), so two bf16 runs that round
    in different orders cannot agree end to end; the script prints that
    difference too;
-6. profile, per path: a few decode steps under ``torch.profiler`` give
-   the device busy time per step and the idle share against the main
-   path's step time;
+6. profile, per path: one prefill of the full model under
+   ``torch.profiler`` gives its device busy time, the idle share against
+   the same prefill's wall time without the profiler, and device time by
+   kernel; a few decode steps give the device busy time per step and the
+   idle share against the main path's step time;
 7. prints the kernels line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -56,6 +61,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -205,24 +211,30 @@ def phase_build():
     RESULTS["phases"]["build_s"] = dt
 
 
-# dos_matmul's kernels by variant (csrc/dos_matmul.cu)
-_DOS_VARIANT = {"dos_matmul_skinny": "skinny", "dos_matmul_wgmma": "wgmma",
-                "dos_matmul_wmma": "general", "dos_matmul_fma": "f32"}
+# the kernels of each variant, by function name (csrc/*.cu)
+_VARIANT_OF = {"dos_matmul_skinny": "skinny", "dos_matmul_wgmma": "wgmma",
+               "dos_matmul_wmma": "general", "dos_matmul_fma": "f32",
+               "flash_mma": "mma", "flash_fwd": "fma", "ssd_mma": "mma", "ssd_fwd": "fma"}
+
+
+def _variant_tag(name: str) -> str:
+    """``name`` led by its kernel's variant, where it is one of the port's."""
+    for key, variant in _VARIANT_OF.items():
+        if key in name:
+            return f"[{variant}] {name}"
+    return name
 
 
 def _kernel_tag(mangled: str) -> str:
     """A readable name for a compiled kernel: the demangled signature's
-    function and template arguments, led by the dos_matmul variant."""
+    function and template arguments, led by its variant."""
     try:
         name = subprocess.run(["c++filt", mangled], capture_output=True, text=True,
                               timeout=10).stdout.strip() or mangled
     except OSError:
         name = mangled
-    name = name.replace("(anonymous namespace)::", "").split("(")[0].replace("void ", "")
-    for key, variant in _DOS_VARIANT.items():
-        if key in mangled:
-            return f"[{variant}] {name}"
-    return name
+    return _variant_tag(name.replace("(anonymous namespace)::", "").split("(")[0]
+                        .replace("void ", ""))
 
 
 # ---------------------------------------------------------------------------
@@ -277,6 +289,13 @@ def phase_main_path(arch):
           f"{arch}: a bf16 main-path GEMM left the skinny and wgmma kernels: {variants}")
     check(variants["skinny"] + variants["wgmma"] == counts["dos_matmul"],
           f"{arch}: variants {variants} do not add up to {counts['dos_matmul']} launches")
+    for kname, fn in (("flash_attention", flash_attention), ("ssm_scan", ssm_scan)):
+        v = dict(fn.variants)
+        print(f"[main] {arch} {kname} launches by variant: {v}", flush=True)
+        summary[f"{kname}_variants"] = v
+        check(v["fma"] == 0, f"{arch}: a bf16 main-path {kname} call launched fma: {v}")
+        check(sum(v.values()) == counts[kname],
+              f"{arch}: {kname} variants {v} do not add up to {counts[kname]} launches")
     want = expected_launches(cfg)
     check(r["launches"] == want, f"{arch}: launches {r['launches']}, expected {want}")
     check(all(counts[k] > 0 for k, n in want["prefill"].items() if n),
@@ -377,6 +396,33 @@ def check_bit_identical(gen) -> dict:
     return out
 
 
+def check_attn_scan_bit_identical(gen) -> dict:
+    """Two calls of each flash_attention and ssm_scan variant on the same
+    inputs give the same bits (neither uses atomics)."""
+    out = {}
+    cfg, hcfg = get_config(ARCH), get_config(HYBRID)
+    for dtype in (torch.bfloat16, torch.float32):
+        for c in (cfg, hcfg):
+            q, k, v = (torch.randn(BATCH, PROMPT, hh, c.head_dim_, generator=gen,
+                                   device="cuda").to(dtype) for hh in (c.n_heads, c.n_kv_heads,
+                                                                       c.n_kv_heads))
+            variant = _want_variant(dtype)
+            tag = f"flash_attention {variant} H{c.n_heads}/{c.n_kv_heads} D{c.head_dim_}"
+            call = functools.partial(flash_attention, q, k, v)
+            o1, o2 = (_count_variant(flash_attention, variant, call) for _ in range(2))
+            out[tag] = torch.equal(o1, o2)
+        for chunk in CHUNKS:
+            u, ld, B, C = _ssm_set(gen, BATCH, PROMPT, 80, 64, 64, dtype, True)
+            variant = _want_variant(dtype)
+            call = functools.partial(ssm_scan, u, ld, B, C, chunk=chunk)
+            (y1, s1), (y2, s2) = (_count_variant(ssm_scan, variant, call) for _ in range(2))
+            out[f"ssm_scan {variant} chunk {chunk}"] = torch.equal(y1, y2) and torch.equal(s1, s2)
+    for tag, same in out.items():
+        print(f"[kernels] {tag}: two calls bit-identical: {same}", flush=True)
+        check(same, f"{tag}: two calls on the same inputs differ")
+    return out
+
+
 def wrapper_host_us(n_calls=1000) -> float:
     """Host time per call of the dos_matmul wrapper at a decode shape
     (smollm's 4x576x576, bf16): ``time.perf_counter`` over ``n_calls``
@@ -464,15 +510,45 @@ def _visible_pairs(sq, skv, causal, window, q_offset):
     return n
 
 
+def _off16(t):
+    """``t``'s values in a tensor of its shape whose base lies 2 bytes off
+    16-byte alignment: a layout the mma variants do not take."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _want_variant(dtype, layout="aligned"):
+    """The variant a flash_attention or ssm_scan call must launch, from
+    its inputs alone: bf16 operands with 16-byte rows take the tensor
+    cores (mma); f32 operands, or a base off 16 bytes or a strided inner
+    dimension, take the CUDA cores (fma)."""
+    return "mma" if dtype == torch.bfloat16 and layout == "aligned" else "fma"
+
+
+def _count_variant(fn, want, call):
+    """``call()``, which must launch ``fn``'s ``want`` variant once."""
+    before = dict(fn.variants)
+    out = call()
+    check(fn.variants == dict(before, **{want: before[want] + 1}),
+          f"expected one {want} launch; counted {fn.variants} (before {before})")
+    return out
+
+
 def check_flash(gen, b, sq, skv, h, kvh, d, dtype, causal=True, window=None, q_offset=0,
-                time_it=False):
+                time_it=False, layout="aligned"):
+    """``layout`` "offset" moves each operand's base 2 bytes off 16 (fma)."""
     per_set = (b * sq * h + 2 * b * skv * kvh) * d * (2 if dtype == torch.bfloat16 else 4)
     n_sets = max(1, math.ceil(COLD_BYTES / per_set)) if time_it else 1
     sets = [tuple(torch.randn(b, s, hh, d, generator=gen, device="cuda").to(dtype)
                   for s, hh in ((sq, h), (skv, kvh), (skv, kvh))) for _ in range(n_sets)]
+    if layout == "offset":
+        sets[0] = tuple(_off16(t) for t in sets[0])
     q, k, v = sets[0]
     kw = dict(causal=causal, window=window, q_offset=q_offset)
-    out = flash_attention(q, k, v, **kw)
+    variant = _want_variant(dtype, layout)
+    out = _count_variant(flash_attention, variant, lambda: flash_attention(q, k, v, **kw))
     plain = attention_ref(q, k, v, **kw)
     exact = attention_ref(q.float(), k.float(), v.float(), **kw)
     torch.cuda.synchronize()
@@ -482,8 +558,10 @@ def check_flash(gen, b, sq, skv, h, kvh, d, dtype, causal=True, window=None, q_o
     tol = (2.0**-8 * exact.abs() if dtype == torch.bfloat16 else 0.0) + 1e-5
     ok = bool((err <= tol).all())
     tag = (f"B{b} Sq{sq} Skv{skv} H{h}/{kvh} D{d} {str(dtype).split('.')[-1]} "
-           f"causal={causal} window={window} q_offset={q_offset}")
-    row = {"case": tag, "max_abs_err": (out.float() - plain.float()).abs().max().item(),
+           f"causal={causal} window={window} q_offset={q_offset}"
+           f"{' base+2B' if layout == 'offset' else ''} [{variant}]")
+    row = {"case": tag, "variant": variant,
+           "max_abs_err": (out.float() - plain.float()).abs().max().item(),
            "max_abs_err_vs_f32": err.max().item(), "ok": ok}
     if time_it:
         es = 2 if dtype == torch.bfloat16 else 4
@@ -541,13 +619,21 @@ def ssm_work(bt, s, h, p, n, es, shared_bc, chunk):
     return n_bytes, float(ops * bt * h)
 
 
-def check_ssm(gen, bt, s, h, p, n, dtype, shared_bc=True, chunk=CHUNK, time_it=False):
+def check_ssm(gen, bt, s, h, p, n, dtype, shared_bc=True, chunk=CHUNK, time_it=False,
+              layout="aligned"):
+    """``layout`` "offset" moves u's base 2 bytes off 16, "strided" reads u
+    with a stride of 2 along P (both fma)."""
     es = 2 if dtype == torch.bfloat16 else 4
     n_bytes, n_ops = ssm_work(bt, s, h, p, n, es, shared_bc, chunk)
     n_sets = max(1, math.ceil(COLD_BYTES / n_bytes)) if time_it else 1
     sets = [_ssm_set(gen, bt, s, h, p, n, dtype, shared_bc) for _ in range(n_sets)]
     u, ld, B, C = sets[0]
-    y, st = ssm_scan(u, ld, B, C, chunk=chunk)
+    if layout == "offset":
+        u = _off16(u)
+    elif layout == "strided":
+        u = torch.stack([u, u], dim=-1).flatten(-2)[..., ::2]
+    variant = _want_variant(dtype, layout)
+    y, st = _count_variant(ssm_scan, variant, lambda: ssm_scan(u, ld, B, C, chunk=chunk))
     py, pst = ssm_scan_chunked(u, ld, B, C, chunk)
     ey, est = ssm_scan_chunked(u.float(), ld, B.float(), C.float(), chunk)  # f32 of the same operands
     torch.cuda.synchronize()
@@ -558,8 +644,10 @@ def check_ssm(gen, bt, s, h, p, n, dtype, shared_bc=True, chunk=CHUNK, time_it=F
     ytol = 1e-4 * ey.abs().max() + (2.0**-8 * ey.abs() if dtype == torch.bfloat16 else 0.0)
     ok = bool((yerr <= ytol).all()) and bool((serr <= 1e-4 * est.abs().max()).all())
     tag = (f"Bt{bt} S{s} H{h} P{p} N{n} {str(dtype).split('.')[-1]} chunk {chunk}"
-           f"{' B/C broadcast' if shared_bc else ''}")
-    row = {"case": tag, "max_abs_err": max((y.float() - py.float()).abs().max().item(),
+           f"{' B/C broadcast' if shared_bc else ''}"
+           f"{'' if layout == 'aligned' else ' u ' + layout} [{variant}]")
+    row = {"case": tag, "variant": variant,
+           "max_abs_err": max((y.float() - py.float()).abs().max().item(),
                                            (st - pst).abs().max().item()),
            "max_abs_err_vs_f32": max(yerr.max().item(), serr.max().item()),
            "max_ref": max(ey.abs().max().item(), est.abs().max().item()), "ok": ok}
@@ -651,16 +739,21 @@ def phase_kernels():
     add("flash_attention", check_flash(gen, BATCH, PROMPT, PROMPT, hh, hkvh, hhd, torch.bfloat16,
                                        time_it=True), calls["flash_attention"], HYBRID)
     for dtype in (torch.bfloat16, torch.float32):
-        if dtype == torch.float32:
-            check_flash(gen, BATCH, PROMPT, PROMPT, h, kvh, hd, dtype)
-            check_flash(gen, BATCH, PROMPT, PROMPT, hh, hkvh, hhd, dtype)  # zamba2's D 80
-        check_flash(gen, BATCH, 200, 200, h, kvh, hd, dtype)  # ragged
-        check_flash(gen, BATCH, PROMPT, PROMPT, h, kvh, hd, dtype, window=32)
-        check_flash(gen, 2, PROMPT, PROMPT, 4, 1, 256, dtype)  # gemma3's D, MQA
-        check_flash(gen, 2, 64, 200, 4, 2, 32, dtype, q_offset=136)  # queries at the end
-        check_flash(gen, 2, 64, 64, 4, 4, 128, dtype, causal=False, window=2**30)
-        check_flash(gen, 1, 70, 70, 2, 1, 64, dtype, window=0)  # no visible key: mean(v)
-        check_flash(gen, 2, 90, 90, 4, 4, 80, dtype, window=16)  # D 80, ragged, window
+        # bf16 cases in both layouts: aligned plans mma, a base off 16 bytes fma
+        for layout in (("aligned", "offset") if dtype == torch.bfloat16 else ("aligned",)):
+            fl = functools.partial(check_flash, gen, dtype=dtype, layout=layout)
+            if dtype == torch.float32 or layout == "offset":
+                fl(BATCH, PROMPT, PROMPT, h, kvh, hd)
+                fl(BATCH, PROMPT, PROMPT, hh, hkvh, hhd)  # zamba2's D 80
+            fl(BATCH, 200, 200, h, kvh, hd)  # ragged
+            fl(BATCH, PROMPT, PROMPT, h, kvh, hd, window=32)
+            fl(2, PROMPT, PROMPT, 4, 1, 256)  # gemma3's D, MQA
+            fl(2, 64, 200, 4, 2, 32, q_offset=136)  # queries at the end
+            fl(2, 64, 64, 4, 4, 128, causal=False, window=2**30)
+            fl(1, 70, 70, 2, 1, 64, window=0)  # no visible key: mean(v)
+            fl(2, 90, 90, 4, 4, 80, window=16)  # D 80, ragged, window
+    for d in flash_ops.HEAD_DIMS:  # mma at every head dim, a ragged tail
+        check_flash(gen, 2, 100, 100, 6, 2, d, torch.bfloat16)
 
     # zamba2's prefill scan: u (Bt, S, H, P) bf16, ld f32, B/C broadcast over the heads
     sh = (BATCH, PROMPT, hcfg.ssm_expand * hcfg.d_model // hcfg.ssm_head_dim,
@@ -669,14 +762,23 @@ def phase_kernels():
     add("ssm_scan", by_chunk[CHUNK], calls["ssm_scan"], HYBRID)
     RESULTS["ssm_scan_by_chunk"] = by_chunk
     for dtype in (torch.bfloat16, torch.float32):
+        # bf16 cases in three layouts: aligned plans mma; u off 16 bytes or
+        # with a stride of 2 along P, fma
+        for layout in (("aligned", "offset", "strided") if dtype == torch.bfloat16
+                       else ("aligned",)):
+            for c in CHUNKS:
+                sc = functools.partial(check_ssm, gen, dtype=dtype, chunk=c, layout=layout)
+                if dtype == torch.float32 or layout != "aligned":
+                    sc(*sh)
+                sc(2, 200, 8, 64, 64)  # ragged S
+                sc(2, 20, 8, 64, 64, shared_bc=False)  # S < T
+                sc(1, 512, 8, 64, 64)  # many chunks
+                sc(2, 40, 16, 16, 16, shared_bc=False)  # N = P = 16
+                sc(1, 100, 2, 192, 96, shared_bc=False)  # P tiles, N 96
+    for n in ssm_ops.STATE_DIMS:  # mma at every N and chunk, a ragged P tile (P = 40)
         for c in CHUNKS:
-            if dtype == torch.float32:
-                check_ssm(gen, *sh, dtype, chunk=c)
-            check_ssm(gen, 2, 200, 8, 64, 64, dtype, chunk=c)  # ragged S
-            check_ssm(gen, 2, 20, 8, 64, 64, dtype, shared_bc=False, chunk=c)  # S < T
-            check_ssm(gen, 1, 512, 8, 64, 64, dtype, chunk=c)  # many chunks
-            check_ssm(gen, 2, 40, 16, 16, 16, dtype, shared_bc=False, chunk=c)  # N = P = 16
-            check_ssm(gen, 1, 100, 2, 192, 96, dtype, shared_bc=False, chunk=c)  # P tiles, N 96
+            check_ssm(gen, 2, 100, 3, 40, n, torch.bfloat16, chunk=c)
+    RESULTS["attn_scan_bit_identical"] = check_attn_scan_bit_identical(gen)
 
     RESULTS["kernel_rows"] = rows
     RESULTS["kernel_totals"] = totals
@@ -836,51 +938,112 @@ def full_depth_decode_state(arch):
 
 
 # ---------------------------------------------------------------------------
-# phase 6: where a decode step's time goes (torch.profiler)
+# phase 6: where a prefill's and a decode step's time goes (torch.profiler)
 # ---------------------------------------------------------------------------
 
 
-def phase_profile(arch, model, params, cache, tok, step_p50_s):
-    """Device busy time per decode step, from the profiler's kernel
-    records (merged intervals), and the idle share it implies against the
-    step time measured without the profiler (the main path's p50)."""
+def _profiled(run):
+    """Run ``run()`` under torch.profiler; returns the device busy us
+    (kernel intervals merged), the device operations and the device us by
+    kernel name (tagged with the port's variants)."""
     from torch.profiler import ProfilerActivity, profile
 
-    model.decode(params, cache, {"token": tok})  # warm
-    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(PROFILE_STEPS):
-            logits, cache = model.decode(params, cache, {"token": tok})
-            tok = logits.argmax(dim=-1)
+        run()
         torch.cuda.synchronize()
     spans, by_name = [], {}
     for evt in prof.events():
         if evt.device_type == torch.autograd.DeviceType.CUDA:
             t0, t1 = evt.time_range.start, evt.time_range.end
             spans.append((t0, t1))
-            by_name[evt.name] = by_name.get(evt.name, 0.0) + (t1 - t0)
-    if not spans:
-        print(f"[profile] {arch}: the profiler recorded no device time: idle share not measured")
-        RESULTS["profile"][arch] = None
-        return
+            name = _variant_tag(evt.name)
+            by_name[name] = by_name.get(name, 0.0) + (t1 - t0)
     busy, end = 0.0, -math.inf
     for t0, t1 in sorted(spans):
         if t1 > end:
             busy += t1 - max(t0, end)
             end = t1
+    return busy, len(spans), by_name
+
+
+def phase_profile_prefill(arch, reps=5):
+    """One prefill of the path's full model (batch 4, prompt 128, weights
+    drawn on the card from a seed) under torch.profiler: device busy ms,
+    the idle share against the same prefill's wall time without the
+    profiler (the median of ``reps``, host clock ending in a synchronize),
+    and device ms by kernel."""
+    model = build(get_config(arch), "cuda")
+    params = model.compute_params(model.init(torch.Generator(device="cuda").manual_seed(0)))
+    prompts = torch.randint(0, model.cfg.vocab, (BATCH, PROMPT),
+                            generator=torch.Generator().manual_seed(1))
+
+    def run():
+        model.prefill(params, {"tokens": prompts}, max_len=PROMPT + 1)
+
+    run()  # warm
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    wall_ms = sorted(walls)[reps // 2] * 1e3
+    busy, n_ops, by_name = _profiled(run)
+    del model, params
+    torch.cuda.empty_cache()
+    key = f"{arch} prefill"
+    if not n_ops:
+        print(f"[profile] {key}: the profiler recorded no device time: idle share not measured")
+        RESULTS["profile"][key] = None
+        return
+    busy_ms = busy / 1e3
+    by_kernel = {k: sum(us for n, us in by_name.items() if k in n) / 1e3
+                 for k in ("dos_matmul", "flash", "ssd")}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    print(f"[profile] {key}: device busy {busy_ms:.3f} ms of a {wall_ms:.3f} ms prefill (median "
+          f"of {reps} without profiler): idle share {1 - busy_ms / wall_ms:.3f}; {n_ops} device "
+          f"ops; dos_matmul {by_kernel['dos_matmul']:.3f} ms, flash_attention "
+          f"{by_kernel['flash']:.3f} ms, ssm_scan {by_kernel['ssd']:.3f} ms", flush=True)
+    for name, us in top:
+        print(f"[profile]   {us / 1e3:9.3f} ms  {name[:90]}")
+    RESULTS["profile"][key] = {"busy_ms": busy_ms, "wall_ms": wall_ms, "walls_ms":
+                               [w * 1e3 for w in walls], "idle_share": 1 - busy_ms / wall_ms,
+                               "device_ops": n_ops, "kernel_ms": by_kernel,
+                               "top_ms": {n: us / 1e3 for n, us in top}}
+
+
+def phase_profile(arch, model, params, cache, tok, step_p50_s):
+    """Device busy time per decode step, from the profiler's kernel
+    records (merged intervals), and the idle share it implies against the
+    step time measured without the profiler (the main path's p50)."""
+    model.decode(params, cache, {"token": tok})  # warm
+    torch.cuda.synchronize()
+
+    def run():
+        nonlocal cache, tok
+        for _ in range(PROFILE_STEPS):
+            logits, cache = model.decode(params, cache, {"token": tok})
+            tok = logits.argmax(dim=-1)
+
+    busy, n_ops, by_name = _profiled(run)
+    if not n_ops:
+        print(f"[profile] {arch}: the profiler recorded no device time: idle share not measured")
+        RESULTS["profile"][arch] = None
+        return
     busy_ms = busy / 1e3 / PROFILE_STEPS
     idle = 1.0 - busy_ms / (step_p50_s * 1e3)
     dos_ms = sum(us for n, us in by_name.items() if "dos_matmul" in n) / 1e3 / PROFILE_STEPS
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     print(f"[profile] {arch} decode step: device busy {busy_ms:.3f} ms of a {step_p50_s*1e3:.3f} ms "
-          f"step (p50 without profiler): idle share {idle:.3f}; {len(spans) / PROFILE_STEPS:.0f} "
+          f"step (p50 without profiler): idle share {idle:.3f}; {n_ops / PROFILE_STEPS:.0f} "
           f"device ops per step; dos_matmul {dos_ms:.3f} ms per step", flush=True)
     for name, us in top:
         print(f"[profile]   {us / PROFILE_STEPS:9.1f} us/step  {name[:90]}")
     RESULTS["profile"][arch] = {"busy_ms_per_step": busy_ms, "idle_share": idle,
                                 "dos_matmul_ms_per_step": dos_ms,
-                          "device_ops_per_step": len(spans) / PROFILE_STEPS,
-                          "top_us_per_step": {n: us / PROFILE_STEPS for n, us in top}}
+                                "device_ops_per_step": n_ops / PROFILE_STEPS,
+                                "top_us_per_step": {n: us / PROFILE_STEPS for n, us in top}}
 
 
 # ---------------------------------------------------------------------------
@@ -908,6 +1071,8 @@ def main(argv=None) -> int:
     launched = {k for c in counts.values() for k, n in c.items() if n > 0}
     check(launched == set(KERNELS), f"kernels no main path launched: {set(KERNELS) - launched}")
     totals, main_err = phase_kernels()
+    for arch in PATHS:
+        phase_profile_prefill(arch)
     phase_profile(ARCH, *phase_e2e(ARCH)[0], step_p50_s[ARCH])
     bf16_logits = phase_e2e_blocks(HYBRID)
     f32_logits = phase_e2e(HYBRID, "float32", E2E_F32_TOL)[1]

@@ -3,7 +3,8 @@ plain PyTorch version.
 
 Each wrapper takes its plain version for CPU tensors and launches its
 CUDA kernel (``csrc/*.cu``, built by ``_build`` on first use) for CUDA
-tensors, and counts those launches in its ``launches`` attribute.
+tensors, and counts those launches in its ``launches`` attribute and, by
+the variant its plan picked, in ``variants``.
 """
 
 from .dos_matmul import dos_matmul
@@ -24,4 +25,4 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
-    dos_matmul.variants = dict.fromkeys(dos_matmul.variants, 0)
+        fn.variants = dict.fromkeys(fn.variants, 0)

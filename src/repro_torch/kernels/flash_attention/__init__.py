@@ -1,4 +1,5 @@
-from .ops import decode_attention, flash_attention
+from .ops import HEAD_DIMS, VARIANTS, decode_attention, flash_attention, plan
 from .ref import NEG_INF, attention_ref
 
-__all__ = ["flash_attention", "attention_ref", "decode_attention", "NEG_INF"]
+__all__ = ["HEAD_DIMS", "VARIANTS", "flash_attention", "attention_ref", "decode_attention",
+           "NEG_INF", "plan"]

@@ -8,12 +8,21 @@ For CPU tensors the op runs its plain version, ``ssm_scan_chunked``, a
 twin of the JAX package's ``ssm_scan_chunked_jnp``: the same chunked
 math (decay mask formed before the exp), with a ragged S padded by
 identity steps (ld = 0, u = 0, B = 0 leave the state as it was). For
-CUDA tensors it launches the hand-written kernel of ``csrc/ssm_scan.cu``
-(built on first use), or raises: nothing falls back. The kernel reads
-every input through its strides, so B and C broadcast over the heads
-(an ``expand``, stride 0) are never copied, and masks a ragged S itself.
+CUDA tensors it launches one of the hand-written kernels of
+``csrc/ssm_scan.cu`` (built on first use), or raises: nothing falls
+back. The kernels read every input through its strides, so B and C
+broadcast over the heads (an ``expand``, stride 0) are never copied,
+and mask a ragged S and a ragged P tile themselves. ``plan`` picks the
+kernel before the launch, from dtype, state dim, chunk and layout alone:
 
-``ssm_scan.launches`` counts the kernel launches of this process.
+- ``mma``: bf16 u, B, C with a unit inner stride, their other strides
+  multiples of 8 elements (0 included) and 16-byte aligned bases, and P
+  a multiple of 8: the tensor-core kernel. zamba2's prefill runs it.
+- ``fma``: f32 operands, and bf16 layouts ``mma`` cannot take: the f32
+  CUDA-core kernel.
+
+``ssm_scan.launches`` counts the kernel launches of this process and
+``ssm_scan.variants`` counts them by variant.
 """
 
 from __future__ import annotations
@@ -24,12 +33,14 @@ import torch
 
 from .. import _build
 
-__all__ = ["CHUNK", "CHUNKS", "STATE_DIMS", "ssm_scan", "ssm_scan_chunked"]
+__all__ = ["CHUNK", "CHUNKS", "STATE_DIMS", "VARIANTS", "plan", "ssm_scan", "ssm_scan_chunked"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 CHUNKS = (32, 64)  # chunk lengths the kernel is built for
-CHUNK = 32  # the default: 1.5x faster than 64 at zamba2's prefill on an H100 (PERF.md)
-STATE_DIMS = (16, 64, 96)  # N the kernel is built for (reduced, zamba2, mLSTM); P is any
+CHUNK = 32  # the default: the faster at zamba2's prefill on an H100, in both variants (PERF.md)
+STATE_DIMS = (16, 64, 96)  # N the kernels are built for (reduced, zamba2, mLSTM); P is any
+VARIANTS = ("mma", "fma")
+_CODES = {"fma": 0, "mma": 1}
 _LIB = None
 
 
@@ -39,11 +50,28 @@ def _lib() -> ctypes.CDLL:
         lib = _build.load("ssm_scan")
         lib.ssm_scan_launch.argtypes = (
             [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 19
-            + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            + [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         )
         lib.ssm_scan_launch.restype = ctypes.c_int
         _LIB = lib
     return _LIB
+
+
+def plan(dtype: torch.dtype, n: int, chunk: int, p: int, strides, aligned: bool) -> str:
+    """The kernel variant for one call. ``strides`` holds the element
+    strides of u (b, s, h, p), B and C (b, s, h, n); ``aligned`` says
+    that their three bases are 16-byte aligned. Raises for what neither
+    variant takes: a dtype other than f32 and bf16, N not in
+    ``STATE_DIMS`` or a chunk not in ``CHUNKS``."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"ssm_scan kernel takes u, B, C in f32 or bf16; got {dtype}")
+    if n not in STATE_DIMS or chunk not in CHUNKS:
+        raise ValueError(f"ssm_scan kernel: state dim N={n} must be one of {STATE_DIMS} "
+                         f"and chunk={chunk} one of {CHUNKS}")
+    if (dtype == torch.bfloat16 and aligned and p % 8 == 0
+            and all(st[3] == 1 and all(x % 8 == 0 for x in st[:3]) for st in strides)):
+        return "mma"
+    return "fma"
 
 
 def ssm_scan_chunked(u, ld, B, C, chunk: int = CHUNK):
@@ -109,28 +137,33 @@ def ssm_scan(u, ld, B, C, *, chunk: int | None = None):
             or C.shape != B.shape):
         raise ValueError(f"ssm_scan: shapes u {tuple(u.shape)}, ld {tuple(ld.shape)}, "
                          f"B {tuple(B.shape)}, C {tuple(C.shape)}")
-    if u.dtype not in _DTYPES or B.dtype != u.dtype or C.dtype != u.dtype:
+    if B.dtype != u.dtype or C.dtype != u.dtype:
         raise TypeError(f"ssm_scan kernel takes u, B, C of one dtype, f32 or bf16; got "
                         f"{u.dtype}, {B.dtype}, {C.dtype}")
-    if n not in STATE_DIMS or chunk not in CHUNKS:
-        raise ValueError(f"ssm_scan kernel: state dim N={n} must be one of {STATE_DIMS} "
-                         f"and chunk={chunk} one of {CHUNKS}")
+    variant = plan(u.dtype, n, chunk, p, (u.stride(), B.stride(), C.stride()),
+                   (u.data_ptr() | B.data_ptr() | C.data_ptr()) % 16 == 0)
     if bt > 65535 or h > 65535:
         raise ValueError(f"ssm_scan kernel: batch {bt} and heads {h} must be <= 65535")
     ld = ld.float()
     y = torch.empty((bt, s, h, p), dtype=u.dtype, device=u.device)
-    state = torch.zeros((bt, h, n, p), dtype=torch.float32, device=u.device)
-    if bt and s and h and p:
+    launch = bool(bt and s and h and p)
+    # both kernels write every entry of the state: no fill kernel before them
+    state = (torch.empty if launch else torch.zeros)((bt, h, n, p), dtype=torch.float32,
+                                                     device=u.device)
+    if launch:
         lib = _lib()
         err = lib.ssm_scan_launch(
             u.data_ptr(), ld.data_ptr(), B.data_ptr(), C.data_ptr(), y.data_ptr(),
             state.data_ptr(), bt, s, h, p, n,
             *u.stride(), *ld.stride(), *B.stride(), *C.stride(), *y.stride(),
-            chunk, _DTYPES[u.dtype], torch.cuda.current_stream(u.device).cuda_stream,
+            chunk, _DTYPES[u.dtype], _CODES[variant],
+            torch.cuda.current_stream(u.device).cuda_stream,
         )
-        _build.check(lib, err, "ssm_scan")
+        _build.check(lib, err, f"ssm_scan ({variant})")
         ssm_scan.launches += 1
+        ssm_scan.variants[variant] += 1
     return y, state
 
 
 ssm_scan.launches = 0
+ssm_scan.variants = dict.fromkeys(VARIANTS, 0)

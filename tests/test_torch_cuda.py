@@ -10,7 +10,10 @@ bf16 output, one bf16 rounding more: 2**-8 of each entry, measured
 against the f32 result of the same bf16 operands. The SSD scan: 1e-4 of
 max|ref| in f32 (summation order over T*N terms, and the chunk's
 cumulative log-decay summed in another order inside the exp), plus
-2**-8 of each entry of a bf16 y.
+2**-8 of each entry of a bf16 y. The ``mma`` variants of attention and
+the scan are held to the same tolerances as the ``fma`` ones: they split
+the operands the reference keeps in f32 into bf16 terms that keep their
+bits (tests/test_torch_attn_plan.py and test_torch_ssm_plan.py emulate it).
 """
 
 import pytest
@@ -18,8 +21,8 @@ import torch
 
 from repro_torch.kernels import dos_matmul, flash_attention, ssm_scan
 from repro_torch.kernels.dos_matmul import matmul_ref, plan
-from repro_torch.kernels.flash_attention import attention_ref
-from repro_torch.kernels.ssm_scan import CHUNKS, ssm_scan_chunked
+from repro_torch.kernels.flash_attention import HEAD_DIMS, attention_ref
+from repro_torch.kernels.ssm_scan import CHUNKS, STATE_DIMS, ssm_scan_chunked
 
 pytestmark = pytest.mark.cuda
 
@@ -178,6 +181,73 @@ def test_flash_attention_kernel(gen, case, dtype):
     assert bool(((out.float() - exact).abs() <= tol).all())
 
 
+def _off16(t):
+    """``t``'s values in a tensor of its shape whose base lies 2 bytes off
+    16-byte alignment (the layouts the mma variants do not take)."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _check_flash_variant(q, k, v, want, **kw):
+    """One call: it must run the planned variant, count it once, and agree
+    with the f32 result of the same operands."""
+    before = dict(flash_attention.variants)
+    out = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.variants == dict(before, **{want: before[want] + 1})
+    exact = attention_ref(q.float(), k.float(), v.float(), **kw)
+    tol = 1e-5 + (2.0**-8 * exact.abs() if q.dtype == torch.bfloat16 else 0)
+    assert bool(((out.float() - exact).abs() <= tol).all())
+    return out
+
+
+_FLASH_CASES = [  # b, sq, skv, h, kvh, causal, window, q_offset
+    (4, 128, 128, 9, 3, True, 2**30, 0),    # smollm's prefill (global layers' sentinel)
+    (4, 128, 128, 32, 32, True, None, 0),   # zamba2's shared attention
+    (2, 200, 200, 4, 1, True, 48, 0),       # ragged, window, MQA
+    (2, 33, 90, 4, 2, True, None, 57),      # queries at an offset, ragged tails
+    (1, 70, 70, 2, 2, False, None, 0),      # no mask
+    (1, 70, 70, 2, 1, True, 0, 0),          # no visible key: mean(v)
+]
+
+
+@pytest.mark.parametrize("case", _FLASH_CASES)
+@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("layout", ["aligned", "offset"])
+def test_flash_attention_variants(gen, case, d, layout):
+    """bf16 at every head dim: aligned operands run mma, operands 2 bytes
+    off 16-byte alignment run fma, both within the bf16 tolerance."""
+    b, sq, skv, h, kvh, causal, window, q_offset = case
+    q, k, v = (torch.randn(b, s, hh, d, generator=gen, device="cuda").to(torch.bfloat16)
+               for s, hh in ((sq, h), (skv, kvh), (skv, kvh)))
+    want = "mma"
+    if layout == "offset":
+        q, k, v, want = _off16(q), _off16(k), _off16(v), "fma"
+    _check_flash_variant(q, k, v, want, causal=causal, window=window, q_offset=q_offset)
+
+
+@pytest.mark.parametrize("d", [64, 80])
+def test_flash_attention_strided_rows(gen, d):
+    """q, k, v as column slices of one fused (B, S, H, 3D) projection:
+    rows 16-byte aligned, so mma, read through the strides."""
+    qkv = torch.randn(2, 128, 4, 3 * d, generator=gen, device="cuda").to(torch.bfloat16)
+    q, k, v = qkv[..., :d], qkv[..., d:2 * d], qkv[..., 2 * d:]
+    _check_flash_variant(q, k, v, "mma")
+
+
+@pytest.mark.parametrize("case", [(4, 128, 9, 3, 64), (4, 128, 32, 32, 80), (2, 200, 4, 1, 256)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_attention_bit_identical(gen, case, dtype):
+    """Two calls on the same inputs give the same bits (no atomics)."""
+    b, s, h, kvh, d = case
+    q, k, v = (torch.randn(b, s, hh, d, generator=gen, device="cuda").to(dtype)
+               for hh in (h, kvh, kvh))
+    first = _check_flash_variant(q, k, v, "mma" if dtype == torch.bfloat16 else "fma")
+    assert torch.equal(first, flash_attention(q, k, v))
+
+
 def test_dos_matmul_rejects_b_without_unit_stride(gen):
     a = torch.randn(4, 8, generator=gen, device="cuda")
     b = torch.randn(16, 12, generator=gen, device="cuda")[::2, ::2]
@@ -218,6 +288,56 @@ def test_ssm_scan_kernel(gen, case, dtype, chunk):
     ytol = 1e-4 * ey.abs().max() + (2.0**-8 * ey.abs() if dtype == torch.bfloat16 else 0)
     assert bool(((y.float() - ey).abs() <= ytol).all())
     assert bool(((state - es).abs() <= 1e-4 * es.abs().max()).all())
+
+
+def _check_ssm_variant(u, ld, B, C, chunk, want):
+    before = dict(ssm_scan.variants)
+    y, state = ssm_scan(u, ld, B, C, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssm_scan.variants == dict(before, **{want: before[want] + 1})
+    ey, es = ssm_scan_chunked(u.float(), ld, B.float(), C.float(), chunk=chunk)
+    ytol = 1e-4 * ey.abs().max() + (2.0**-8 * ey.abs() if u.dtype == torch.bfloat16 else 0)
+    assert bool(((y.float() - ey).abs() <= ytol).all())
+    assert bool(((state - es).abs() <= 1e-4 * es.abs().max()).all())
+    return y, state
+
+
+_SSM_CASES = [  # bt, s, h, p, B/C broadcast
+    (4, 128, 80, 64, True),    # zamba2's prefill
+    (2, 200, 8, 64, True),     # ragged S
+    (2, 20, 4, 64, False),     # S below the chunk
+    (1, 512, 4, 64, True),     # many chunks
+    (1, 100, 2, 192, False),   # P over several tiles
+    (2, 40, 3, 40, False),     # a ragged P tile (P = 40)
+]
+
+
+@pytest.mark.parametrize("case", _SSM_CASES)
+@pytest.mark.parametrize("n", STATE_DIMS)
+@pytest.mark.parametrize("chunk", CHUNKS)
+@pytest.mark.parametrize("layout", ["aligned", "offset", "strided"])
+def test_ssm_scan_variants(gen, case, n, chunk, layout):
+    """bf16 at every N and chunk: aligned inputs run mma; u 2 bytes off
+    16-byte alignment, or u read with a stride of 2 along P, run fma."""
+    bt, s, h, p, shared = case
+    u, ld, B, C = _ssm_inputs(gen, bt, s, h, p, n, torch.bfloat16, shared)
+    want = "mma"
+    if layout == "offset":
+        u, want = _off16(u), "fma"
+    elif layout == "strided":
+        u, want = torch.stack([u, u], dim=-1).flatten(-2)[..., ::2], "fma"
+        assert u.stride(-1) == 2
+    _check_ssm_variant(u, ld, B, C, chunk, want)
+
+
+@pytest.mark.parametrize("chunk", CHUNKS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ssm_scan_bit_identical(gen, chunk, dtype):
+    """Two calls on the same inputs give the same bits (no atomics)."""
+    u, ld, B, C = _ssm_inputs(gen, 4, 128, 80, 64, 64, dtype, True)
+    y, st = _check_ssm_variant(u, ld, B, C, chunk, "mma" if dtype == torch.bfloat16 else "fma")
+    y2, st2 = ssm_scan(u, ld, B, C, chunk=chunk)
+    assert torch.equal(y, y2) and torch.equal(st, st2)
 
 
 def test_ssm_scan_rejects_unbuilt_state_dims(gen):
