@@ -48,8 +48,26 @@ if it fails:
    the same prefill's wall time without the profiler, and device time by
    kernel; a few decode steps give the device busy time per step and the
    idle share against the main path's step time;
-7. prints the kernels line, the ``nvidia-smi`` line, and last
-   ``{"ok": true, "device": {...}}``.
+7. calibration, with the launch counts set to 0 before each row and read
+   after it: ``run_calibration(CalibrateSpec(preset="default"))``, 23
+   rows; each GEMM row must launch ``dos_matmul`` once per call (``skinny``
+   at M = 16, ``wgmma`` above), each prefill row ``flash_attention``
+   ``fma``, each SSM row ``ssm_scan`` ``fma``, a decode row none; every
+   row's output against its plain version (phase 4's tolerances), every
+   ``t_s`` finite and positive, the artifact's JSON round trip and
+   ``evaluate`` with it bit-identical; prints the fit;
+8. the DSE engine: ``backend="torch"`` on the card against
+   ``backend="numpy"`` on the Fig. 5 grid (every ``EvalResult`` field,
+   the int64 search results, the 12-tier speedup 9.57x) and on the dse
+   sweep (300 workloads x 3 budgets x 16 tiers through
+   ``optimal_tiers_batched``), both backends timed;
+9. the grid thermal solve: Fig. 8's nine ``thermal_report`` calls on the
+   card against the CPU, with iteration counts and ms per solve; the
+   configuration that runs to the iteration cap must read 69.007 degC;
+10. the systolic simulators on the card: ragged folds, tiers 1-4, ``out``
+    against A @ B at 1e-4, ``cycles`` against Eq. 1 / Eq. 2;
+11. prints the kernels line, the ``nvidia-smi`` line, and last
+    ``{"ok": true, "device": {...}}``.
 
 ``--details PATH`` also writes every measurement to a JSON file.
 ``--sweep`` runs phases 1 and 2, times each dos_matmul tiling (BN, K
@@ -76,6 +94,8 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.core import analytical, calibrate, engine, systolic  # noqa: E402
+from repro_torch.core.ppa import thermal  # noqa: E402
 from repro_torch.kernels import KERNELS, _build, launch_counts, reset_launch_counts  # noqa: E402
 from repro_torch.kernels.dos_matmul import dos_matmul, matmul_ref  # noqa: E402
 from repro_torch.kernels.dos_matmul import ops as dos_ops  # noqa: E402
@@ -1047,6 +1067,309 @@ def phase_profile(arch, model, params, cache, tok, step_p50_s):
 
 
 # ---------------------------------------------------------------------------
+# phase 7: calibration, the path that feeds the paper's model
+# ---------------------------------------------------------------------------
+
+
+def _cal_kernel(row):
+    """The kernel and variant a calibration row's calls must launch, from
+    the row alone: bf16 GEMMs plan to skinny at M <= 16 and to wgmma above;
+    prefill attention and the scan take f32 operands, so fma; a decode row
+    runs plain torch (no kernel)."""
+    fam, p = row["family"], row["params"]
+    if fam == "gemm":
+        return "dos_matmul", ("skinny" if p["m"] <= 16 else "wgmma")
+    if fam == "ssm":
+        return "ssm_scan", "fma"
+    return ("flash_attention", "fma") if p["mode"] == "prefill" else (None, None)
+
+
+def _cal_check_output(row, seed) -> float:
+    """One call of the row's kernel on the card against its plain version
+    on the same inputs (outside the timing), at phase 4's tolerances.
+    Returns max|kernel - plain|."""
+    args = calibrate._build_inputs(row, seed, "cuda")
+    fam, mode = row["family"], row["params"].get("mode", "")
+    out = calibrate._kernel_fn(fam, mode)(*args).float()
+    if fam == "gemm":
+        plain = matmul_ref(*args, torch.bfloat16).float()
+        exact = matmul_ref(*args, torch.float32)
+        tol = 2.0**-8 * exact.abs() + 1e-5 * exact.abs().max()  # one bf16 rounding
+    elif fam == "ssm":
+        plain = exact = ssm_scan_chunked(*args)[0]
+        tol = 1e-4 * exact.abs().max()  # f32 summation order
+    elif mode == "prefill":
+        plain = exact = attention_ref(*args, causal=True)
+        tol = 1e-5  # f32 math on both sides, O(1) outputs
+    else:  # plain torch on both devices: the card against the CPU
+        plain = exact = calibrate._kernel_fn(fam, mode)(
+            *(a.cpu() if isinstance(a, torch.Tensor) else a for a in args)).to("cuda")
+        tol = 1e-5
+    torch.cuda.synchronize()
+    check(bool(((out - exact).abs() <= tol).all()),
+          f"calibration row {row['label']}: the card disagrees with the plain version")
+    return (out - plain.float()).abs().max().item()
+
+
+def phase_calibration():
+    """``run_calibration(CalibrateSpec(preset="default"))`` on the card:
+    each row's launches counted by variant (``measure_row`` recorded, the
+    counts set to 0 before each row), every output held against its plain
+    version, the artifact's JSON round trip and the model it prices."""
+    spec = calibrate.CalibrateSpec(preset="default")
+    calls = 1 + max(spec.warmup, 1) + spec.reps  # the first (build) call, warmup, timed
+    per_row, original = [], calibrate.measure_row
+
+    def recorded(row, **kw):
+        reset_launch_counts()
+        out = original(row, **kw)
+        per_row.append((row, launch_counts(), {k: dict(fn.variants) for k, fn in KERNELS.items()}))
+        return out
+
+    calibrate.measure_row = recorded
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        res = calibrate.run_calibration(spec)
+    finally:
+        calibrate.measure_row = original
+    wall = time.perf_counter() - t0
+    counts = {k: sum(c[k] for _, c, _ in per_row) for k in KERNELS}
+    check(len(per_row) == len(res["rows"]) == 23, f"calibration measured {len(per_row)} rows")
+    by_variant: dict = {}
+    errs = {k: 0.0 for k in KERNELS}
+    for (row, c, variants), m in zip(per_row, res["rows"]):
+        kname, variant = _cal_kernel(row)
+        want = {k: (calls if k == kname else 0) for k in KERNELS}
+        check(c == want, f"calibration row {row['label']}: launches {c}, expected {want}")
+        if kname:
+            check(variants[kname][variant] == calls,
+                  f"calibration row {row['label']}: {kname} variants {variants[kname]}, "
+                  f"expected {calls} {variant}")
+            by_variant[f"{kname} {variant}"] = by_variant.get(f"{kname} {variant}", 0) + calls
+        check(math.isfinite(m["t_s"]) and m["t_s"] > 0, f"{row['label']}: t_s {m['t_s']}")
+        err = _cal_check_output(row, spec.seed)
+        if kname:
+            errs[kname] = max(errs[kname], err)
+        print(f"[calibration] {row['label']:34s} {kname or 'plain torch':15s} "
+              f"{variant or '':6s} t_s {m['t_s']*1e6:10.3f} us  (spread {m['spread_s']*1e6:.3f}) "
+              f"{m['achieved_gflops']:10.1f} GFLOP/s {m['achieved_gbs']:8.1f} GB/s  model "
+              f"{m['pred_s']*1e6:10.3f} us{'  holdout' if row['holdout'] else ''}", flush=True)
+    art = res["artifact"]
+    text = json.dumps(art.to_dict())
+    back = calibrate.CalibratedBandwidth.from_dict(json.loads(text))
+    check(json.dumps(back.to_dict()) == text, "the artifact does not survive a JSON round trip")
+    grid = engine.DesignGrid.product(FIG5_WORKLOADS, FIG5_BUDGETS, FIG5_TIERS)
+    same = _eval_diff(engine.evaluate(grid, bandwidth=art.bandwidth),
+                      engine.evaluate(grid, bandwidth=back.bandwidth))
+    check(not same, f"evaluate with the reloaded artifact differs in {same}")
+    e = res["errors"]
+    print(f"[calibration] {len(per_row)} rows in {wall:.2f} s; launches {counts} by variant "
+          f"{by_variant}; fitted dram_gbs {res['dram_gbs_fitted']:.3f}, rates (FLOP/s) "
+          f"{ {k: f'{v:.4g}' for k, v in res['rates_flops'].items()} }, overheads (s) "
+          f"{ {k: f'{v:.4g}' for k, v in res['overhead_s'].items()} }; median rel. error: fit "
+          f"{e['fit_median_rel_err']:.4f}, holdout {e['holdout_median_rel_err']:.4f}, "
+          f"uncalibrated (the model's nominal TPU peaks) "
+          f"{e['uncalibrated_holdout_median_rel_err']:.4f}; artifact JSON round trip and "
+          f"evaluate() with it bit-identical", flush=True)
+    RESULTS["calibration"] = {
+        "wall_s": wall, "launches": counts, "launches_by_variant": by_variant,
+        "max_abs_err": errs, "rows": res["rows"], "rates_flops": res["rates_flops"],
+        "dram_gbs_fitted": res["dram_gbs_fitted"], "efficiency": res["efficiency"],
+        "overhead_s": res["overhead_s"], "errors": e, "artifact": art.to_dict()}
+    return counts, errs
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the DSE engine's search on the card against numpy
+# ---------------------------------------------------------------------------
+
+# Fig. 5: M 64, N 147 (ResNet50's RN0), three K, budgets 2^12-2^18, 1-16 tiers
+FIG5_WORKLOADS = [(64, k, 147) for k in (255, 2560, 12100)]
+FIG5_BUDGETS = [2**12, 2**14, 2**16, 2**18]
+FIG5_TIERS = range(1, 17)
+DSE_BUDGETS = (2**14, 2**16, 2**18)
+
+
+def random_workloads(n: int = 300, seed: int = 0):
+    """The dse sweep's workloads (a copy of the JAX package's
+    ``core.dse.random_workloads``, which the port has not taken over yet):
+    M, N from ResNet50's conv ranges, K from its unrolled reductions."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    M = rng.integers(16, 512, size=n)
+    N = 2 ** rng.integers(4, 12, size=n)
+    K = rng.integers(64, 12100, size=n)
+    return np.stack([M, K, N], axis=1)
+
+
+def _eval_diff(a, b) -> list:
+    """Names of the EvalResult fields that differ (bits, dtype or shape)."""
+    import numpy as np
+
+    bad = []
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(x, np.ndarray) or isinstance(y, np.ndarray):
+            if not (isinstance(x, np.ndarray) and isinstance(y, np.ndarray)
+                    and x.dtype == y.dtype and np.array_equal(x, y, equal_nan=x.dtype.kind == "f")):
+                bad.append(f.name)
+    return bad
+
+
+def _timed(fn, reps=3):
+    """(result, seconds of each of ``reps`` calls; host clock)."""
+    ts, out = [], None
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        out = fn()
+        ts.append(time.perf_counter() - t0)
+    return out, ts
+
+
+def phase_engine():
+    import numpy as np
+
+    out = {}
+    grid = engine.DesignGrid.product(FIG5_WORKLOADS, FIG5_BUDGETS, FIG5_TIERS)
+    n = grid.n_workloads * grid.n_points
+    res_t, ts_t = _timed(lambda: engine.evaluate(grid, backend="torch"))
+    res_n, ts_n = _timed(lambda: engine.evaluate(grid))
+    bad = _eval_diff(res_t, res_n)
+    check(not bad, f"Fig. 5: backend='torch' and 'numpy' differ in {bad}")
+    flat = [np.repeat(np.asarray(FIG5_WORKLOADS)[:, i], grid.n_points) for i in range(3)]
+    rc = [analytical.optimize_rc_batched(*flat, np.tile(grid.mac_budgets, 3),
+                                         np.tile(grid.tiers, 3), backend=b)
+          for b in ("torch", "numpy")]
+    check(all(x.dtype == np.int64 and np.array_equal(x, y) for x, y in zip(*rc)),
+          "Fig. 5: the int64 rows, cols and cycles differ between backends")
+    i12 = FIG5_BUDGETS.index(2**18) * len(FIG5_TIERS) + 11
+    s12 = float(res_t.speedup[2, i12])
+    check(s12 == float(res_n.speedup[2, i12]) and round(s12, 2) == 9.57,
+          f"Fig. 5 12-tier speedup {s12}")
+    print(f"[engine] Fig. 5 grid ({n} points, every metric): torch (card) and numpy equal in "
+          f"every EvalResult field and in the int64 rows/cols/cycles; 12-tier speedup at 2^18 "
+          f"MACs, K 12100: {s12:.4f}x (torch) = {float(res_n.speedup[2, i12]):.4f}x (numpy); "
+          f"evaluate s per call: torch {[round(t, 4) for t in ts_t]}, numpy "
+          f"{[round(t, 4) for t in ts_n]}", flush=True)
+    out["fig5"] = {"points": n, "speedup_12tier": s12, "torch_s": ts_t, "numpy_s": ts_n}
+
+    wl = random_workloads()
+    n = len(wl) * len(DSE_BUDGETS) * 16
+    (tt, ct), ts_t = _timed(lambda: engine.optimal_tiers_batched(wl, DSE_BUDGETS, backend="torch"))
+    (tn, cn), ts_n = _timed(lambda: engine.optimal_tiers_batched(wl, DSE_BUDGETS))
+    check(tt.dtype == tn.dtype and np.array_equal(tt, tn) and np.array_equal(ct, cn),
+          "dse sweep: backend='torch' and 'numpy' differ")
+    pps = {b: n / min(ts) for b, ts in (("torch", ts_t), ("numpy", ts_n))}
+    print(f"[engine] dse sweep (300 workloads x {len(DSE_BUDGETS)} budgets x 16 tiers = {n} "
+          f"points, optimal_tiers_batched): equal tiers and cycles; s per call: torch "
+          f"{[round(t, 4) for t in ts_t]}, numpy {[round(t, 4) for t in ts_n]}; best points/s: "
+          f"torch {pps['torch']:.0f}, numpy {pps['numpy']:.0f}", flush=True)
+    out["dse"] = {"points": n, "torch_s": ts_t, "numpy_s": ts_n, "points_per_s": pps}
+    RESULTS["engine"] = out
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the grid thermal solve (Fig. 8) on the card against the CPU
+# ---------------------------------------------------------------------------
+
+FIG8 = [(m, t, tech) for m in (4096, 16384, 65536) for t, tech in ((1, "2d"), (3, "tsv"),
+                                                                     (3, "miv"))]
+# The card and the CPU run the same f32 operations in the same order, so
+# their temperatures should be bit-identical; the gate leaves 1e-3 degC
+# (~130 f32 ulps at 70 degC) for a rounding difference carried to the stop.
+THERMAL_TOL_C = 1e-3
+
+
+def phase_thermal():
+    """Fig. 8's nine ``thermal_report`` calls on the card (the entry
+    point), each held against the same report from the CPU; the solve is
+    recorded for its iteration count and time (host clock up to a
+    synchronize)."""
+    solves, original = [], thermal._solve_stack
+
+    def recorded(*args, **kw):
+        t0 = time.perf_counter()
+        T, it = original(*args, **kw)
+        if T.device.type == "cuda":
+            torch.cuda.synchronize()
+        solves.append((T, it, time.perf_counter() - t0))
+        return T, it
+
+    thermal._solve_stack = recorded
+    rows = []
+    try:
+        for macs, tiers, tech in FIG8:
+            card = thermal.thermal_report(macs, tiers, tech)
+            cpu = thermal.thermal_report(macs, tiers, tech, device="cpu")
+            (tg, it_g, s_g), (tc, it_c, s_c) = solves[-2:]
+            diff = (tg.cpu() - tc).abs().max().item()
+            stats = [abs(a - b) for x, y in ((card.bottom, cpu.bottom), (card.middle or (),
+                                                                         cpu.middle or ()))
+                     for a, b in zip(x, y)]
+            ok = diff <= THERMAL_TOL_C and max(stats) <= THERMAL_TOL_C and it_g == it_c
+            tag = f"{macs} MACs x {tiers} {tech}"
+            print(f"[thermal] {tag}: {it_g} iterations (CPU {it_c}), {s_g * 1e3:.1f} ms per "
+                  f"solve on the card ({s_g / it_g * 1e6:.1f} us per iteration; CPU "
+                  f"{s_c * 1e3:.1f} ms), T max {card.t_max_c:.3f} degC, max|card - cpu| "
+                  f"{diff:.3g} degC (bit-identical: {diff == 0.0})" + ("" if ok else "  FAIL"),
+                  flush=True)
+            check(ok, f"thermal {tag}: the card and the CPU differ")
+            rows.append({"config": [macs, tiers, tech], "iterations": it_g, "cpu_iterations": it_c,
+                         "card_s": s_g, "cpu_s": s_c, "t_max_c": card.t_max_c,
+                         "max_abs_diff_c": diff})
+    finally:
+        thermal._solve_stack = original
+    capped = rows[FIG8.index((65536, 3, "tsv"))]
+    check(capped["iterations"] == thermal._MAX_ITERS and round(capped["t_max_c"], 3) == 69.007,
+          f"the capped configuration: {capped['iterations']} iterations, {capped['t_max_c']}")
+    RESULTS["thermal"] = rows
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the cycle-level systolic simulators on the card
+# ---------------------------------------------------------------------------
+
+SYSTOLIC_CASES = [(37, 48, 29, 8, 8), (20, 40, 50, 6, 16), (64, 24, 64, 16, 16)]  # M K N R C
+
+
+def phase_systolic():
+    """``simulate_os_2d`` and ``simulate_dos_3d`` (tiers 1-4) on the card,
+    for shapes whose folds are ragged: ``out`` against A @ B (f64 on the
+    host) at the reference test's rtol and atol of 1e-4, ``cycles``
+    against Eq. 1 / Eq. 2 exactly."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    rows = []
+    for M, K, N, R, C in SYSTOLIC_CASES:
+        A = rng.normal(size=(M, K)).astype(np.float32)
+        B = rng.normal(size=(K, N)).astype(np.float32)
+        exact = A.astype(np.float64) @ B.astype(np.float64)
+        for L in range(0, 5):
+            t0 = time.perf_counter()
+            r = (systolic.simulate_os_2d(A, B, R, C) if L == 0
+                 else systolic.simulate_dos_3d(A, B, R, C, L))
+            out = r.out.cpu().numpy()
+            dt = time.perf_counter() - t0
+            tau = (analytical.tau_2d(M, K, N, R, C) if L == 0
+                   else analytical.tau_3d(M, K, N, R, C, L))
+            err = float(np.abs(out - exact).max())
+            ok = (r.out.device.type == "cuda" and bool(np.all(np.abs(out - exact)
+                                                              <= 1e-4 + 1e-4 * np.abs(exact)))
+                  and r.cycles == int(tau))
+            what = "os_2d" if L == 0 else f"dos_3d x{L}"
+            print(f"[systolic] {what} {M}x{K}x{N} on {R}x{C} ({r.folds} folds): max|out - A@B| "
+                  f"{err:.3g}, cycles {r.cycles} (Eq. {'1' if L == 0 else '2'}: {int(tau)}), "
+                  f"{dt * 1e3:.1f} ms" + ("" if ok else "  FAIL"), flush=True)
+            check(ok, f"systolic {what} {M}x{K}x{N} on {R}x{C}")
+            rows.append({"case": [M, K, N, R, C, max(L, 1)], "sim": what, "max_abs_err": err,
+                         "cycles": r.cycles, "s": dt})
+    RESULTS["systolic"] = rows
+
+
+# ---------------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
@@ -1081,6 +1404,12 @@ def main(argv=None) -> int:
           f"logits differ by {sens:.3g} of max|logits| (the model's sensitivity to rounding)")
     RESULTS["hybrid_cpu_bf16_vs_f32"] = sens
     phase_profile(HYBRID, *full_depth_decode_state(HYBRID), step_p50_s[HYBRID])
+    counts["calibration"], cal_err = phase_calibration()
+    check(all(n > 0 for n in counts["calibration"].values()),
+          f"a kernel calibration never launched: {counts['calibration']}")
+    phase_engine()
+    phase_thermal()
+    phase_systolic()
 
     replaces = {
         "dos_matmul": ("src/repro_torch/kernels/csrc/dos_matmul.cu",
@@ -1096,7 +1425,8 @@ def main(argv=None) -> int:
         by_bytes = tot["bytes"] / HBM_BYTES_S >= tot["ops"] / PEAK_OPS_S[torch.bfloat16]
         kernels.append({
             "name": kname, "route": "cuda", "source": source, "replaces": repl,
-            "launches": sum(c[kname] for c in counts.values()), "max_abs_err": main_err[kname],
+            "launches": sum(c[kname] for c in counts.values()),
+            "max_abs_err": max(main_err[kname], cal_err[kname]),
             "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
             "bound_by": "bytes" if by_bytes else "operations",
             "library_ms": tot["library_ms"],
@@ -1108,8 +1438,9 @@ def main(argv=None) -> int:
         with open(details, "w") as f:
             json.dump(RESULTS, f, indent=1)
     print(f"[done] {RESULTS['wall_s']:.1f} s; the kernels' launches sum both main paths' "
-          "runs; ms, plain_ms, library_ms and bound_ms sum both main paths' calls of one "
-          "prefill plus one decode step")
+          "runs and the calibration's; max_abs_err is the largest of phase 4's and the "
+          "calibration's checks; ms, plain_ms, library_ms and bound_ms sum both main paths' "
+          "calls of one prefill plus one decode step")
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))

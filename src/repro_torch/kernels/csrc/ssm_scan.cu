@@ -59,7 +59,7 @@
 // T = 32) of each product, in f32 on the CUDA cores, one value read from
 // shared memory feeding several FMAs.
 //
-// N and T are template parameters (N in 16, 64, 96; T in 32, 64); any P
+// N and T are template parameters (N in 16, 32, 64, 96; T in 32, 64); any P
 // (the last tile is ragged) and any S (a ragged last chunk). fma's shared
 // memory per block is T*PT + 2*T*(N+1) + T*(T+1) + N*PT + 3*T floats
 // (45.8 KB at T = 32, N = 64); mma's is its ring of T rows of u, B, C
@@ -307,6 +307,7 @@ int launch_n(int N, const void* u, const float* ld, const void* B, const void* C
              float* state, const Args& a, cudaStream_t s) {
   switch (N) {
     case 16: return launch<E, T, 16>(u, ld, B, C, y, state, a, s);  // the reduced configs
+    case 32: return launch<E, T, 32>(u, ld, B, C, y, state, a, s);  // the calibration grid
     case 64: return launch<E, T, 64>(u, ld, B, C, y, state, a, s);  // zamba2
     case 96: return launch<E, T, 96>(u, ld, B, C, y, state, a, s);  // xlstm's mLSTM
     default: return (int)cudaErrorInvalidValue;
@@ -642,6 +643,7 @@ int launch_mma_n(int N, const void* u, const float* ld, const void* B, const voi
                  float* state, const Args& a, cudaStream_t s) {
   switch (N) {
     case 16: return launch_mma<T, 16>(u, ld, B, C, y, state, a, s);
+    case 32: return launch_mma<T, 32>(u, ld, B, C, y, state, a, s);
     case 64: return launch_mma<T, 64>(u, ld, B, C, y, state, a, s);
     case 96: return launch_mma<T, 96>(u, ld, B, C, y, state, a, s);
     default: return (int)cudaErrorInvalidValue;

@@ -38,7 +38,8 @@ __all__ = ["CHUNK", "CHUNKS", "STATE_DIMS", "VARIANTS", "plan", "ssm_scan", "ssm
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 CHUNKS = (32, 64)  # chunk lengths the kernel is built for
 CHUNK = 32  # the default: the faster at zamba2's prefill on an H100, in both variants (PERF.md)
-STATE_DIMS = (16, 64, 96)  # N the kernels are built for (reduced, zamba2, mLSTM); P is any
+STATE_DIMS = (16, 32, 64, 96)  # N the kernels are built for (reduced, calibration, zamba2,
+# mLSTM); P is any
 VARIANTS = ("mma", "fma")
 _CODES = {"fma": 0, "mma": 1}
 _LIB = None

@@ -123,6 +123,10 @@ sys.path.insert(0, {os.path.join(REPO, "src")!r})
 import repro_torch
 for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(m.name)
+ported = [f"repro_torch.core.{{n}}" for n in (
+    "ppa.constants", "params", "analytical", "dataflow", "bandwidth", "ppa.area", "ppa.power",
+    "ppa.thermal", "pricing", "engine", "systolic", "calibrate")] + ["repro_torch.analysis.roofline"]
+assert all(n in sys.modules for n in ported), [n for n in ported if n not in sys.modules]
 runpy.run_path({os.path.join(REPO, "chip_smoke.py")!r}, run_name="chip_smoke")
 bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "repro"))
@@ -133,4 +137,4 @@ assert not bad, bad
                        timeout=300, cwd=REPO, env={**os.environ, "PYTHONPATH": ""})
     assert r.returncode == 0, r.stderr[-3000:]
     n_modules = int(r.stdout.split()[0])
-    assert n_modules >= 15
+    assert n_modules >= 30

@@ -103,7 +103,7 @@ def test_unbuilt_dtypes_raise(dtype):
         plan(dtype, 64, 32, 64, st, True)
 
 
-@pytest.mark.parametrize("n,chunk", [(32, 32), (128, 32), (64, 16), (64, 128)])
+@pytest.mark.parametrize("n,chunk", [(48, 32), (128, 32), (64, 16), (64, 128)])
 def test_unbuilt_state_dims_and_chunks_raise(n, chunk):
     st = (_contig(1, 8, 2, 64), _contig(1, 8, 2, n), _contig(1, 8, 2, n))
     with pytest.raises(ValueError, match="state dim"):
