@@ -48,8 +48,9 @@ if it fails:
    the same prefill's wall time without the profiler, and device time by
    kernel; a few decode steps give the device busy time per step and the
    idle share against the main path's step time;
-7. calibration, with the launch counts set to 0 before each row and read
-   after it: ``run_calibration(CalibrateSpec(preset="default"))``, 23
+7. calibration, with the launch counts set to 0 before the run and each
+   row's launches read as the counts after it less those before it:
+   ``run_calibration(CalibrateSpec(preset="default"))``, 23
    rows; each GEMM row must launch ``dos_matmul`` once per call (``skinny``
    at M = 16, ``wgmma`` above), each prefill row ``flash_attention``
    ``fma``, each SSM row ``ssm_scan`` ``fma``, a decode row none; every
@@ -66,7 +67,20 @@ if it fails:
    configuration that runs to the iteration cap must read 69.007 degC;
 10. the systolic simulators on the card: ragged folds, tiers 1-4, ``out``
     against A @ B at 1e-4, ``cycles`` against Eq. 1 / Eq. 2;
-11. prints the kernels line, the ``nvidia-smi`` line, and last
+11. the Study front door, ``python -m repro_torch run`` in subprocesses
+    started together: the nine ``example-spec KIND | run -`` pipes (the
+    templates set ``backend="torch"``), Fig. 5, Fig. 7 at the paper's 300
+    workloads x 3 budgets x 16 tiers and qwen2-72b's prefill_32k
+    schedule; each artifact's payload must equal the same spec's
+    ``backend="numpy"`` payload (the calibrate template's replayed from
+    the CLI run's cache), Fig. 5 read 9.57x and Fig. 7's medians 2/4/7.
+    Then, in this process: seconds per kind of both backends; a calibrate
+    Study at the default preset through the CLI with a cache (launches
+    per row as in phase 7; the ``--resume`` run launches nothing and
+    reproduces the artifact bit for bit); the search at workers 1 and 2
+    (spawned workers on the card) bit-identical; the Study facade's
+    overhead over direct engine calls;
+12. prints the kernels line, the ``nvidia-smi`` line, and last
     ``{"ok": true, "device": {...}}``.
 
 ``--details PATH`` also writes every measurement to a JSON file.
@@ -95,6 +109,7 @@ import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core import analytical, calibrate, engine, systolic  # noqa: E402
+from repro_torch.core.dse import random_workloads  # noqa: E402
 from repro_torch.core.ppa import thermal  # noqa: E402
 from repro_torch.kernels import KERNELS, _build, launch_counts, reset_launch_counts  # noqa: E402
 from repro_torch.kernels.dos_matmul import dos_matmul, matmul_ref  # noqa: E402
@@ -1111,22 +1126,53 @@ def _cal_check_output(row, seed) -> float:
     return (out - plain.float()).abs().max().item()
 
 
+def _recording_measure_row(per_row: list):
+    """A ``calibrate.measure_row`` that records each row's launches and
+    launches by variant: the counts after the row less those before it
+    (the caller sets the counts to 0 once, before the run)."""
+    original = calibrate.measure_row
+
+    def snapshot():
+        return launch_counts(), {k: dict(fn.variants) for k, fn in KERNELS.items()}
+
+    def recorded(row, **kw):
+        c0, v0 = snapshot()
+        out = original(row, **kw)
+        c1, v1 = snapshot()
+        per_row.append((row, {k: c1[k] - c0[k] for k in c1},
+                        {k: {v: n - v0[k].get(v, 0) for v, n in v1[k].items()} for k in v1}))
+        return out
+
+    return recorded
+
+
+def _check_row_launches(per_row, calls, what) -> tuple[dict, dict]:
+    """Each row must launch its planned kernel and variant ``calls`` times
+    and nothing else (a decode row nothing). Returns the counts summed
+    over the rows, and by variant."""
+    counts = {k: sum(c[k] for _, c, _ in per_row) for k in KERNELS}
+    by_variant: dict = {}
+    for row, c, variants in per_row:
+        kname, variant = _cal_kernel(row)
+        want = {k: (calls if k == kname else 0) for k in KERNELS}
+        check(c == want, f"{what} row {row['label']}: launches {c}, expected {want}")
+        if kname:
+            check(variants[kname][variant] == calls,
+                  f"{what} row {row['label']}: {kname} variants {variants[kname]}, "
+                  f"expected {calls} {variant}")
+            by_variant[f"{kname} {variant}"] = by_variant.get(f"{kname} {variant}", 0) + calls
+    return counts, by_variant
+
+
 def phase_calibration():
     """``run_calibration(CalibrateSpec(preset="default"))`` on the card:
     each row's launches counted by variant (``measure_row`` recorded, the
-    counts set to 0 before each row), every output held against its plain
+    counts set to 0 before the run), every output held against its plain
     version, the artifact's JSON round trip and the model it prices."""
     spec = calibrate.CalibrateSpec(preset="default")
     calls = 1 + max(spec.warmup, 1) + spec.reps  # the first (build) call, warmup, timed
     per_row, original = [], calibrate.measure_row
-
-    def recorded(row, **kw):
-        reset_launch_counts()
-        out = original(row, **kw)
-        per_row.append((row, launch_counts(), {k: dict(fn.variants) for k, fn in KERNELS.items()}))
-        return out
-
-    calibrate.measure_row = recorded
+    calibrate.measure_row = _recording_measure_row(per_row)
     reset_launch_counts()
     t0 = time.perf_counter()
     try:
@@ -1134,19 +1180,11 @@ def phase_calibration():
     finally:
         calibrate.measure_row = original
     wall = time.perf_counter() - t0
-    counts = {k: sum(c[k] for _, c, _ in per_row) for k in KERNELS}
     check(len(per_row) == len(res["rows"]) == 23, f"calibration measured {len(per_row)} rows")
-    by_variant: dict = {}
+    counts, by_variant = _check_row_launches(per_row, calls, "calibration")
     errs = {k: 0.0 for k in KERNELS}
-    for (row, c, variants), m in zip(per_row, res["rows"]):
+    for (row, _, _), m in zip(per_row, res["rows"]):
         kname, variant = _cal_kernel(row)
-        want = {k: (calls if k == kname else 0) for k in KERNELS}
-        check(c == want, f"calibration row {row['label']}: launches {c}, expected {want}")
-        if kname:
-            check(variants[kname][variant] == calls,
-                  f"calibration row {row['label']}: {kname} variants {variants[kname]}, "
-                  f"expected {calls} {variant}")
-            by_variant[f"{kname} {variant}"] = by_variant.get(f"{kname} {variant}", 0) + calls
         check(math.isfinite(m["t_s"]) and m["t_s"] > 0, f"{row['label']}: t_s {m['t_s']}")
         err = _cal_check_output(row, spec.seed)
         if kname:
@@ -1189,19 +1227,6 @@ FIG5_WORKLOADS = [(64, k, 147) for k in (255, 2560, 12100)]
 FIG5_BUDGETS = [2**12, 2**14, 2**16, 2**18]
 FIG5_TIERS = range(1, 17)
 DSE_BUDGETS = (2**14, 2**16, 2**18)
-
-
-def random_workloads(n: int = 300, seed: int = 0):
-    """The dse sweep's workloads (a copy of the JAX package's
-    ``core.dse.random_workloads``, which the port has not taken over yet):
-    M, N from ResNet50's conv ranges, K from its unrolled reductions."""
-    import numpy as np
-
-    rng = np.random.default_rng(seed)
-    M = rng.integers(16, 512, size=n)
-    N = 2 ** rng.integers(4, 12, size=n)
-    K = rng.integers(64, 12100, size=n)
-    return np.stack([M, K, N], axis=1)
 
 
 def _eval_diff(a, b) -> list:
@@ -1370,6 +1395,258 @@ def phase_systolic():
 
 
 # ---------------------------------------------------------------------------
+# phase 11: the Study front door (python -m repro_torch run) on the card
+# ---------------------------------------------------------------------------
+
+FRONT_DOOR_TIMEOUT_S = 300
+
+
+def _payload_of(result) -> dict:
+    """The artifact's payload in its JSON form (what a saved artifact holds)."""
+    return json.loads(result.to_json(indent=None))["payload"]
+
+
+def _as_backend(s, backend):
+    """The same Study at another backend (``device`` follows the engine's
+    rule: the numpy backend takes none, except to measure a calibration)."""
+    a = s.analysis
+    device = a.device if (backend == "torch" or a.kind == "calibrate") else None
+    return dataclasses.replace(s, analysis=dataclasses.replace(a, backend=backend,
+                                                               device=device))
+
+
+def _start_front_door(tmp, specs):
+    """One shell per study, all started together: ``python -m repro_torch
+    example-spec KIND | python -m repro_torch run - --out ...`` for the
+    nine templates (which set ``backend='torch'``) and ``python -m
+    repro_torch run SPEC --out ...`` for the full-width studies."""
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (os.path.join(ROOT, "src"), env.get("PYTHONPATH")) if p)
+    env["OMP_NUM_THREADS"] = "1"  # a dozen processes share the host's cores
+    py = f"{sys.executable} -m repro_torch"
+    procs = {}
+    for i, (name, spec) in enumerate(specs.items()):
+        out = os.path.join(tmp, f"artifact-{i}.json")
+        if spec is None:  # an example-spec template, piped as a user types it
+            extra = f" --cache {os.path.join(tmp, 'cache-example-calibrate')}" \
+                if name == "calibrate" else ""
+            cmd = f"set -o pipefail; {py} example-spec {name} | {py} run - --out {out}{extra}"
+        else:
+            path = os.path.join(tmp, f"spec-{i}.json")
+            spec.save(path)
+            cmd = f"{py} run {path} --out {out}"
+        log = open(os.path.join(tmp, f"log-{i}.txt"), "w")
+        procs[name] = (subprocess.Popen(["bash", "-c", cmd], stdout=log, stderr=log, env=env,
+                                        cwd=tmp, start_new_session=True), out, log)
+    return procs
+
+
+def _paired(fn_a, fn_b, reps):
+    """Alternating reps of two calls of the same work (host clock): the
+    outputs, each one's times, and the median paired difference over the
+    best ``fn_a`` time (the reference's study_bench statistic)."""
+    import numpy as np
+
+    ta, tb, out = [], [], [None, None]
+    for _ in range(reps):
+        for i, (fn, acc) in enumerate(((fn_a, ta), (fn_b, tb))):
+            t0 = time.perf_counter()
+            out[i] = fn()
+            acc.append(time.perf_counter() - t0)
+    over = float(np.median(np.asarray(tb) - np.asarray(ta))) / min(ta)
+    return out, ta, tb, over
+
+
+def phase_front_door():
+    """``python -m repro_torch run`` on the card: every example-spec kind at
+    ``backend="torch"`` (the templates' backend) and three full-width
+    studies (Fig. 5, Fig. 7 at the paper's 300 x 3 x 16, qwen2-72b's
+    prefill_32k schedule), each artifact's payload equal to the same
+    spec's ``backend="numpy"`` payload; then, in this process, the
+    seconds per kind of both backends, the calibrate kind at the default
+    preset through the CLI with a cache (launches per row counted as in
+    phase 7, the resumed run launching nothing and reproducing the
+    artifact bit for bit), the search at workers 1 and 2 (spawned
+    workers on the card), and the Study facade's overhead over direct
+    engine calls."""
+    import shutil
+    import tempfile
+
+    from repro_torch import cli
+    from repro_torch.configs import REGISTRY, SHAPES
+    from repro_torch.core import dse
+    from repro_torch.core.cache import ResultCache
+    from repro_torch.core.dse import PAPER_WORKLOADS
+    from repro_torch.core.network import lower_network
+    from repro_torch.core.study import (
+        ANALYSIS_KINDS, AnalysisSpec, SpaceSpec, Study, WorkloadSpec, _jsonify,
+    )
+
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="repro-torch-front-door-")
+    full = {
+        "schedule qwen2-72b prefill_32k": Study(
+            name="schedule-qwen2-72b-prefill_32k",
+            workload=WorkloadSpec(kind="network", arch="qwen2-72b", shape="prefill_32k"),
+            analysis=AnalysisSpec(kind="schedule", backend="torch")),
+        "sweep fig7 (300 x 3 x 16)": dse.fig7_study(backend="torch"),
+        "sweep fig5": dse.fig5_study(backend="torch"),
+    }
+    procs = {}
+    try:
+        t0 = time.perf_counter()
+        procs = _start_front_door(tmp, {**{k: None for k in ANALYSIS_KINDS}, **full})
+        arts = {}
+        for name, (proc, path, log) in procs.items():
+            rc = proc.wait(timeout=FRONT_DOOR_TIMEOUT_S)
+            log.close()
+            tail = open(log.name).read()[-2000:]
+            check(rc == 0, f"python -m repro_torch run ({name}) exited {rc}: {tail}")
+            with open(path) as f:
+                arts[name] = json.load(f)
+            check(arts[name]["study"]["analysis"]["backend"] == "torch",
+                  f"{name}: the artifact's backend is not torch")
+        cli_wall = time.perf_counter() - t0
+        print(f"[front door] {len(procs)} `python -m repro_torch run` processes in parallel, "
+              f"all done in {cli_wall:.2f} s (wall, start-up included)", flush=True)
+
+        timing = {}
+        for name, art in arts.items():
+            spec = Study.from_dict(art["study"])
+            numpy_spec, torch_spec = _as_backend(spec, "numpy"), _as_backend(spec, "torch")
+            if name == "calibrate":
+                # the numpy spec replays the card's measurements from the
+                # CLI run's cache: same content hash, same device
+                cache = ResultCache(os.path.join(tmp, "cache-example-calibrate"))
+                rep = numpy_spec.run(cache=cache)
+                check(rep.cache["misses"] == 0 and rep.cache["hits"] == len(
+                    art["payload"]["rows"]), f"calibrate replay: {rep.cache}")
+                want = _payload_of(rep)
+            else:
+                want = None
+            (res_n, res_t), ts_n, ts_t, _ = _paired(numpy_spec.run, torch_spec.run, 3)
+            if want is None:
+                want = _payload_of(res_n)
+                check(_payload_of(res_t) == want,
+                      f"{name}: Study.run() at backend torch and numpy differ in this process")
+            check(art["payload"] == want,
+                  f"{name}: the CLI's backend='torch' payload differs from backend='numpy'")
+            timing[name] = {"numpy_s": ts_n, "torch_s": ts_t}
+            print(f"[front door] {name}: the CLI's torch payload equals numpy's; Study.run() s "
+                  f"per call: numpy {[round(t, 4) for t in ts_n]}, torch (card) "
+                  f"{[round(t, 4) for t in ts_t]}; {res_t.describe()}", flush=True)
+        p5 = arts["sweep fig5"]["payload"]
+        s12 = p5["speedup"][2][3][11]  # K 12100, 2^18 MACs, 12 tiers
+        check(round(s12, 2) == 9.57, f"Fig. 5 12-tier speedup {s12}")
+        med = arts["sweep fig7 (300 x 3 x 16)"]["payload"]["medians"]
+        check(med == [2.0, 4.0, 7.0], f"Fig. 7 medians {med}")
+        print(f"[front door] Fig. 5 12-tier speedup {s12:.4f}x; Fig. 7 medians {med}", flush=True)
+        out["kinds"] = timing
+        out["cli_parallel_wall_s"] = cli_wall
+
+        # the calibrate kind at the default preset, through the CLI with a cache
+        cal_dir = os.path.join(tmp, "cache-calibrate-default")
+        cal_spec = Study(name="calibrate-default", workload=WorkloadSpec(kind="random", n=1),
+                         analysis=AnalysisSpec(kind="calibrate", backend="torch",
+                                               calibrate=calibrate.CalibrateSpec()))
+        spec_path = os.path.join(tmp, "spec-calibrate-default.json")
+        cal_spec.save(spec_path)
+        calls = 1 + max(cal_spec.analysis.calibrate.warmup, 1) + cal_spec.analysis.calibrate.reps
+        original = calibrate.measure_row
+        runs = []
+        try:
+            for argv in (["run", spec_path, "--cache", cal_dir], ["run", "--resume", cal_dir]):
+                per_row = []
+                calibrate.measure_row = _recording_measure_row(per_row)
+                path = os.path.join(tmp, f"calibrate-default-{len(runs)}.json")
+                reset_launch_counts()
+                t0 = time.perf_counter()
+                check(cli.main(argv + ["--out", path]) == 0, f"repro_torch {argv} failed")
+                wall = time.perf_counter() - t0
+                runs.append((per_row, launch_counts(), wall, open(path).read()))
+        finally:
+            calibrate.measure_row = original
+        (rows1, counts1, wall1, text1), (rows2, counts2, wall2, text2) = runs
+        check(len(rows1) == 23, f"the calibrate Study measured {len(rows1)} rows")
+        counts, by_variant = _check_row_launches(rows1, calls, "calibrate Study")
+        check(counts1 == counts, f"calibrate Study launches {counts1} outside its rows")
+        check(not rows2 and not any(counts2.values()),
+              f"the resumed calibrate Study measured {len(rows2)} rows, launches {counts2}")
+        art1, art2 = json.loads(text1), json.loads(text2)
+        check(art1["payload"] == art2["payload"] and art2["cache"]["misses"] == 0
+              and art2["cache"]["hits"] == 23,
+              f"the resumed calibrate Study differs or recomputed: {art2['cache']}")
+        check(json.dumps(art1["payload"]) == json.dumps(art2["payload"]),
+              "the resumed calibrate artifact is not bit-identical")
+        e = art1["payload"]["errors"]
+        print(f"[front door] calibrate Study, default preset: 23 rows in {wall1:.2f} s, launches "
+              f"{counts} by variant {by_variant} ({calls} per kernel row); resumed from its "
+              f"cache in {wall2:.2f} s: 23 chunks reused, 0 launches, artifact bit-identical; "
+              f"holdout median rel. error {e['holdout_median_rel_err']:.4f} (fit "
+              f"{e['fit_median_rel_err']:.4f}, uncalibrated "
+              f"{e['uncalibrated_holdout_median_rel_err']:.4f})", flush=True)
+        out["calibrate_default"] = {"wall_s": wall1, "resume_wall_s": wall2, "launches": counts,
+                                    "launches_by_variant": by_variant, "errors": e}
+
+        # the search at workers 1 and 2: two blocks per generation, spawned workers
+        search = _as_backend(Study.from_dict(arts["search"]["study"]), "torch")
+        pays, walls = [], []
+        for w in (1, 2):
+            s = dataclasses.replace(search, analysis=dataclasses.replace(search.analysis,
+                                                                         workers=w))
+            t0 = time.perf_counter()
+            r = s.run(cache=ResultCache(os.path.join(tmp, f"search-w{w}"), block_cells=64))
+            walls.append(time.perf_counter() - t0)
+            pays.append(_payload_of(r))
+        check(pays[0] == pays[1] == arts["search"]["payload"],
+              "search: workers 1 and 2 (and the uncached CLI run) differ")
+        print(f"[front door] search at workers 1 and 2 (2 blocks per generation): bit-identical "
+              f"payloads, equal to the CLI's; {walls[0]:.2f} s and {walls[1]:.2f} s (the "
+              f"second spawns its 2 workers)", flush=True)
+        out["search_workers_s"] = walls
+
+        # the facade against direct engine calls, on the card
+        wl = list(PAPER_WORKLOADS.values())
+        budgets, tiers = (2**14, 2**16, 2**18), tuple(range(1, 17))
+        ev = Study(name="facade-evaluate", workload=WorkloadSpec(kind="gemms", gemms=wl),
+                   space=SpaceSpec(mac_budgets=budgets, tiers=tiers),
+                   analysis=AnalysisSpec(backend="torch"))
+        (d, r), t_d, t_s, over_e = _paired(
+            lambda: engine.evaluate(engine.DesignGrid.product(wl, budgets, tiers),
+                                    backend="torch"), ev.run, 7)
+        bad = _eval_diff(d, r.result)
+        check(not bad, f"facade evaluate differs from the engine in {bad}")
+        cfg, shape = REGISTRY["smollm-135m"], SHAPES["decode_32k"]
+        sc = Study(name="facade-schedule",
+                   workload=WorkloadSpec(kind="network", arch=cfg.name, shape=shape.name),
+                   analysis=AnalysisSpec(kind="schedule", backend="torch"))
+        sp = sc.space
+        (d2, r2), t_d2, t_s2, over_s = _paired(
+            lambda: engine.schedule(lower_network(cfg, shape), mac_budgets=sp.mac_budgets,
+                                    tiers=sp.tiers, backend="torch"), sc.run, 5)
+        check(json.dumps(_jsonify(d2)) == json.dumps(_jsonify(r2.report)),
+              "facade schedule differs from the engine")
+        print(f"[front door] facade over direct engine calls (torch, card; median paired "
+              f"difference over the best direct time): evaluate {len(wl)} x "
+              f"{len(budgets) * len(tiers)} points {over_e * 100:+.2f}% (direct best "
+              f"{min(t_d) * 1e3:.3f} ms, Study best {min(t_s) * 1e3:.3f} ms); schedule "
+              f"smollm-135m decode_32k {over_s * 100:+.2f}% (direct best {min(t_d2) * 1e3:.3f} "
+              f"ms, Study best {min(t_s2) * 1e3:.3f} ms)", flush=True)
+        out["facade"] = {"evaluate": {"direct_s": t_d, "study_s": t_s, "overhead": over_e},
+                         "schedule": {"direct_s": t_d2, "study_s": t_s2, "overhead": over_s}}
+    finally:
+        for proc, _, log in procs.values():
+            if proc.poll() is None:
+                os.killpg(proc.pid, 9)
+                proc.wait()
+            log.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    RESULTS["front_door"] = out
+    return counts
+
+
+# ---------------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
@@ -1410,6 +1687,7 @@ def main(argv=None) -> int:
     phase_engine()
     phase_thermal()
     phase_systolic()
+    counts["front door calibration"] = phase_front_door()
 
     replaces = {
         "dos_matmul": ("src/repro_torch/kernels/csrc/dos_matmul.cu",
@@ -1438,9 +1716,9 @@ def main(argv=None) -> int:
         with open(details, "w") as f:
             json.dump(RESULTS, f, indent=1)
     print(f"[done] {RESULTS['wall_s']:.1f} s; the kernels' launches sum both main paths' "
-          "runs and the calibration's; max_abs_err is the largest of phase 4's and the "
-          "calibration's checks; ms, plain_ms, library_ms and bound_ms sum both main paths' "
-          "calls of one prefill plus one decode step")
+          "runs, phase 7's calibration and the front door's calibrate Study; max_abs_err is "
+          "the largest of phase 4's and phase 7's checks; ms, plain_ms, library_ms and "
+          "bound_ms sum both main paths' calls of one prefill plus one decode step")
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))

@@ -1,6 +1,7 @@
 """Analysis helpers: the roofline combiner every report and the
-calibration fit use (``roofline``)."""
+calibration fit use (``roofline``), and the kernel-aware HBM traffic
+model the serving simulator prices steps with (``traffic``)."""
 
-from . import roofline
+from . import roofline, traffic
 
-__all__ = ["roofline"]
+__all__ = ["roofline", "traffic"]

@@ -103,8 +103,12 @@ def test_entry_points_need_a_card_unless_cpu_is_asked():
 
 
 def test_unported_families_raise():
-    with pytest.raises(KeyError, match="not ported"):
-        get_config("deepseek-moe-16b")
+    # every arch's config is registered (the front door lowers all ten);
+    # building a model of an unported family raises, naming its item
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        build(get_config("deepseek-moe-16b"), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        decoder_defs(get_config("deepseek-moe-16b"))
     for family in ("moe", "vlm", "ssm", "encdec"):
         cfg = dataclasses.replace(get_config("smollm-135m"), family=family)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -125,7 +129,9 @@ for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(m.name)
 ported = [f"repro_torch.core.{{n}}" for n in (
     "ppa.constants", "params", "analytical", "dataflow", "bandwidth", "ppa.area", "ppa.power",
-    "ppa.thermal", "pricing", "engine", "systolic", "calibrate")] + ["repro_torch.analysis.roofline"]
+    "ppa.thermal", "pricing", "engine", "systolic", "calibrate", "cache", "network", "search",
+    "serve", "study", "dse", "advisor")] + [f"repro_torch.{{n}}" for n in (
+    "configs", "analysis.roofline", "analysis.traffic", "parallel.work_queue", "cli")]
 assert all(n in sys.modules for n in ported), [n for n in ported if n not in sys.modules]
 runpy.run_path({os.path.join(REPO, "chip_smoke.py")!r}, run_name="chip_smoke")
 bad = sorted(n for n in sys.modules

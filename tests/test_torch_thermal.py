@@ -8,9 +8,11 @@ and both stop at the same Jacobi iteration. The lumped model and the
 transient state are numpy copies: equal outputs.
 
 Fig. 8's configuration (65536 MACs, 3 tiers, TSV) never gets max|dT|
-under 1e-5 in f32 and runs to the 200,000-iteration cap (~20 s here);
-it runs on the card (``chip_smoke.py``), and one test pins the
-reference's 69.007 degC that the card is held to.
+under 1e-5 in f32 and runs to the 200,000-iteration cap (~20 s per
+package on the CPU). The reference's report and solved T are computed
+once per module (a fixture); one test pins its 69.007 degC, which
+``chip_smoke.py`` holds the card to, and one holds the port's CPU
+report and T to it bit for bit.
 """
 
 import dataclasses
@@ -52,11 +54,48 @@ def test_thermal_report_matches_reference(macs, tiers, tech):
     assert 1000 < iters < thermal._MAX_ITERS
 
 
-def test_capped_configuration_reference_value():
+@pytest.fixture(scope="module")
+def ref_capped():
+    """The reference's capped report and the T its ``thermal_report``
+    solved (captured from its ``solve_stack``)."""
+    solved = []
+    original = ref_thermal.solve_stack
+
+    def recorded(*args, **kw):
+        solved.append(np.asarray(original(*args, **kw)))
+        return solved[-1]
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(ref_thermal, "solve_stack", recorded)
+        rep = ref_thermal.thermal_report(*CAPPED)
+    assert len(solved) == 1
+    return rep, solved[0]
+
+
+def test_capped_configuration_reference_value(ref_capped):
     """The reference stops this one at the iteration cap; its hottest
     cell, which ``chip_smoke.py`` holds the card's solve to."""
-    rep = ref_thermal.thermal_report(*CAPPED)
+    rep, _ = ref_capped
     assert round(rep.t_max_c, 3) == 69.007
+
+
+def test_capped_configuration_matches_reference(ref_capped, monkeypatch):
+    """The port's CPU solve runs to the same cap and gives the reference's
+    report and temperatures bit for bit."""
+    want, T_want = ref_capped
+    solved = []
+    original = thermal._solve_stack
+
+    def recorded(*args, **kw):
+        solved.append(original(*args, **kw))
+        return solved[-1]
+
+    monkeypatch.setattr(thermal, "_solve_stack", recorded)
+    got = thermal.thermal_report(*CAPPED, device="cpu")
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    (T, iters), = solved
+    assert iters == thermal._MAX_ITERS
+    assert T.dtype == torch.float32 and np.array_equal(T.numpy(), T_want)
 
 
 @pytest.mark.parametrize("check_every", [1, 100, 4096])
