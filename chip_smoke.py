@@ -13,11 +13,11 @@ if it fails:
    nvcc (one process per source, in parallel) and loads them; prints
    ptxas registers and spills per kernel, each tagged with its variant;
 3. main paths, each with the launch counts set to 0 just before and
-   read just after: ``serve_loop`` on smollm-135m (dense) and on
-   zamba2-2.7b (hybrid: Mamba2 + shared attention), both at full width
-   and depth (batch 4, prompt 128, 32 tokens). Each path must launch
-   each of its kernels exactly as often as its layers call it, and the
-   two paths together every registered kernel; every ``dos_matmul``
+   read just after (the training path is phase 12's): ``serve_loop`` on
+   smollm-135m (dense) and on zamba2-2.7b (hybrid: Mamba2 + shared
+   attention), both at full width and depth (batch 4, prompt 128, 32
+   tokens). Each path must launch each of its kernels exactly as often
+   as its layers call it (the flash backward never); every ``dos_matmul``
    launch must be a ``skinny`` or ``wgmma`` one (``general`` 0), and
    every ``flash_attention`` and ``ssm_scan`` launch an ``mma`` one
    (``fma`` 0), each kernel's variants adding up to its launches;
@@ -80,7 +80,33 @@ if it fails:
     reproduces the artifact bit for bit); the search at workers 1 and 2
     (spawned workers on the card) bit-identical; the Study facade's
     overhead over direct engine calls;
-12. prints the kernels line, the ``nvidia-smi`` line, and last
+12. training (``python -m repro_torch.launch.train``): its main path,
+    run right after phase 3's with the counts set to 0 just before and
+    read just after, is ``train_loop`` on smollm-135m at full width and
+    depth (bf16 compute on f32 master weights, batch 8 x 512 tokens, seed
+    0, remat on, 30 steps): every loss finite and falling, the launches
+    per step exact (``dos_matmul`` 843, all ``wgmma``; ``flash_attention``
+    60, all ``mma``; ``flash_attention_bwd`` 30), step p50/p99, tokens/s,
+    peak memory. The three main paths together must launch every
+    registered kernel. After phase 11: the forward's o and lse (both
+    variants; o also through the autograd Function) and the flash
+    backward against their plain versions at the training
+    shape (timed beside the SDPA backward) and edge shapes (every head
+    dim, GQA 4/4, 16/1, 8/2, a binding window, ragged Sq/Skv, q_offset,
+    no visible key, a base off 16 bytes, a sequence stride of 2), two
+    calls bit-identical; the dos_matmul Function's forward against
+    matmul_ref and its dA and dB against autograd of matmul_ref at every
+    training projection (all ``wgmma``), each product timed beside
+    torch.matmul; one train step under ``torch.profiler`` (device busy,
+    idle share, kernels and plain ops), at microbatches 2 (the same loss,
+    and the same gradients leaf by leaf, within the bf16 band) and without
+    remat (step time and peak memory beside remat's); the
+    card against the CPU at full width and 2 layers (loss and every
+    gradient leaf: f32 within 1e-3 of the leaf's max|g|, bf16 within
+    3e-2); ``train_loop`` with checkpoints and a fault at step 12 (depth
+    cut to 4 layers), resumed from step 10 with the losses of an
+    uninterrupted run; the CLI ``--steps 5 --json`` in a subprocess;
+13. prints the kernels line, the ``nvidia-smi`` line, and last
     ``{"ok": true, "device": {...}}``.
 
 ``--details PATH`` also writes every measurement to a JSON file.
@@ -114,13 +140,20 @@ from repro_torch.core.ppa import thermal  # noqa: E402
 from repro_torch.kernels import KERNELS, _build, launch_counts, reset_launch_counts  # noqa: E402
 from repro_torch.kernels.dos_matmul import dos_matmul, matmul_ref  # noqa: E402
 from repro_torch.kernels.dos_matmul import ops as dos_ops  # noqa: E402
-from repro_torch.kernels.flash_attention import attention_ref, flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    attention_bwd_ref, attention_fwd_ref, attention_ref, flash_attention, flash_attention_bwd,
+)
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.ssm_scan import CHUNK, CHUNKS, ssm_scan, ssm_scan_chunked  # noqa: E402
 from repro_torch.kernels.ssm_scan import ops as ssm_ops  # noqa: E402
+from repro_torch.data import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.launch.serve import serve_loop  # noqa: E402
+from repro_torch.launch.steps import accumulate_grads, loss_and_grads, make_train_step  # noqa: E402
+from repro_torch.launch.train import train_loop  # noqa: E402
 from repro_torch.models import build, decoder  # noqa: E402
-from repro_torch.models.params import map_tree  # noqa: E402
+from repro_torch.models.params import leaves, map_tree  # noqa: E402
+from repro_torch.optim import OptConfig  # noqa: E402
+from repro_torch.runtime import FaultInjector  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): the bound of a call
 # is the larger of its bytes over HBM bandwidth and its operations over
@@ -231,6 +264,7 @@ def phase_build():
     libs = _build.build_all()
     dos_ops._lib()
     flash_ops._lib()
+    flash_ops._bwd_lib()
     ssm_ops._lib()
     dt = time.perf_counter() - t0
     print(f"[build] {len(libs)} kernels built and loaded in {dt:.1f} s", flush=True)
@@ -249,7 +283,8 @@ def phase_build():
 # the kernels of each variant, by function name (csrc/*.cu)
 _VARIANT_OF = {"dos_matmul_skinny": "skinny", "dos_matmul_wgmma": "wgmma",
                "dos_matmul_wmma": "general", "dos_matmul_fma": "f32",
-               "flash_mma": "mma", "flash_fwd": "fma", "ssd_mma": "mma", "ssd_fwd": "fma"}
+               "flash_mma": "mma", "flash_fwd": "fma", "flash_bwd": "fma", "ssd_mma": "mma",
+               "ssd_fwd": "fma"}
 
 
 def _variant_tag(name: str) -> str:
@@ -289,8 +324,9 @@ def expected_launches(cfg) -> dict:
     else:
         n_attn, n_mamba = cfg.n_layers, 0
         gemms = 7 * n_attn + head
-    prefill = {"dos_matmul": gemms, "flash_attention": n_attn, "ssm_scan": n_mamba}
-    step = {"dos_matmul": gemms, "flash_attention": 0, "ssm_scan": 0}
+    prefill = {"dos_matmul": gemms, "flash_attention": n_attn, "flash_attention_bwd": 0,
+               "ssm_scan": n_mamba}
+    step = {"dos_matmul": gemms, "flash_attention": 0, "flash_attention_bwd": 0, "ssm_scan": 0}
     return {"prefill": prefill, "decode": {k: n * (GEN - 1) for k, n in step.items()}}
 
 
@@ -1647,6 +1683,543 @@ def phase_front_door():
 
 
 # ---------------------------------------------------------------------------
+# phase 12: training (python -m repro_torch.launch.train) on the card
+# ---------------------------------------------------------------------------
+
+# The training path: smollm-135m at full width and depth, bf16 compute on
+# f32 master weights, batch 8 x 512 tokens, seed 0, remat on.
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 30
+# card against CPU: full width, depth cut to 2 layers, batch 2 x 256
+TRAIN_E2E_LAYERS, TRAIN_E2E_BATCH, TRAIN_E2E_SEQ = 2, 2, 256
+# the f32 gradient band, as a fraction of each leaf's max|g|: the same
+# f32 arithmetic summed in other orders (tests/test_torch_train.py holds
+# the CPU to the reference within the same 1e-3)
+TRAIN_F32_TOL = 1e-3
+# the restart check: full width, depth cut to 4 layers (each checkpoint
+# holds params, m and v in f32: 0.5 GB), 16 steps, a fault at step 12
+RESTART_LAYERS, RESTART_STEPS, RESTART_FAULT = 4, 16, 12
+
+
+def expected_train_launches(cfg) -> dict:
+    """Kernel launches of one train step with remat as the layers call
+    them: each projection's GEMM in the forward, again in each layer's
+    recompute (the unembedding is outside the checkpointed layers), and
+    dA and dB of every projection in the backward; one flash forward per
+    layer, again in its recompute, and one flash backward."""
+    gemms = 7 * cfg.n_layers + 1
+    return {"dos_matmul": gemms + 7 * cfg.n_layers + 2 * gemms,
+            "flash_attention": 2 * cfg.n_layers, "flash_attention_bwd": cfg.n_layers,
+            "ssm_scan": 0}
+
+
+def _bwd_work(b, sq, skv, h, kvh, d, es, causal, window, q_offset):
+    """Bytes of a flash backward (q, k, v, o, dO and lse read once; dq,
+    dk, dv written once) and its operations: S, dP, dV, dQ and dK, 2 D
+    each per visible (query, key) pair and query head, and 2 D per key
+    of dV for a row that sees no key."""
+    pairs = _visible_pairs(sq, skv, causal, window, q_offset)
+    dead = sum(1 for i in range(sq) if _visible_pairs(1, skv, causal, window, i + q_offset) == 0)
+    n_bytes = (4 * b * sq * h + 4 * b * skv * kvh) * d * es + 4 * b * h * sq
+    return n_bytes, float(b * h * d * (10 * pairs + 2 * skv * dead))
+
+
+def _sdpa_bwd_ms(sets, reps=20):
+    """Device ms per call of the autograd backward of
+    ``scaled_dot_product_attention`` (causal, GQA) on the same operands:
+    CUDA events around ``reps`` calls, cycling the input sets, after a
+    warm-up (autograd is not captured in a graph, so the host's launches
+    are inside the time; the backward's device time is far longer)."""
+    graphs = []
+    for q, k, v, _, do, _ in sets:
+        qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
+        graphs.append((out, (qs, ks, vs), do.transpose(1, 2)))
+
+    def run(i):
+        out, leaves_, do = graphs[i % len(graphs)]
+        torch.autograd.grad(out, leaves_, do, retain_graph=True)
+
+    for i in range(3):
+        run(i)
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for i in range(reps):
+        run(i)
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def check_flash_bwd(gen, b, sq, skv, h, kvh, d, dtype, causal=True, window=None, q_offset=0,
+                    time_it=False, layout="aligned"):
+    """The forward's o and lse (the variant ``layout`` plans; o also
+    through ``flash_attention``'s autograd Function) and the backward
+    kernel against their plain versions. ``layout`` "offset" moves every
+    operand's base 2 bytes off 16 (the forward runs fma), "seq stride 2"
+    reads q, k, v, o and dO at every other row of a tensor twice as long
+    (the forward runs mma; the backward reads the strides)."""
+    es = 2 if dtype == torch.bfloat16 else 4
+    n_bytes, n_ops = _bwd_work(b, sq, skv, h, kvh, d, es, causal, window, q_offset)
+    n_sets = max(1, math.ceil(COLD_BYTES / n_bytes)) if time_it else 1
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    variant = _want_variant(dtype, "offset" if layout == "offset" else "aligned")
+    sets = []
+    for i in range(n_sets):
+        q, k, v, do = (torch.randn(bb, 2 * s if layout == "seq stride 2" else s, hh, d,
+                                   generator=gen, device="cuda").to(dtype)
+                       for bb, s, hh in ((b, sq, h), (b, skv, kvh), (b, skv, kvh), (b, sq, h)))
+        if layout == "seq stride 2":
+            q, k, v, do = (t[:, ::2] for t in (q, k, v, do))
+        elif layout == "offset":
+            q, k, v, do = (_off16(t) for t in (q, k, v, do))
+        o, lse = (_count_variant(flash_attention, variant, lambda: flash_ops._forward(
+            q, k, v, scale=None, with_lse=True, **kw)) if i == 0 else
+            flash_ops._forward(q, k, v, scale=None, with_lse=True, **kw))
+        sets.append((q, k, v, o, do, lse))
+    q, k, v, o, do, lse = sets[0]
+    want_o, want_lse = attention_fwd_ref(q.float(), k.float(), v.float(), **kw)
+    # the Function's forward, as a train step calls it (an input requires
+    # grad): the same kernel with lse, so the same bits as o
+    wrapped = _count_variant(flash_attention, variant, lambda: flash_attention(
+        q.detach().requires_grad_(), k, v, **kw)).detach()
+    before = flash_attention_bwd.launches
+    grads = flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    check(flash_attention_bwd.launches == before + 1, "flash_attention_bwd did not launch once")
+    again = flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    plain = attention_bwd_ref(q, k, v, o, do, lse, **kw)
+    exact = attention_bwd_ref(q.float(), k.float(), v.float(), o.float(), do.float(), lse, **kw)
+    torch.cuda.synchronize()
+    # lse: f32 math on both sides, 1e-5 absolute plus 1e-6 of |lse| (a log
+    # of an f32 sum; a row with no visible key holds NEG_INF on both)
+    lse_err = (lse - want_lse).abs()
+    ok = bool((lse_err <= 1e-5 + 1e-6 * want_lse.abs()).all())
+    # o: check_flash's tolerance (f32 math on both sides, 1e-5 absolute; a
+    # bf16 output adds one rounding, 2**-8 of each entry)
+    o_err = (o.float() - want_o).abs()
+    o_tol = (2.0**-8 * want_o.abs() if dtype == torch.bfloat16 else 0.0) + 1e-5
+    o_same = torch.equal(wrapped, o)
+    ok = ok and bool((o_err <= o_tol).all()) and o_same
+    # gradients: f32, 1e-5 of the largest entry (they are O(10), not O(1)
+    # like the forward's output; at least 1e-5 absolute); a bf16 gradient
+    # adds one rounding, 2**-8 of each entry, against the f32 result of
+    # the same bf16 operands (o, dO and lse included)
+    errs, ref_max = [], 0.0
+    for got, ex in zip(grads, exact):
+        err = (got.float() - ex).abs()
+        tol = 1e-5 * max(1.0, ex.abs().max().item())
+        if dtype == torch.bfloat16:
+            tol = tol + 2.0**-8 * ex.abs()
+        ok = ok and bool((err <= tol).all())
+        errs.append(err.max().item())
+        ref_max = max(ref_max, ex.abs().max().item())
+    same = all(torch.equal(x, y) for x, y in zip(grads, again))
+    tag = (f"B{b} Sq{sq} Skv{skv} H{h}/{kvh} D{d} {str(dtype).split('.')[-1]} causal={causal} "
+           f"window={window} q_offset={q_offset}"
+           f"{'' if layout == 'aligned' else ' ' + layout} [lse {variant}, bwd fma]")
+    row = {"case": tag, "variant": "fma", "lse_variant": variant,
+           "max_abs_err": max((g.float() - p.float()).abs().max().item()
+                              for g, p in zip(grads, plain)),
+           "max_abs_err_vs_f32": max(errs), "lse_max_abs_err": lse_err.max().item(),
+           "o_max_abs_err_vs_f32": o_err.max().item(), "wrapper_o_bit_identical": o_same,
+           "max_ref": ref_max, "bit_identical": same, "ok": ok and same}
+    if time_it:
+        check(causal and q_offset == 0 and (window or skv) >= skv,
+              "the library yardstick (sdpa) covers plain causal attention only")
+        row["bytes"], row["ops"] = n_bytes, n_ops
+        row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, n_ops, dtype)
+        row["ms"] = cuda_ms(lambda i: flash_attention_bwd(*sets[i], **kw), n_sets)
+        row["plain_ms"] = cuda_ms(lambda i: attention_bwd_ref(*sets[i], **kw), n_sets)
+        row["library_ms"] = _sdpa_bwd_ms(sets)
+    print(f"[train] flash_attention_bwd {tag}: max|err| vs f32 dq/dk/dv "
+          f"{'/'.join(f'{e:.3g}' for e in errs)} (max|ref| {ref_max:.3g}), lse "
+          f"{row['lse_max_abs_err']:.3g}, o {row['o_max_abs_err_vs_f32']:.3g} (through "
+          f"flash_attention: same bits {o_same}), two calls bit-identical {same} "
+          + (f"kernel {row['ms']*1e3:.1f} us, plain {row['plain_ms']*1e3:.1f} us, sdpa backward "
+             f"{row['library_ms']*1e3:.1f} us, bound {row['bound_ms']*1e3:.2f} us "
+             f"({row['bound_by']})" if time_it else "")
+          + ("" if row["ok"] else "  FAIL"), flush=True)
+    check(same, f"flash_attention_bwd {tag}: two calls on the same inputs differ")
+    check(ok, f"flash_attention_bwd {tag} or its forward's o and lse disagree with their "
+          "plain versions")
+    return row
+
+
+def train_gemms(cfg) -> dict:
+    """{(K, N, tied): projections per train step} of the dense path: each
+    layer's q, k, v, o and gated MLP, and the unembedding."""
+    e, f, v = cfg.d_model, cfg.d_ff, cfg.vocab
+    q, kv = cfg.n_heads * cfg.head_dim_, cfg.n_kv_heads * cfg.head_dim_
+    out: dict = {}
+    for k, n, count in ((e, q, 1), (e, kv, 2), (q, e, 1), (e, f, 2), (f, e, 1)):
+        out[(k, n, False)] = out.get((k, n, False), 0) + count * cfg.n_layers
+    out[(e, v, cfg.tie_embeddings)] = 1
+    return out
+
+
+def check_dos_function(gen, m, k, n, tied, time_it=True):
+    """The dos_matmul Function's forward against ``matmul_ref``, and its
+    dA and dB (two more launches, each ``wgmma``) against autograd of
+    ``matmul_ref`` on the card, for a
+    bf16 activation and an f32 master weight cast in the graph; and the
+    times of the forward, dA, dB, the transposed copy of A that dB reads,
+    each beside torch.matmul."""
+    a = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn(n, k, generator=gen, device="cuda").T if tied
+         else torch.randn(k, n, generator=gen, device="cuda"))
+    dc = torch.randn(m, n, generator=gen, device="cuda").to(torch.bfloat16)
+    a1, w1 = a.clone().requires_grad_(), w.detach().clone().requires_grad_()
+    before = dict(dos_matmul.variants)
+    c1 = dos_matmul(a1, w1.to(torch.bfloat16))
+    torch.autograd.backward(c1, dc)
+    launched = {v: dos_matmul.variants[v] - before[v] for v in before}
+    a2, w2 = a.clone().requires_grad_(), w.detach().clone().requires_grad_()
+    c2 = matmul_ref(a2, w2.to(torch.bfloat16))
+    torch.autograd.backward(c2, dc)
+    wb = w.to(torch.bfloat16)
+    exact = (dc.float() @ wb.float().T, a.float().T @ dc.float())  # f32 sums, same operands
+    exact_c = matmul_ref(a, wb, torch.float32)
+    torch.cuda.synchronize()
+    library = (torch.matmul(dc, wb.T), torch.matmul(a.T, dc))  # bf16 on the tensor cores
+    # the forward: phase 4's GEMM tolerance (one bf16 rounding, 2**-8 of
+    # each entry, plus 1e-5 of the largest for the order of the sum)
+    c_err = (c1.detach().float() - exact_c).abs()
+    ok = (c1.dtype == c2.dtype
+          and bool((c_err <= 2.0**-8 * exact_c.abs() + 1e-5 * exact_c.abs().max()).all()))
+    errs, excess = [], []
+    for got, want, ex, lib, depth in ((a1.grad, a2.grad, exact[0], library[0], n),
+                                      (w1.grad, w2.grad, exact[1], library[1], m)):
+        # each rounds an f32 sum of the same bf16 products to bf16 once: the
+        # Function's and autograd's gradients each within 2**-8 of every
+        # entry of the f32 result, plus phase 4's 1e-5 of the largest entry
+        # for the order of the sum, growing linearly with its depth past
+        # 8192 terms (the tensor cores' f32 adds truncate, so their error
+        # grows with the length of the sum: dA of the tied unembedding sums
+        # 49,152 terms)
+        tol = 2.0**-8 * ex.abs() + 1e-5 * max(1.0, depth / 8192) * ex.abs().max()
+        ok = (ok and got.dtype == want.dtype and bool(((got.float() - ex).abs() <= tol).all())
+              and bool(((want.float() - ex).abs() <= tol).all()))
+        errs.append((got.float() - want.float()).abs().max().item())
+        excess.append(((got.float() - ex).abs() - 2.0**-8 * ex.abs()).max().item()
+                      / ex.abs().max().item())
+        excess.append(((lib.float() - ex).abs() - 2.0**-8 * ex.abs()).max().item()
+                      / ex.abs().max().item())
+    tag = f"{m}x{k}x{n}{' tied (B^T)' if tied else ''}"
+    row = {"case": tag, "launched": launched,
+           "max_abs_err_forward": (c1.detach().float() - c2.detach().float()).abs().max().item(),
+           "forward_max_abs_err_vs_f32": c_err.max().item(), "max_abs_err_dA": errs[0],
+           "max_abs_err_dB": errs[1], "sum_error_dA": excess[0],
+           "sum_error_dA_torch_matmul": excess[1], "sum_error_dB": excess[2],
+           "sum_error_dB_torch_matmul": excess[3], "ok": ok}
+    if time_it:
+        at = a.T.contiguous()
+        calls = {"forward": (lambda: dos_matmul(a, wb), lambda: torch.matmul(a, wb)),
+                 "dA": (lambda: dos_matmul(dc, wb.T), lambda: torch.matmul(dc, wb.T)),
+                 "dB": (lambda: dos_matmul(at, dc), lambda: torch.matmul(at, dc))}
+        for name, (kern, lib) in calls.items():
+            row[f"{name}_ms"] = cuda_ms(lambda i: kern(), 1)
+            row[f"{name}_torch_matmul_ms"] = cuda_ms(lambda i: lib(), 1)
+        row["transpose_copy_ms"] = cuda_ms(lambda i: a.T.contiguous(), 1)
+    print(f"[train] dos_matmul Function {tag}: forward max|err| vs f32 {c_err.max().item():.3g} "
+          f"(max|ref| {exact_c.abs().max().item():.3g}); max|Function - autograd of matmul_ref| dA "
+          f"{errs[0]:.3g}, dB {errs[1]:.3g}; error of the sum past one bf16 rounding, of "
+          f"max|ref|: dA {excess[0]:.3g} (bf16 torch.matmul {excess[1]:.3g}), dB {excess[2]:.3g} "
+          f"({excess[3]:.3g}); launches by variant {launched}"
+          + ("".join(f"; {n} {row[n + '_ms']*1e3:.1f} us (torch.matmul "
+                     f"{row[n + '_torch_matmul_ms']*1e3:.1f} us)" for n in ("forward", "dA", "dB"))
+             + f"; A^T copy {row['transpose_copy_ms']*1e3:.1f} us" if time_it else "")
+          + ("" if ok else "  FAIL"), flush=True)
+    check(launched == {"skinny": 0, "wgmma": 3, "general": 0, "f32": 0},
+          f"dos_matmul Function {tag}: launches {launched}, expected 3 wgmma")
+    check(ok, f"dos_matmul Function {tag}: the forward or the gradients disagree with "
+          "matmul_ref and its autograd")
+    return row
+
+
+def phase_train_kernels():
+    """Phase 12's kernel checks: the forward's lse and the flash backward
+    at the training shape (timed) and edge shapes, and the dos_matmul
+    Function at every training projection. Returns the flash backward's
+    row at the training shape and the largest error of the checks."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    cfg = get_config(ARCH)
+    h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    out = {"flash_attention_bwd": [], "dos_matmul_function": []}
+    main = check_flash_bwd(gen, TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, h, kvh, hd, torch.bfloat16,
+                           window=2**30, time_it=True)  # the global layers' sentinel
+    rows = [main, check_flash_bwd(gen, TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, h, kvh, hd,
+                                  torch.float32)]
+    for dtype in (torch.bfloat16, torch.float32):
+        fb = functools.partial(check_flash_bwd, gen, dtype=dtype)
+        for d in flash_ops.HEAD_DIMS:  # every head dim built, a ragged tail
+            rows.append(fb(2, 100, 100, 6, 2, d))
+        for gh, gkv in ((4, 4), (16, 1), (8, 2)):  # the GQA extremes
+            rows.append(fb(2, 128, 128, gh, gkv, 64))
+        rows.append(fb(2, 256, 256, 4, 1, 256, window=128))  # gemma3's heads, a window that binds
+        rows.append(fb(2, 200, 333, 4, 2, 64, causal=False))  # ragged
+        rows.append(fb(2, 200, 333, 4, 2, 64, q_offset=133))  # queries at the end
+        rows.append(fb(2, 64, 200, 4, 2, 32, window=16, q_offset=136))
+        rows.append(fb(1, 70, 70, 2, 1, 64, window=0))  # no row sees a key
+    for layout in ("offset", "seq stride 2"):
+        rows.append(check_flash_bwd(gen, 2, 128, 128, h, kvh, hd, torch.bfloat16, layout=layout))
+    out["flash_attention_bwd"] = rows
+    for (k, n, tied) in train_gemms(cfg):
+        out["dos_matmul_function"].append(
+            check_dos_function(gen, TRAIN_BATCH * TRAIN_SEQ, k, n, tied))
+    # the train step's GEMM device time: the forward twice (remat) but the
+    # unembedding once, dA and dB once, and one transposed copy per dB
+    counts = train_gemms(cfg)
+    step = {"kernel_ms": 0.0, "torch_matmul_ms": 0.0, "transpose_copy_ms": 0.0}
+    for row, ((k, n, tied), c) in zip(out["dos_matmul_function"], counts.items()):
+        fwd = c if tied else 2 * c
+        step["kernel_ms"] += fwd * row["forward_ms"] + c * (row["dA_ms"] + row["dB_ms"])
+        step["torch_matmul_ms"] += (fwd * row["forward_torch_matmul_ms"]
+                                    + c * (row["dA_torch_matmul_ms"] + row["dB_torch_matmul_ms"]))
+        step["transpose_copy_ms"] += c * row["transpose_copy_ms"]
+    print(f"[train] a train step's GEMMs ({sum(counts.values())} projections; forward, remat "
+          f"recompute, dA, dB): dos_matmul {step['kernel_ms']:.3f} ms, torch.matmul "
+          f"{step['torch_matmul_ms']:.3f} ms; the transposed copies dB reads "
+          f"{step['transpose_copy_ms']:.3f} ms", flush=True)
+    out["train_step_gemms"] = step
+    RESULTS["train_kernels"] = out
+    return main, max(r["max_abs_err"] for r in rows)
+
+
+def phase_train_path():
+    """Phase 12's main path: ``train_loop`` on smollm-135m at full size on
+    the card, with the launch counts set to 0 just before and read just
+    after. Every loss finite and falling, the launches per step exact
+    (every dos_matmul launch wgmma, every flash forward mma), step times,
+    tokens/s and peak memory. Returns the counts and the final state."""
+    cfg = get_config(ARCH)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    state, losses, wd = train_loop(cfg, steps=TRAIN_STEPS, global_batch=TRAIN_BATCH,
+                                   seq_len=TRAIN_SEQ, seed=0, log_every=10, device="cuda")
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    variants = {k: dict(KERNELS[k].variants) for k in ("dos_matmul", "flash_attention")}
+    steps = sorted(wd.times)
+    p50, p99 = steps[len(steps) // 2], steps[min(len(steps) - 1, int(0.99 * len(steps)))]
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / p50
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    summary = {"steps": TRAIN_STEPS, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "wall_s": wall,
+               "step_s": wd.times, "step_p50_s": p50, "step_p99_s": p99,
+               "first_step_s": wd.times[0], "tok_s_p50": tok_s, "losses": losses,
+               "peak_mem_bytes": peak, "mem_before_bytes": base, "launches": counts,
+               "variants": variants, "slow_steps": wd.slow_steps}
+    print(f"[train] train_loop {cfg.name} ({build(cfg, 'cuda').n_params:,} parameters, "
+          f"{cfg.compute_dtype} compute on {cfg.param_dtype} masters, remat) batch {TRAIN_BATCH} "
+          f"x {TRAIN_SEQ} tokens, {TRAIN_STEPS} steps in {wall:.2f} s: step p50 {p50*1e3:.3f} ms, "
+          f"p99 {p99*1e3:.3f} ms (first step {wd.times[0]*1e3:.1f} ms), {tok_s:,.0f} tokens/s at "
+          f"p50, peak memory {peak / 2**20:.1f} MiB ({base / 2**20:.1f} MiB before)", flush=True)
+    print(f"[train] losses: {' '.join(f'{x:.4f}' for x in losses)}", flush=True)
+    print(f"[train] launches {counts}; by variant {variants}", flush=True)
+    check(all(math.isfinite(x) for x in losses), "a training loss is not finite")
+    check(last < first and losses[-1] < losses[0],
+          f"the loss did not fall: {losses[0]:.4f} -> {losses[-1]:.4f} (means of 5: "
+          f"{first:.4f} -> {last:.4f})")
+    want = {k: n * TRAIN_STEPS for k, n in expected_train_launches(cfg).items()}
+    check(counts == want, f"train launches {counts}, expected {want}")
+    check(variants["dos_matmul"]["wgmma"] == counts["dos_matmul"],
+          f"a training GEMM left the wgmma kernel: {variants['dos_matmul']}")
+    check(variants["flash_attention"]["mma"] == counts["flash_attention"],
+          f"a training flash forward left the mma kernel: {variants['flash_attention']}")
+    RESULTS["main_paths"]["train"] = summary
+    return counts, state, p50
+
+
+def phase_train_profile(state, step_p50_s):
+    """One train step (the path's model and its trained state, the next
+    batch) under torch.profiler: device busy time, the idle share against
+    the path's step p50, and device time by kernel and by plain op; one
+    step with microbatches=2 against the same step's loss and gradients;
+    and step time
+    and peak memory with and without remat."""
+    cfg = get_config(ARCH)
+    model = build(cfg, "cuda")
+    opt_cfg = OptConfig(lr=1e-3, warmup_steps=20, total_steps=TRAIN_STEPS)
+    data = SyntheticLM(DataConfig(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=0))
+    batch = {k: torch.from_numpy(x).to("cuda") for k, x in data.batch(TRAIN_STEPS).items()}
+    step = make_train_step(model, opt_cfg)
+    params, opt = state["params"], state["opt"]
+    _, _, loss1 = step(params, opt, batch)  # warm; the loss microbatches=2 must repeat
+    _, _, loss2 = make_train_step(model, opt_cfg, microbatches=2)(params, opt, batch)
+    l1, l2 = float(loss1), float(loss2)
+    rel = abs(l2 - l1) / abs(l1)
+    print(f"[train] one step at microbatches 1 and 2: loss {l1:.6f} and {l2:.6f}, relative "
+          f"difference {rel:.3g} (band {E2E_TOL})", flush=True)
+    check(rel <= E2E_TOL, f"the microbatches=2 loss {l2} differs from {l1}")
+    # the gradients that step updates with (the loss computed before the
+    # update does not see them) against the full batch's, leaf by leaf in
+    # the bf16 band of the leaf's max|g|; beside them, how far one
+    # microbatch's gradients alone lie from the full batch's
+    _, g1 = loss_and_grads(model, params, batch, True)
+    l_acc, g2 = accumulate_grads(model, params, batch, True, 2)
+    _, g_half = loss_and_grads(model, params, {k: x[:TRAIN_BATCH // 2] for k, x in batch.items()},
+                               True)
+    flat2, flat_half = dict(leaves(g2)), dict(leaves(g_half))
+    worst = {"accumulated": (0.0, None), "one microbatch": (0.0, None)}
+    for path, want in leaves(g1):
+        scale = max(want.abs().max().item(), 1e-30)
+        for key, got in (("accumulated", flat2[path]), ("one microbatch", flat_half[path])):
+            r = (got.float() - want.float()).abs().max().item() / scale
+            if r > worst[key][0]:
+                worst[key] = (r, ".".join(path))
+    print(f"[train] microbatches 2 against 1, leaf by leaf: worst accumulated gradient "
+          f"{worst['accumulated'][1]} at {worst['accumulated'][0]:.3g} of its max|g| (band "
+          f"{E2E_TOL}); one microbatch alone: worst {worst['one microbatch'][1]} at "
+          f"{worst['one microbatch'][0]:.3g}", flush=True)
+    check(float(l_acc) == l2, f"the accumulated loss {float(l_acc)} is not the step's {l2}")
+    check(worst["accumulated"][0] <= E2E_TOL,
+          f"the microbatches=2 gradient {worst['accumulated'][1]} differs from the full batch's "
+          f"by {worst['accumulated'][0]:.3g} of its scale")
+    out = {"microbatch_loss": [l1, l2], "microbatch_worst_grad_rel": worst}
+    del g1, g2, g_half, flat2, flat_half
+    # what remat costs and saves: the median of 3 steps (host clock ending in
+    # a synchronize) and the peak memory, with and without it
+    for remat in (True, False):
+        fn = step if remat else make_train_step(model, opt_cfg, remat=False)
+        fn(params, opt, batch)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn(params, opt, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        out[f"remat_{remat}"] = {"step_ms": sorted(times)[1] * 1e3,
+                                 "peak_mem_bytes": torch.cuda.max_memory_allocated()}
+    print(f"[train] one step with remat {out['remat_True']['step_ms']:.3f} ms (peak "
+          f"{out['remat_True']['peak_mem_bytes'] / 2**20:.1f} MiB), without "
+          f"{out['remat_False']['step_ms']:.3f} ms "
+          f"({out['remat_False']['peak_mem_bytes'] / 2**20:.1f} MiB); median of 3 steps, host "
+          "clock", flush=True)
+    busy, n_ops, by_name = _profiled(lambda: step(params, opt, batch))
+    if not n_ops:
+        print("[profile] train step: the profiler recorded no device time: idle share not "
+              "measured")
+        RESULTS["profile"]["train"] = out
+        return
+    busy_ms = busy / 1e3
+    kern = {k: sum(us for n, us in by_name.items() if k in n) / 1e3
+            for k in ("dos_matmul", "flash_mma", "flash_bwd")}
+    plain = {n: us for n, us in by_name.items()
+             if not any(k in n for k in ("dos_matmul", "flash_mma", "flash_bwd"))}
+    copies_ms = sum(us for n, us in plain.items() if "copy" in n.lower()) / 1e3
+    top = sorted(plain.items(), key=lambda kv: -kv[1])[:12]
+    idle = 1 - busy_ms / (step_p50_s * 1e3)
+    print(f"[profile] train step: device busy {busy_ms:.3f} ms of a {step_p50_s*1e3:.3f} ms step "
+          f"(p50 without profiler): idle share {idle:.3f}; {n_ops} device ops; dos_matmul "
+          f"{kern['dos_matmul']:.3f} ms, flash forward {kern['flash_mma']:.3f} ms, flash backward "
+          f"{kern['flash_bwd']:.3f} ms, plain ops {sum(plain.values()) / 1e3:.3f} ms (copy kernels "
+          f"{copies_ms:.3f} ms)", flush=True)
+    for name, us in top:
+        print(f"[profile]   {us / 1e3:9.3f} ms  {name[:90]}")
+    out.update(busy_ms=busy_ms, idle_share=idle, device_ops=n_ops, kernel_ms=kern,
+               plain_ms=sum(plain.values()) / 1e3, copy_kernels_ms=copies_ms,
+               top_plain_ms={n: us / 1e3 for n, us in top})
+    RESULTS["profile"]["train"] = out
+
+
+def phase_train_e2e():
+    """Card against CPU: one train step's loss and every gradient leaf on
+    the same f32 master weights and batch, at full width with the depth
+    cut to 2 layers and batch 2 x 256; in f32 within 1e-3 of each leaf's
+    max|g|, in bf16 within the bf16 band (3e-2 of the leaf's max|g|)."""
+    out = {}
+    for dtype, tol in (("float32", TRAIN_F32_TOL), ("bfloat16", E2E_TOL)):
+        cfg = dataclasses.replace(get_config(ARCH), n_layers=TRAIN_E2E_LAYERS, compute_dtype=dtype)
+        mc, mg = build(cfg, "cpu"), build(cfg, "cuda")
+        params_c = mc.init(torch.Generator().manual_seed(0))
+        params_g = map_tree(lambda t: t.to("cuda"), params_c)
+        data = SyntheticLM(DataConfig(cfg.vocab, TRAIN_E2E_SEQ, TRAIN_E2E_BATCH, seed=0))
+        batch = {k: torch.from_numpy(x) for k, x in data.batch(0).items()}
+        lc, gc = loss_and_grads(mc, params_c, batch, True)
+        lg, gg = loss_and_grads(mg, params_g, {k: x.cuda() for k, x in batch.items()}, True)
+        loss_rel = abs(float(lg) - float(lc)) / abs(float(lc))
+        worst, worst_leaf = 0.0, None
+        flat_g = dict(leaves(gg))
+        for path, g_cpu in leaves(gc):
+            g_card = flat_g[path].cpu()
+            check(bool(torch.isfinite(g_card).all()), f"non-finite gradient {path} on the card")
+            rel = (g_card.float() - g_cpu.float()).abs().max().item() / max(
+                g_cpu.abs().max().item(), 1e-30)
+            if rel > worst:
+                worst, worst_leaf = rel, ".".join(path)
+        print(f"[train] card vs CPU, {cfg.name} {TRAIN_E2E_LAYERS} layers, batch "
+              f"{TRAIN_E2E_BATCH} x {TRAIN_E2E_SEQ}, {dtype}: loss {float(lg):.6f} vs "
+              f"{float(lc):.6f} (relative {loss_rel:.3g}); worst gradient leaf {worst_leaf} at "
+              f"{worst:.3g} of its max|g| (band {tol})", flush=True)
+        check(loss_rel <= tol, f"{dtype}: the card's loss differs from the CPU's by {loss_rel:.3g}")
+        check(worst <= tol, f"{dtype}: gradient {worst_leaf} differs by {worst:.3g} of its scale")
+        out[dtype] = {"loss_rel": loss_rel, "worst_grad_rel": worst, "worst_leaf": worst_leaf}
+    RESULTS["train_e2e"] = out
+
+
+def phase_train_restart():
+    """``train_loop`` with checkpoints every 5 steps and a fault injected
+    at step 12 (full width, depth cut to 4 layers): the fault fires, the
+    loop resumes from step 10 and completes, and the resumed steps' losses
+    equal an uninterrupted run's."""
+    import shutil
+    import tempfile
+
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=RESTART_LAYERS)
+    kw = dict(steps=RESTART_STEPS, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ, log_every=0,
+              device="cuda")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        inj = FaultInjector(fail_at_steps=(RESTART_FAULT,))
+        t0 = time.perf_counter()
+        _, losses, _ = train_loop(cfg, ckpt_dir=tmp, ckpt_every=5, fault_injector=inj, **kw)
+        wall = time.perf_counter() - t0
+        _, clean, _ = train_loop(cfg, **kw)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    resumed, want = losses[RESTART_FAULT:], clean[10:]
+    same = resumed == want
+    diff = max(abs(a - b) for a, b in zip(resumed, want)) if len(resumed) == len(want) else None
+    print(f"[train] restart: fault at step {RESTART_FAULT} fired {RESTART_FAULT in inj.fired}; "
+          f"{len(losses)} losses ({RESTART_FAULT} before the fault, {len(resumed)} resumed from "
+          f"step 10) in {wall:.2f} s with checkpoints; resumed losses equal an uninterrupted "
+          f"run's bit for bit: {same} (max difference {diff})", flush=True)
+    check(RESTART_FAULT in inj.fired, "the injected fault did not fire")
+    check(len(losses) == RESTART_FAULT + RESTART_STEPS - 10, f"{len(losses)} losses recorded")
+    check(losses[:RESTART_FAULT] == clean[:RESTART_FAULT], "the steps before the fault differ")
+    check(same, f"the resumed losses {resumed} differ from an uninterrupted run's {want}")
+    RESULTS["train_restart"] = {"losses": losses, "clean": clean, "bit_identical": same,
+                                "wall_s": wall}
+
+
+def phase_train_cli():
+    """``python -m repro_torch.launch.train --steps 5 --json`` in a
+    subprocess must exit 0 with five finite losses on the card."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--steps", "5",
+                        "--json"], capture_output=True, text=True, timeout=600, env=env,
+                       cwd=ROOT)
+    wall = time.perf_counter() - t0
+    check(r.returncode == 0, f"python -m repro_torch.launch.train exited {r.returncode}: "
+          f"{r.stderr[-2000:]}")
+    out = json.loads(r.stdout)
+    check(out["device"]["platform"] == "gpu" and len(out["losses"]) == 5
+          and all(math.isfinite(x) for x in out["losses"]),
+          f"the CLI's summary is wrong: {out['device']}, {out['losses']}")
+    print(f"[train] python -m repro_torch.launch.train --steps 5 --json: exit 0 in {wall:.1f} s on "
+          f"{out['device']['kind']}; loss {out['loss_first']:.4f} -> {out['loss_last']:.4f}, step "
+          f"p50 {out['step_p50_s']*1e3:.3f} ms (batch {out['batch']} x {out['seq']}), launches "
+          f"{out['launches']}", flush=True)
+    RESULTS["train_cli"] = {k: out[k] for k in ("losses", "step_p50_s", "launches", "wall_s")}
+
+
+# ---------------------------------------------------------------------------
 
 
 def main(argv=None) -> int:
@@ -1668,6 +2241,7 @@ def main(argv=None) -> int:
     counts, step_p50_s = {}, {}
     for arch in PATHS:  # first, so nothing else holds memory
         counts[arch], step_p50_s[arch] = phase_main_path(arch)
+    counts["train"], train_state, train_p50 = phase_train_path()  # phase 12's main path
     launched = {k for c in counts.values() for k, n in c.items() if n > 0}
     check(launched == set(KERNELS), f"kernels no main path launched: {set(KERNELS) - launched}")
     totals, main_err = phase_kernels()
@@ -1682,12 +2256,19 @@ def main(argv=None) -> int:
     RESULTS["hybrid_cpu_bf16_vs_f32"] = sens
     phase_profile(HYBRID, *full_depth_decode_state(HYBRID), step_p50_s[HYBRID])
     counts["calibration"], cal_err = phase_calibration()
-    check(all(n > 0 for n in counts["calibration"].values()),
+    check(all(counts["calibration"][k] > 0 for k in ("dos_matmul", "flash_attention", "ssm_scan")),
           f"a kernel calibration never launched: {counts['calibration']}")
     phase_engine()
     phase_thermal()
     phase_systolic()
     counts["front door calibration"] = phase_front_door()
+    bwd_row, bwd_err = phase_train_kernels()
+    phase_train_profile(train_state, train_p50)
+    del train_state
+    torch.cuda.empty_cache()
+    phase_train_e2e()
+    phase_train_restart()
+    phase_train_cli()
 
     replaces = {
         "dos_matmul": ("src/repro_torch/kernels/csrc/dos_matmul.cu",
@@ -1709,16 +2290,29 @@ def main(argv=None) -> int:
             "bound_by": "bytes" if by_bytes else "operations",
             "library_ms": tot["library_ms"],
         })
+    n_layers = get_config(ARCH).n_layers  # the flash backward's calls per train step
+    kernels.append({
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/kernels/flash_attention/chunked.py:112 (_bwd_rule; a jnp custom "
+                    "VJP, not a Pallas kernel)",
+        "launches": sum(c["flash_attention_bwd"] for c in counts.values()),
+        "max_abs_err": bwd_err,
+        **{k: n_layers * bwd_row[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
+        "bound_by": bwd_row["bound_by"],
+    })
     RESULTS["kernels"] = kernels
     RESULTS["wall_s"] = time.perf_counter() - t0
     if details:
         os.makedirs(os.path.dirname(os.path.abspath(details)), exist_ok=True)
         with open(details, "w") as f:
             json.dump(RESULTS, f, indent=1)
-    print(f"[done] {RESULTS['wall_s']:.1f} s; the kernels' launches sum both main paths' "
-          "runs, phase 7's calibration and the front door's calibrate Study; max_abs_err is "
-          "the largest of phase 4's and phase 7's checks; ms, plain_ms, library_ms and "
-          "bound_ms sum both main paths' calls of one prefill plus one decode step")
+    print(f"[done] {RESULTS['wall_s']:.1f} s; the kernels' launches sum the three main paths' "
+          "runs (serving smollm-135m and zamba2-2.7b, training smollm-135m), phase 7's "
+          "calibration and the front door's calibrate Study; max_abs_err is the largest of "
+          "phase 4's, phase 7's and phase 12's checks; ms, plain_ms, library_ms and bound_ms "
+          "sum both serving paths' calls of one prefill plus one decode step, and for "
+          "flash_attention_bwd the calls of one train step")
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))

@@ -44,7 +44,11 @@
 //
 // Both skip the KV tiles that the causal mask or the window excludes for
 // every row of the block, and never write the score matrix to device
-// memory. No log-sum-exp output: the backward is not ported.
+// memory. Given an lse pointer (training: the backward in
+// flash_attention_bwd.cu recomputes p from it), both also store each
+// row's log-sum-exp m + log(l) of the scaled scores, (B, H, Sq) f32, with
+// the reference's l == 0 guard (chunked.py _fwd_impl); a null pointer
+// (serving) stores nothing.
 //
 // Head dims 32, 64, 80 (zamba2's shared attention), 128 and 256 are
 // built. Layouts are the JAX package's public ones, read through strides:
@@ -87,6 +91,7 @@ struct Args {
   float scale;
   int causal;
   int64_t window, q_offset;
+  float* lse;  // (B, H, Sq) log-sum-exp of the scaled scores, or null
 };
 
 // Visible keys of position p: [max(0, p - window + 1), causal ? min(Skv, p + 1) : Skv).
@@ -208,10 +213,12 @@ __global__ void __launch_bounds__(NT) flash_fwd(const T* __restrict__ q, const T
   }
 
   if (q0 + row < a.Sq) {
-    const float inv = 1.f / (l == 0.f ? 1.f : l);
+    const float l_safe = l == 0.f ? 1.f : l, inv = 1.f / l_safe;
     T* ob = o + b * a.o.b + h * a.o.h + (int64_t)(q0 + row) * a.o.s;
 #pragma unroll
     for (int u = 0; u < DPT; ++u) store(ob + lane + TPR * u, acc[u] * inv);
+    if (a.lse != nullptr && lane == 0)  // Qs was pre-scaled: m is in scaled units
+      a.lse[((int64_t)b * a.H + h) * a.Sq + q0 + row] = m + logf(l_safe);
   }
 }
 
@@ -432,7 +439,15 @@ __global__ void __launch_bounds__(MMA_NT) flash_mma(const bf16* __restrict__ q,
 
   // normalise, stage the warp's 16 rows in its own rows of Qs, and store
   // them in 16-byte pieces
-  const float inv[2] = {1.f / (l[0] == 0.f ? 1.f : l[0]), 1.f / (l[1] == 0.f ? 1.f : l[1])};
+  const float l_safe[2] = {l[0] == 0.f ? 1.f : l[0], l[1] == 0.f ? 1.f : l[1]};
+  const float inv[2] = {1.f / l_safe[0], 1.f / l_safe[1]};
+  if (a.lse != nullptr && tq == 0) {  // a row's quad holds one m and l; s was scaled before the max
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = q0 + warp * 16 + g + 8 * r;
+      if (row < a.Sq) a.lse[((int64_t)b * a.H + h) * a.Sq + row] = m[r] + logf(l_safe[r]);
+    }
+  }
   bf16* os = Qs + warp * 16 * LD;
 #pragma unroll
   for (int n = 0; n < DT; ++n) {
@@ -496,18 +511,19 @@ const char* kernel_error_string(int err) { return cudaGetErrorString((cudaError_
 // Strides are in elements; the last (head-dim) stride must be 1. variant:
 // 0 = fma (f32 or bf16, any strides), 1 = mma (bf16; bases 16-byte aligned
 // and the other strides multiples of 8, as the wrapper's plan checks).
-int flash_attention_launch(const void* q, const void* k, const void* v, void* o, int B, int H,
-                           int KVH, int Sq, int Skv, int D, long long qsb, long long qss,
-                           long long qsh, long long ksb, long long kss, long long ksh,
-                           long long vsb, long long vss, long long vsh, long long osb,
-                           long long oss, long long osh, float scale, int causal,
+// lse: null, or a contiguous (B, H, Sq) f32 buffer for the log-sum-exp.
+int flash_attention_launch(const void* q, const void* k, const void* v, void* o, void* lse,
+                           int B, int H, int KVH, int Sq, int Skv, int D, long long qsb,
+                           long long qss, long long qsh, long long ksb, long long kss,
+                           long long ksh, long long vsb, long long vss, long long vsh,
+                           long long osb, long long oss, long long osh, float scale, int causal,
                            long long window, long long q_offset, int dtype, int variant,
                            void* stream) {
   if (B <= 0 || H <= 0 || KVH <= 0 || H % KVH != 0 || Sq <= 0 || Skv <= 0 || H > 65535 ||
       B > 65535)
     return (int)cudaErrorInvalidValue;
   Args a{B, H, KVH, Sq, Skv, {qsb, qss, qsh}, {ksb, kss, ksh}, {vsb, vss, vsh},
-         {osb, oss, osh}, scale, causal, window, q_offset};
+         {osb, oss, osh}, scale, causal, window, q_offset, (float*)lse};
   cudaStream_t s = (cudaStream_t)stream;
   if (variant == 1) {
     if (dtype != 1) return (int)cudaErrorInvalidValue;

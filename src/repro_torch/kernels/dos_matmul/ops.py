@@ -24,6 +24,13 @@ themselves, so every shape goes through one of them.
 
 ``dos_matmul.launches`` counts the kernel launches of this process and
 ``dos_matmul.variants`` counts them by variant.
+
+Training: when an operand requires grad, a CUDA call runs through an
+autograd ``Function`` whose backward launches the same kernel twice,
+dA = dC B^T (B^T a transposed view, which the kernel reads as it is)
+and dB = A^T dC (A^T copied to a contiguous matrix first), each in its
+operand's dtype, as the reference's autodiff of ``matmul_ref`` gives
+them. On the CPU, ``matmul_ref`` runs under torch's autograd.
 """
 
 from __future__ import annotations
@@ -182,11 +189,42 @@ def dos_matmul(a: torch.Tensor, b: torch.Tensor, *, out_dtype=None) -> torch.Ten
 
     Leading dims of ``a`` are flattened into M. ``b`` may be a row-major
     matrix or a transposed view (the tied unembedding passes the
-    embedding table's ``.T``).
+    embedding table's ``.T``). Differentiable when an operand requires
+    grad.
     """
     out_dtype = out_dtype or a.dtype
     if a.device.type == "cpu":
         return matmul_ref(a, b, out_dtype)
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        return _DosMatmul.apply(a, b, out_dtype)
+    return _launch_kernel(a, b, out_dtype)
+
+
+class _DosMatmul(torch.autograd.Function):
+    """The dOS matmul with its two gradient products on the same kernel."""
+
+    @staticmethod
+    def forward(ctx, a, b, out_dtype):
+        ctx.save_for_backward(a, b)
+        return _launch_kernel(a, b, out_dtype)
+
+    @staticmethod
+    def backward(ctx, dc):
+        a, b = ctx.saved_tensors
+        # the kernel takes operands of one dtype: dC in A's (the reference's
+        # cotangent of a bf16 output is bf16 already)
+        dc = dc.reshape(-1, b.shape[1]).to(a.dtype).contiguous()
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = _launch_kernel(dc, b.T, a.dtype).reshape(a.shape)
+        if ctx.needs_input_grad[1]:
+            a2 = a.reshape(-1, a.shape[-1])
+            db = _launch_kernel(a2.T.contiguous(), dc.to(b.dtype), b.dtype)
+        return da, db, None
+
+
+def _launch_kernel(a: torch.Tensor, b: torch.Tensor, out_dtype) -> torch.Tensor:
+    """One launch of the kernel on CUDA operands (the wrapper's body)."""
     if a.device.type != "cuda" or b.device != a.device:
         raise ValueError(f"dos_matmul: operands on {a.device} and {b.device}")
     if b.dim() != 2 or a.shape[-1] != b.shape[0]:

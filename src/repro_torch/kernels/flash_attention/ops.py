@@ -8,12 +8,23 @@ kernel before the launch, from dtype, head dim and layout alone:
 
 - ``mma``: bf16 operands whose rows start on 16 bytes (unit stride on
   the head dim, the other strides multiples of 8 elements, 16-byte
-  aligned bases): the tensor-core kernel. Both serving paths run it.
+  aligned bases): the tensor-core kernel. Both serving paths and
+  training run it.
 - ``fma``: f32 operands, and bf16 layouts ``mma`` cannot take: the f32
   CUDA-core kernel.
 
 ``flash_attention.launches`` counts the kernel launches of this process
 and ``flash_attention.variants`` counts them by variant.
+
+Training: when an input requires grad, ``flash_attention`` runs through
+an autograd ``Function``. Its forward asks the kernel for each row's
+log-sum-exp as well (``lse``, (B, H, Sq) f32) and saves (q, k, v, o,
+lse); its backward calls ``flash_attention_bwd``, which launches the
+hand-written backward of ``csrc/flash_attention_bwd.cu`` (one ``fma``
+variant: f32 on the CUDA cores) for CUDA tensors. On CPU tensors the
+Function's forward and backward are the plain ``attention_fwd_ref`` and
+``attention_bwd_ref``. Without grad (serving, calibration) nothing
+changes: no lse is stored, and the launches are those of the forward.
 
 ``decode_attention``: one query token against a KV cache. It is not a
 Pallas kernel in the JAX package either (a batched GEMV that XLA
@@ -28,16 +39,19 @@ import math
 import torch
 
 from .. import _build
-from .ref import attention_ref
+from .ref import attention_bwd_ref, attention_fwd_ref, attention_ref
 
-__all__ = ["HEAD_DIMS", "VARIANTS", "flash_attention", "decode_attention", "plan"]
+__all__ = ["HEAD_DIMS", "VARIANTS", "flash_attention", "flash_attention_bwd", "decode_attention",
+           "plan"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 80, 128, 256)  # built for both variants
 VARIANTS = ("mma", "fma")
+BWD_VARIANTS = ("fma",)
 _CODES = {"fma": 0, "mma": 1}
 _NO_WINDOW = 2**62  # wider than any sequence: no window mask
 _LIB = None
+_BWD_LIB = None
 
 
 def _lib() -> ctypes.CDLL:
@@ -45,13 +59,27 @@ def _lib() -> ctypes.CDLL:
     if _LIB is None:
         lib = _build.load("flash_attention")
         lib.flash_attention_launch.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 12
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 12
             + [ctypes.c_float, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
                ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         )
         lib.flash_attention_launch.restype = ctypes.c_int
         _LIB = lib
     return _LIB
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    global _BWD_LIB
+    if _BWD_LIB is None:
+        lib = _build.load("flash_attention_bwd")
+        lib.flash_attention_bwd_launch.argtypes = (
+            [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
+            + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_int,
+               ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+        )
+        lib.flash_attention_bwd_launch.restype = ctypes.c_int
+        _BWD_LIB = lib
+    return _BWD_LIB
 
 
 def plan(dtype: torch.dtype, head_dim: int, strides, aligned: bool) -> str:
@@ -72,38 +100,41 @@ def plan(dtype: torch.dtype, head_dim: int, strides, aligned: bool) -> str:
     return "fma"
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
-                    scale: float | None = None, q_offset: int = 0):
-    """q (B, Sq, H, D); k, v (B, Skv, KVH, D) -> (B, Sq, H, D).
-
-    ``window`` and ``q_offset`` are Python ints (the port runs its layers
-    in a Python loop, so a layer's window is never a traced value).
-    """
-    if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal=causal, window=window, scale=scale,
-                             q_offset=q_offset)
-    b, sq, h, d = q.shape
-    _, skv, kvh, _ = k.shape
+def _check_qkv(q, k, v, what):
+    """Device, dtype and shape checks of a kernel call; returns the head dim."""
+    b, _, h, d = q.shape
+    _, _, kvh, _ = k.shape
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
-        raise ValueError(f"flash_attention: tensors on {q.device}, {k.device}, {v.device}")
+        raise ValueError(f"{what}: tensors on {q.device}, {k.device}, {v.device}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention kernel takes q, k, v of one dtype; got "
+        raise TypeError(f"{what} kernel takes q, k, v of one dtype; got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     if v.shape != k.shape or k.shape[0] != b or k.shape[3] != d:
-        raise ValueError(f"flash_attention kernel: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+        raise ValueError(f"{what} kernel: q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}")
     if h % kvh:
         raise ValueError(f"{h} query heads do not group over {kvh} KV heads")
+    return d
+
+
+def _forward(q, k, v, *, causal, window, scale, q_offset, with_lse):
+    """The forward kernel on CUDA tensors: ``(o, lse)``, lse None unless
+    ``with_lse``."""
+    b, sq, h, d = q.shape
+    _, skv, kvh, _ = k.shape
+    _check_qkv(q, k, v, "flash_attention")
     variant = plan(q.dtype, d, (q.stride(), k.stride(), v.stride()),
                    (q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16 == 0)
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if with_lse else None
     if b and sq and h:
         if skv == 0:
             raise ValueError("flash_attention: empty key sequence")
         lib = _lib()
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            None if lse is None else lse.data_ptr(),
             b, h, kvh, sq, skv, d,
             q.stride(0), q.stride(1), q.stride(2),
             k.stride(0), k.stride(1), k.stride(2),
@@ -116,7 +147,100 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
         _build.check(lib, err, f"flash_attention ({variant})")
         flash_attention.launches += 1
         flash_attention.variants[variant] += 1
-    return o
+    return o, lse
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Attention with the flash-2 backward: the forward saves (q, k, v, o,
+    lse); the backward recomputes p from lse (``flash_attention_bwd``)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale, q_offset):
+        kw = dict(causal=causal, window=window, scale=scale, q_offset=q_offset)
+        if q.device.type == "cpu":
+            o, lse = attention_fwd_ref(q, k, v, **kw)
+        else:
+            o, lse = _forward(q, k, v, with_lse=True, **kw)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.kw = kw
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, do, lse, **ctx.kw)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
+                    scale: float | None = None, q_offset: int = 0):
+    """q (B, Sq, H, D); k, v (B, Skv, KVH, D) -> (B, Sq, H, D).
+
+    ``window`` and ``q_offset`` are Python ints (the port runs its layers
+    in a Python loop, so a layer's window is never a traced value).
+    Differentiable when an input requires grad.
+    """
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal, window, scale, q_offset)
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, causal=causal, window=window, scale=scale,
+                             q_offset=q_offset)
+    return _forward(q, k, v, causal=causal, window=window, scale=scale, q_offset=q_offset,
+                    with_lse=False)[0]
+
+
+def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
+                        window: int | None = None, scale: float | None = None,
+                        q_offset: int = 0):
+    """``(dq, dk, dv)`` of ``flash_attention`` from its output ``o``, its
+    ``lse`` (B, H, Sq) f32 and the output's gradient ``do``, in the
+    operands' dtypes. CPU tensors take ``attention_bwd_ref``; CUDA
+    tensors launch the backward kernel or raise.
+
+    ``flash_attention_bwd.launches`` counts the launches of this process
+    (each runs the kernel's three passes: D, dK/dV, dQ)."""
+    kw = dict(causal=causal, window=window, scale=scale, q_offset=q_offset)
+    if q.device.type == "cpu":
+        return attention_bwd_ref(q, k, v, o, do, lse, **kw)
+    b, sq, h, d = q.shape
+    _, skv, kvh, _ = k.shape
+    _check_qkv(q, k, v, "flash_attention_bwd")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd kernel: head dim {d} must be one of {HEAD_DIMS}")
+    if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype:
+        raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)} {o.dtype}, do "
+                         f"{tuple(do.shape)}, q {tuple(q.shape)} {q.dtype}")
+    if lse.shape != (b, h, sq) or lse.dtype != torch.float32 or lse.device != q.device:
+        raise ValueError(f"flash_attention_bwd: lse {tuple(lse.shape)} {lse.dtype} on "
+                         f"{lse.device}; want ({b}, {h}, {sq}) float32")
+    do = do.to(q.dtype)
+    ins = [t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v, o, do)]
+    lse = lse.contiguous()
+    outs = [torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in (q, k, v)]
+    if b and sq and h:
+        if skv == 0:
+            raise ValueError("flash_attention_bwd: empty key sequence")
+        dsum = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+        strides = (ctypes.c_longlong * 24)(*[x for t in ins + outs for x in t.stride()[:3]])
+        lib = _bwd_lib()
+        err = lib.flash_attention_bwd_launch(
+            *(t.data_ptr() for t in ins), lse.data_ptr(), dsum.data_ptr(),
+            *(t.data_ptr() for t in outs), b, h, kvh, sq, skv, d, strides,
+            scale if scale is not None else 1.0 / math.sqrt(d), int(bool(causal)),
+            _NO_WINDOW if window is None else int(window), int(q_offset), _DTYPES[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+        _build.check(lib, err, "flash_attention_bwd (fma)")
+        flash_attention_bwd.launches += 1
+        flash_attention_bwd.variants["fma"] += 1
+    else:
+        for t in outs:
+            t.zero_()
+    return tuple(outs)
+
+
+flash_attention_bwd.launches = 0
+flash_attention_bwd.variants = dict.fromkeys(BWD_VARIANTS, 0)
 
 
 flash_attention.launches = 0

@@ -1,4 +1,4 @@
-"""Plain PyTorch attention (the flash kernel's oracle).
+"""Plain PyTorch attention (the flash kernels' oracles).
 
 Layout convention, as in the JAX package: q (B, Sq, H, D); k, v
 (B, Skv, KVH, D) with H = G * KVH (query head h reads KV head h // G).
@@ -6,6 +6,14 @@ Masks: causal, sliding window (attend to the last ``window`` positions
 including self), or none. All math in f32; the output takes q's dtype.
 A row with no visible key gets the uniform softmax over NEG_INF scores,
 i.e. the mean of v, exactly like the reference's ``attention_ref``.
+
+``attention_fwd_ref`` also returns the log-sum-exp of each row's scaled
+scores, (B, H, Sq) f32, as the reference's ``chunked._fwd_impl`` saves
+it for the backward. ``attention_bwd_ref`` is the flash-2 backward of
+``chunked._bwd_rule`` on this layout, and the exact gradient of
+``attention_ref``: a row with no visible key (whose lse is NEG_INF, so
+that p cannot be recomputed from it) weighs every key by 1 / Skv in dV
+and passes no gradient to its scores.
 """
 
 from __future__ import annotations
@@ -14,9 +22,35 @@ import math
 
 import torch
 
-__all__ = ["attention_ref", "NEG_INF"]
+__all__ = ["attention_ref", "attention_fwd_ref", "attention_bwd_ref", "NEG_INF"]
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
+
+
+def _mask(sq, skv, causal, window, q_offset, device):
+    """(Sq, Skv) visibility of each key to each query."""
+    qi = torch.arange(sq, device=device)[:, None] + q_offset
+    kj = torch.arange(skv, device=device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=device)
+    if causal:
+        mask = mask & (kj <= qi)
+    if window is not None:
+        mask = mask & (kj > qi - window)
+    return mask
+
+
+def _scores(q, k, causal, window, scale, q_offset):
+    """Masked scaled scores (B, KVH, G, Sq, Skv) in f32, the mask, and the
+    scale."""
+    b, sq, h, d = q.shape
+    _, skv, kvh, _ = k.shape
+    if h % kvh:
+        raise ValueError(f"{h} query heads do not group over {kvh} KV heads")
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    qf = q.float().reshape(b, sq, kvh, h // kvh, d) * scale
+    s = torch.einsum("bqkgd,bjkd->bkgqj", qf, k.float())
+    mask = _mask(sq, skv, causal, window, q_offset, q.device)
+    return torch.where(mask, s, NEG_INF), mask, scale
 
 
 def attention_ref(q, k, v, *, causal: bool = True, window: int | None = None,
@@ -34,14 +68,52 @@ def attention_ref(q, k, v, *, causal: bool = True, window: int | None = None,
     kf = k.float().repeat_interleave(g, dim=2)
     vf = v.float().repeat_interleave(g, dim=2)
     s = torch.einsum("bqhd,bkhd->bhqk", qf, kf)
-    qi = torch.arange(sq, device=q.device)[:, None] + q_offset
-    kj = torch.arange(skv, device=q.device)[None, :]
-    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
-    if causal:
-        mask = mask & (kj <= qi)
-    if window is not None:
-        mask = mask & (kj > qi - window)
+    mask = _mask(sq, skv, causal, window, q_offset, q.device)
     s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhqk,bkhd->bqhd", p, vf)
     return o.to(q.dtype)
+
+
+def attention_fwd_ref(q, k, v, *, causal: bool = True, window: int | None = None,
+                      scale: float | None = None, q_offset: int = 0):
+    """``(o, lse)``: ``attention_ref``'s output and each row's
+    ``m + log(l)`` over its scaled scores, (B, H, Sq) f32, with the
+    reference's ``l == 0`` guard."""
+    b, sq, h, d = q.shape
+    s, _, _ = _scores(q, k, causal, window, scale, q_offset)
+    m = s.amax(dim=-1, keepdim=True)
+    e = torch.exp(s - m)
+    l = e.sum(dim=-1, keepdim=True)
+    l_safe = torch.where(l == 0.0, 1.0, l)
+    o = torch.einsum("bkgqj,bjkd->bqkgd", e / l_safe, v.float()).reshape(b, sq, h, d)
+    lse = (m + torch.log(l_safe))[..., 0].reshape(b, h, sq)
+    return o.to(q.dtype), lse
+
+
+def attention_bwd_ref(q, k, v, o, do, lse, *, causal: bool = True, window: int | None = None,
+                      scale: float | None = None, q_offset: int = 0):
+    """``(dq, dk, dv)`` of attention from the forward's ``o`` and ``lse``,
+    in f32 and cast to the operands' dtypes:
+
+        D = rowsum(dO o);  p = exp(s - lse);  dV = p^T dO
+        dS = p (dO V^T - D) scale;  dQ = dS K;  dK = dS^T Q
+
+    dK and dV sum over the G query heads of each KV head. Masked scores
+    get no gradient; a row with no visible key has p = 1 / Skv."""
+    b, sq, h, d = q.shape
+    _, skv, kvh, _ = k.shape
+    g = h // kvh
+    s, mask, scale = _scores(q, k, causal, window, scale, q_offset)
+    grouped = (b, sq, kvh, g, d)
+    dof = do.float().reshape(grouped)
+    dD = (dof * o.float().reshape(grouped)).sum(-1).permute(0, 2, 3, 1)  # (B, KVH, G, Sq)
+    p = torch.exp(s - lse.reshape(b, kvh, g, sq)[..., None])
+    live = mask.any(dim=-1)[:, None]  # (Sq, 1): the row sees a key
+    p = torch.where(live, p, 1.0 / skv)
+    dv = torch.einsum("bkgqj,bqkgd->bjkd", p, dof)
+    dp = torch.einsum("bqkgd,bjkd->bkgqj", dof, v.float())
+    ds = torch.where(mask, p * (dp - dD[..., None]) * scale, 0.0)
+    dq = torch.einsum("bkgqj,bjkd->bqkgd", ds, k.float()).reshape(b, sq, h, d)
+    dk = torch.einsum("bkgqj,bqkgd->bjkd", ds, q.float().reshape(grouped))
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

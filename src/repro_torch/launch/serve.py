@@ -98,8 +98,8 @@ def serve_loop(
     """Serve ``cfg`` with random weights and prompts made from ``seed``.
 
     Runs on ``cuda`` unless ``device="cpu"``; raises without a card.
-    ``strategy`` names the reference's sharding rules, which place
-    nothing on one device; decoding is greedy, as in the reference.
+    ``strategy`` names the reference's sharding rules; only its default,
+    ``"dos"``, is taken. Decoding is greedy, as in the reference.
     Weights and prompts are drawn on the CPU, so one seed gives the same
     run on either device; ``init_s`` is the time that takes (weights
     drawn, moved and cast), outside the prefill and decode times."""
@@ -107,6 +107,10 @@ def serve_loop(
     if tuple(mesh_shape) != (1, 1):
         raise NotImplementedError(
             "multi-device serving is not ported yet (ROADMAP queue 1 item 10)"
+        )
+    if strategy != "dos":
+        raise NotImplementedError(
+            f"sharding strategy {strategy!r} is not ported yet (ROADMAP queue 1 item 10)"
         )
     t0 = time.perf_counter()
     model = build(cfg, device=dev)
@@ -129,7 +133,8 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--gen-tokens", type=int, default=32)
-    ap.add_argument("--strategy", default="dos")
+    ap.add_argument("--strategy", default="dos",
+                    help="the reference's sharding rules; only dos is ported")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--json", action="store_true",
                     help="emit the machine-readable summary")

@@ -1,12 +1,71 @@
-"""Step factories: prefill_step / serve_step.
+"""Step factories: train_step / prefill_step / serve_step.
 
-The functions the serving loop calls; they close over the model. The
-train step waits for the flash backward (ROADMAP queue 1 item 7).
+The functions the training and serving loops call; they close over the
+model and its config.
+
+``make_train_step``: the loss and its gradients (torch autograd through
+the kernels' Functions), then one AdamW update. ``microbatches > 1``
+turns the step into gradient accumulation (``accumulate_grads``), as in
+the reference: the
+batch is split along its leading dim, each part's gradients are summed
+in f32, and the sums and the loss are divided by the count before the
+one update.
 """
 
 from __future__ import annotations
 
-__all__ = ["make_prefill_step", "make_serve_step"]
+import torch
+
+from ..models.params import leaves, map_tree, unflatten
+from ..optim import OptConfig, adamw_update
+
+__all__ = ["loss_and_grads", "accumulate_grads", "make_train_step", "make_prefill_step",
+           "make_serve_step"]
+
+
+def loss_and_grads(model, params, batch, remat):
+    """``(loss, grads)``: the loss (a 0-d f32 tensor) and its gradient
+    tree with respect to ``params``."""
+    pairs = [(path, t.detach().requires_grad_(True)) for path, t in leaves(params)]
+    with torch.enable_grad():
+        loss = model.loss(unflatten(pairs), batch, remat=remat)
+        grads = torch.autograd.grad(loss, [t for _, t in pairs])
+    return loss.detach(), unflatten((path, g) for (path, _), g in zip(pairs, grads))
+
+
+def accumulate_grads(model, params, batch, remat, microbatches):
+    """``(loss, grads)`` of ``batch`` split along its leading dim into
+    ``microbatches`` parts: the parts' gradients summed in f32, then the
+    sums and the loss divided by the count."""
+    mb = microbatches
+    b = batch["tokens"].shape[0]
+    if b % mb:
+        raise ValueError(f"batch {b} does not split into {mb} microbatches")
+    parts = [{k: x[i * (b // mb):(i + 1) * (b // mb)] for k, x in batch.items()}
+             for i in range(mb)]
+    gsum = map_tree(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device),
+                    params)
+    lsum = torch.zeros((), dtype=torch.float32, device=model.device)
+    for part in parts:
+        loss, grads = loss_and_grads(model, params, part, remat)
+        gsum = unflatten((path, a + g.float())
+                         for (path, a), (_, g) in zip(leaves(gsum), leaves(grads)))
+        lsum = lsum + loss
+    return lsum / mb, map_tree(lambda g: g / mb, gsum)
+
+
+def make_train_step(model, opt_cfg: OptConfig, *, remat=True, microbatches: int = 1):
+    """``train_step(params, opt_state, batch) -> (params, opt_state,
+    loss)``: batch holds ``tokens`` and ``labels`` (B, S)."""
+    def train_step(params, opt_state, batch):
+        if microbatches == 1:
+            loss, grads = loss_and_grads(model, params, batch, remat)
+        else:
+            loss, grads = accumulate_grads(model, params, batch, remat, microbatches)
+        new_params, new_opt, _ = adamw_update(params, grads, opt_state, opt_cfg)
+        return new_params, new_opt, loss
+
+    return train_step
 
 
 def make_prefill_step(model, *, max_len: int = 0):

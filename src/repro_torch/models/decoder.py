@@ -10,24 +10,28 @@ layers in a Python loop, so each layer's window and theta are Python
 numbers: the window reaches the flash kernel as a launch argument. The
 other families raise ``NotImplementedError`` naming their ROADMAP item.
 
-Modes: ``prefill`` (whole prompt; returns the cache) and ``decode`` (one
-token; the cache advances in place).
+Modes: ``train`` (dense only: whole sequence, loss-ready logits, no
+cache; ``remat`` recomputes each layer in the backward), ``prefill``
+(whole prompt; returns the cache) and ``decode`` (one token; the cache
+advances in place). Training the hybrid branch waits for an
+``ssm_scan`` backward kernel (ROADMAP queue 1 item 7, queue 2 item 9).
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..config import ArchConfig
 from .layers import (
     attention, attn_defs, embed_defs, embed_tokens, mlp, mlp_defs, rmsnorm,
     rmsnorm_def, unembed,
 )
-from .params import map_tree, stack_defs
+from .params import compute_cast, map_tree, stack_defs
 from .ssm import mamba_block, mamba_defs, mamba_init_state
 
-__all__ = ["decoder_defs", "decoder_forward", "init_cache", "layer_metadata"]
+__all__ = ["check_trainable", "decoder_defs", "decoder_forward", "init_cache", "layer_metadata"]
 
 _GLOBAL_WINDOW = 2**30  # "window" larger than any sequence = global attn
 
@@ -44,6 +48,16 @@ def _check_family(cfg: ArchConfig):
         where = _NOT_PORTED.get(cfg.family, "no ROADMAP item")
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported to repro_torch: {where}"
+        )
+
+
+def check_trainable(cfg: ArchConfig):
+    """Raise unless the port can train ``cfg``: the dense family."""
+    _check_family(cfg)
+    if cfg.family == "hybrid":
+        raise NotImplementedError(
+            f"training the hybrid family ({cfg.name}) needs an ssm_scan backward kernel "
+            "(ROADMAP queue 1 item 7, hybrid half; queue 2 item 9)"
         )
 
 
@@ -125,12 +139,40 @@ def _attn_mlp_block(lp, x, cfg, *, mode, cache, window, theta):
     return x + mlp(lp["ffn"], rmsnorm(x, lp["ln2"], cfg.norm_eps)), new_cache
 
 
-def _dense_layers(params, x, cfg, *, mode, cache):
-    """The dense stack; prefill returns its k/v stacked (L, B, S, KVH, D)."""
+def _train_block(lp, x, cfg, *, window, theta, remat):
+    """One attention+MLP layer in training. ``remat=True`` recomputes the
+    layer in the backward (``torch.utils.checkpoint``, the reference's
+    ``jax.checkpoint`` of its scanned body); ``"save_gathered"`` also
+    keeps the weights cast to the compute dtype, as the reference's
+    policy saves its ``gathered_w`` names: the cast runs once, outside
+    the checkpoint, and the recompute reads its result."""
+
+    def block(lp, x):
+        return _attn_mlp_block(lp, x, cfg, mode="train", cache=None, window=window,
+                               theta=theta)[0]
+
+    if not remat:
+        return block(lp, x)
+    if remat == "save_gathered":
+        lp = compute_cast(lp, x.dtype)
+    return checkpoint(block, lp, x, use_reentrant=False)
+
+
+def _dense_layers(params, x, cfg, *, mode, cache, remat=False):
+    """The dense stack; prefill returns its k/v stacked (L, B, S, KVH, D),
+    train no cache."""
     wins, thetas = layer_metadata(cfg)
     ks, vs = [], []  # prefill: each layer's new k, v
+    # one unbind per stacked leaf: in training its backward stacks the
+    # layers' gradients once, where indexing a[i] per layer would give each
+    # layer's gradient as a zero-filled copy of the whole stack and sum L
+    # of them
+    stacked = map_tree(lambda a: a.unbind(0), params["layers"])
     for i in range(cfg.n_layers):
-        lp = map_tree(lambda a: a[i], params["layers"])
+        lp = map_tree(lambda a: a[i], stacked)
+        if mode == "train":
+            x = _train_block(lp, x, cfg, window=wins[i], theta=thetas[i], remat=remat)
+            continue
         cache_l = None
         if mode == "decode":
             cache_l = {"k": cache["layers"]["k"][i], "v": cache["layers"]["v"][i],
@@ -140,6 +182,8 @@ def _dense_layers(params, x, cfg, *, mode, cache):
         if mode == "prefill":
             ks.append(nc["k"])
             vs.append(nc["v"])
+    if mode == "train":
+        return x, None
     if mode == "decode":
         return x, {"layers": cache["layers"]}
     return x, {"layers": {"k": torch.stack(ks), "v": torch.stack(vs)}}
@@ -181,16 +225,26 @@ def _hybrid_layers(params, x, cfg, *, mode, cache):
 
 
 def decoder_forward(params, tokens, cfg: ArchConfig, *, mode: str, cache=None,
-                    max_len: int = 0):
-    """tokens (B, S) int -> (logits (B, S, V) f32, new cache)."""
-    _check_family(cfg)
+                    max_len: int = 0, remat=False):
+    """tokens (B, S) int -> (logits (B, S, V) f32, new cache); ``train``
+    returns no cache, and ``remat`` (False, True or ``"save_gathered"``)
+    applies to it alone, as in the reference."""
+    if mode == "train":
+        check_trainable(cfg)
+    else:
+        _check_family(cfg)
     x = embed_tokens(params["embed"], tokens, getattr(torch, cfg.compute_dtype))
-    layers = _hybrid_layers if cfg.family == "hybrid" else _dense_layers
-    x, new_cache = layers(params, x, cfg, mode=mode, cache=cache)
+    if cfg.family == "hybrid":
+        x, new_cache = _hybrid_layers(params, x, cfg, mode=mode, cache=cache)
+    else:
+        x, new_cache = _dense_layers(params, x, cfg, mode=mode, cache=cache,
+                                     remat=remat if mode == "train" else False)
 
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     logits = unembed(params["embed"], x, cfg.tie_embeddings)
 
+    if mode == "train":
+        return logits, None
     if mode == "decode":
         new_cache["length"] = cache["length"] + 1
         return logits, new_cache

@@ -2,10 +2,11 @@
 
 Functions on tensors, ``(params, x, ...) -> y``, with params described
 by ParamDef trees, as in the JAX package. Every GEMM goes through
-``proj`` and so through the dOS matmul kernel on the card; prefill
-attention goes through the flash kernel. The cross-attention branch and
-the gelu MLP wait for the families that use them (ROADMAP queue 1
-item 9).
+``proj`` and so through the dOS matmul kernel on the card; prefill and
+training attention go through the flash kernel. All of them are
+differentiable: in training the GEMMs and attention run through the
+kernels' autograd Functions. The cross-attention branch and the gelu
+MLP wait for the families that use them (ROADMAP queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -25,10 +26,12 @@ __all__ = [
 def proj(x, w, b=None):
     """x (..., K) @ w (K, N) in compute dtype, f32 accumulation.
 
-    The reference casts the weight to the compute dtype on every call.
-    The port casts once at load (``Model.compute_params``), which gives
-    the same values and saves a read, a write and a cast per call; for
-    a weight already in x's dtype ``.to`` returns it unchanged."""
+    The weight is cast to the compute dtype here, as the reference's
+    ``astype`` does on every call: in training ``w`` is the f32 master
+    and its gradient passes back through the cast. Serving casts once at
+    load (``Model.compute_params``), which gives the same values and
+    saves a read, a write and a cast per call; for a weight already in
+    x's dtype ``.to`` returns it unchanged."""
     y = dos_matmul(x, w.to(x.dtype), out_dtype=x.dtype)
     if b is not None:
         y = y + b.to(x.dtype)
@@ -83,7 +86,10 @@ def embed_defs(cfg):
 
 
 def embed_tokens(p, tokens, compute_dtype):
-    return p["tok"][tokens].to(compute_dtype)
+    # the backward of F.embedding (torch's embedding backward) gave the same
+    # bits in two runs on the card: chip_smoke.py phase 12's restart check
+    # holds the resumed losses to an uninterrupted run's bit for bit
+    return F.embedding(tokens, p["tok"]).to(compute_dtype)
 
 
 def unembed(p, x, tie: bool):
@@ -117,8 +123,9 @@ def attn_defs(cfg):
 def attention(p, x, cfg, *, mode: str, window: int, theta: float, cache=None):
     """Causal self-attention block. Returns (y, new_cache).
 
-    ``mode`` is ``prefill`` (whole prompt; the new cache holds its k, v)
-    or ``decode`` (one token; ``cache`` is ``{"k", "v", "length"}`` with
+    ``mode`` is ``train`` (whole sequence, no cache: new_cache is None),
+    ``prefill`` (whole prompt; the new cache holds its k, v) or
+    ``decode`` (one token; ``cache`` is ``{"k", "v", "length"}`` with
     (B, S_max, KVH, D) buffers that this step writes slot ``length`` of
     in place, where the reference returns an updated copy).
     """
@@ -143,14 +150,14 @@ def attention(p, x, cfg, *, mode: str, window: int, theta: float, cache=None):
         vc[:, length] = v[:, 0].to(vc.dtype)
         o = decode_attention(q, kc, vc, length=length + 1, window=window)
         new_cache = {"k": kc, "v": vc, "length": length + 1}
-    elif mode == "prefill":
+    elif mode in ("prefill", "train"):
         positions = torch.arange(s, device=x.device)
         q = rope(q, positions, theta)
         k = rope(k, positions, theta)
         o = flash_attention(q, k, v, causal=True, window=window)
-        new_cache = {"k": k, "v": v, "length": s}
+        new_cache = {"k": k, "v": v, "length": s} if mode == "prefill" else None
     else:
-        raise NotImplementedError(f"mode {mode!r}: training is ROADMAP queue 1 item 7")
+        raise ValueError(f"mode {mode!r}: one of train, prefill, decode")
 
     y = proj(o.reshape(b, s, h * hd), p["wo"])
     return y, new_cache

@@ -16,7 +16,12 @@ import math
 
 import torch
 
-__all__ = ["ParamDef", "materialize", "tree_size", "stack_defs", "map_tree", "leaves", "unflatten"]
+__all__ = ["ParamDef", "materialize", "tree_size", "stack_defs", "map_tree", "leaves", "unflatten",
+           "compute_cast"]
+
+# Leaves the reference reads in f32: the norm scales (rmsnorm), and
+# Mamba2's A, dt_bias and its gated-norm scale ``norm`` (ssm.py).
+_FLOAT_LEAVES_KEPT = ("ln1", "ln2", "final_norm", "q_norm", "k_norm", "A", "dt_bias", "norm")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,6 +43,16 @@ def map_tree(fn, tree):
     if isinstance(tree, dict):
         return {k: map_tree(fn, v) for k, v in tree.items()}
     return fn(tree)
+
+
+def compute_cast(tree, dtype, name=None):
+    """``tree`` with every leaf but those of ``_FLOAT_LEAVES_KEPT`` cast to
+    ``dtype``: the GEMM weights, biases, Mamba2's ``conv_w`` and ``D``,
+    and the embedding table, which the reference casts to the compute
+    dtype where it uses them."""
+    if isinstance(tree, dict):
+        return {k: compute_cast(v, dtype, k) for k, v in tree.items()}
+    return tree if name in _FLOAT_LEAVES_KEPT else tree.to(dtype)
 
 
 def leaves(tree, path=()):

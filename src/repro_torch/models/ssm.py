@@ -104,7 +104,10 @@ def mamba_block(p, x, cfg, *, mode: str, state=None):
     elif mode == "prefill":
         y, new_ssm = ssm_scan(u, ld, Bh, Ch)
     else:
-        raise NotImplementedError(f"mode {mode!r}: training is ROADMAP queue 1 item 7")
+        raise NotImplementedError(
+            f"mode {mode!r}: training the hybrid family needs an ssm_scan backward kernel "
+            "(ROADMAP queue 1 item 7, hybrid half; queue 2 item 9)"
+        )
 
     y = y + p["D"].to(x.dtype)[None, None, :, None] * xh
     y = rmsnorm(y.reshape(b, s, di), p["norm"], cfg.norm_eps) * F.silu(z)

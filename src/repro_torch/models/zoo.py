@@ -1,7 +1,9 @@
 """Model facade: one ``Model`` per architecture config, bound to a device.
 
     model = build(cfg)                      # cuda unless device="cpu"
-    params = model.compute_params(model.init(torch.Generator().manual_seed(0)))
+    master = model.init(torch.Generator().manual_seed(0))   # param_dtype (f32)
+    loss = model.loss(master, {"tokens": t, "labels": y})   # train: differentiable
+    params = model.compute_params(master)   # serving: cast once
     logits, cache = model.prefill(params, {"tokens": tokens}, max_len=...)
     logits, cache = model.decode(params, cache, {"token": tok})
 """
@@ -16,13 +18,16 @@ import torch
 from .._device import resolve_device
 from ..config import ArchConfig
 from .decoder import decoder_defs, decoder_forward, init_cache
-from .params import materialize, tree_size
+from .params import compute_cast, materialize, tree_size
 
-__all__ = ["Model", "build"]
+__all__ = ["Model", "build", "softmax_xent"]
 
-# Leaves the reference reads in f32: the norm scales (rmsnorm), and
-# Mamba2's A, dt_bias and its gated-norm scale ``norm`` (ssm.py).
-_FLOAT_LEAVES_KEPT = ("ln1", "ln2", "final_norm", "q_norm", "k_norm", "A", "dt_bias", "norm")
+
+def softmax_xent(logits, labels):
+    """Mean next-token cross-entropy; logits f32 (B, S, V)."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = logp.gather(-1, labels[..., None].long())[..., 0]
+    return -ll.mean()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,20 +51,24 @@ class Model:
         scales, Mamba2's ``A`` and ``dt_bias``) stay as they are. The
         reference casts the same weights to the same values on every
         call."""
-        dtype = getattr(torch, self.cfg.compute_dtype)
-
-        def cast(tree, name=None):
-            if isinstance(tree, dict):
-                return {k: cast(v, k) for k, v in tree.items()}
-            return tree if name in _FLOAT_LEAVES_KEPT else tree.to(dtype)
-
-        return cast(params)
+        return compute_cast(params, getattr(torch, self.cfg.compute_dtype))
 
     @property
     def n_params(self) -> int:
         return tree_size(self.defs)
 
     # ---- forward ------------------------------------------------------------
+    def loss(self, params, batch, *, remat=False):
+        """Mean next-token cross-entropy of batch["tokens"] against
+        batch["labels"] (B, S), differentiable in ``params`` (the f32
+        masters: each GEMM casts its weight to the compute dtype).
+        ``remat``: False, True (recompute each layer in the backward) or
+        ``"save_gathered"`` (recompute it, keeping the cast weights). The
+        MoE load-balance term waits for MoE (ROADMAP queue 1 item 9)."""
+        logits, _ = decoder_forward(params, batch["tokens"].to(self.device), self.cfg,
+                                    mode="train", remat=remat)
+        return softmax_xent(logits, batch["labels"].to(self.device))
+
     @torch.no_grad()
     def prefill(self, params, batch, *, max_len: int = 0):
         return decoder_forward(params, batch["tokens"].to(self.device), self.cfg,

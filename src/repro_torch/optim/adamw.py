@@ -1,0 +1,113 @@
+"""AdamW with global-norm clipping, on the parameter dict tree.
+
+Plain functions with the JAX package's formulas, in the order of its
+operations, so that one step from the same numpy params, grads and state
+agrees with the reference to f32 rounding:
+
+- clip: ``g * min(1, clip_norm / (gnorm + 1e-9))`` with ``gnorm`` the
+  global norm over every leaf in f32;
+- moments ``m = b1 m + (1 - b1) g`` and ``v = b2 v + (1 - b2) g g``;
+- bias correction ``1 - b ** step``;
+- ``u = m_hat / (sqrt(v_hat) + eps) + wd p`` and ``p - lr u``.
+
+The state is the reference's tree ``{"m", "v", "step"}`` (``step`` a 0-d
+int32 tensor), so checkpoints cross between the two packages.
+``torch.optim.AdamW`` is not used: its clip and the order of its decay
+round differently, and its state is not that tree. The update is out of
+place; nothing here synchronises with the device.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from ..models.params import map_tree
+
+__all__ = ["OptConfig", "schedule", "init_opt_state", "global_norm", "adamw_update"]
+
+
+@dataclasses.dataclass(frozen=True)
+class OptConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10_000
+    min_lr_ratio: float = 0.1
+
+
+def schedule(cfg: OptConfig, step):
+    """Linear warmup + cosine decay: the learning rate at ``step`` (an int
+    or a tensor) as an f32 tensor."""
+    step = torch.as_tensor(step).float()
+    warm = step / max(cfg.warmup_steps, 1)
+    t = (step - cfg.warmup_steps) / max(cfg.total_steps - cfg.warmup_steps, 1)
+    t = torch.clamp(t, 0.0, 1.0)
+    cos = cfg.min_lr_ratio + (1 - cfg.min_lr_ratio) * 0.5 * (1 + torch.cos(math.pi * t))
+    return cfg.lr * torch.where(step < cfg.warmup_steps, warm, cos)
+
+
+def init_opt_state(params):
+    device = next(_leaves(params)).device
+    return {
+        "m": map_tree(torch.zeros_like, params),
+        "v": map_tree(torch.zeros_like, params),
+        "step": torch.zeros((), dtype=torch.int32, device=device),
+    }
+
+
+def _leaves(tree):
+    """Leaves in the reference's order (sorted keys)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k])
+    else:
+        yield tree
+
+
+def _zip(fn, *trees):
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _zip(fn, *(t[k] for t in trees)) for k in first}
+    return fn(*trees)
+
+
+def global_norm(tree):
+    """sqrt of the sum of every leaf's sum of squares, in f32, summed
+    leaf by leaf in the reference's order."""
+    total = 0
+    for x in _leaves(tree):
+        total = total + torch.sum(torch.square(x.float()))
+    return torch.sqrt(total)
+
+
+@torch.no_grad()
+def adamw_update(params, grads, state, cfg: OptConfig):
+    """One AdamW step: ``(new params, new state, gnorm)``."""
+    step = state["step"] + 1
+    lr = schedule(cfg, step)
+
+    gnorm = global_norm(grads)
+    scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
+    grads = map_tree(lambda g: g.float() * scale, grads)
+
+    b1, b2 = cfg.b1, cfg.b2
+    m = _zip(lambda m_, g: b1 * m_ + (1 - b1) * g, state["m"], grads)
+    v = _zip(lambda v_, g: b2 * v_ + (1 - b2) * g * g, state["v"], grads)
+    stepf = step.float()
+    bc1 = 1 - torch.pow(b1, stepf)
+    bc2 = 1 - torch.pow(b2, stepf)
+
+    def upd(p, m_, v_):
+        u = (m_ / bc1) / (torch.sqrt(v_ / bc2) + cfg.eps)
+        u = u + cfg.weight_decay * p.float()
+        return (p.float() - lr * u).to(p.dtype)
+
+    new_params = _zip(upd, params, m, v)
+    return new_params, {"m": m, "v": v, "step": step}, gnorm

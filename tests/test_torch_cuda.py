@@ -422,3 +422,121 @@ def test_thermal_solve_on_card_is_bit_identical_to_cpu(gen, macs, tiers, tech):
     T_cpu, it_cpu = thermal._solve_stack(q, area, tiers, tech, "cpu")
     assert T.device.type == "cuda" and it == it_cpu < thermal._MAX_ITERS
     assert torch.equal(T.cpu(), T_cpu)
+
+
+# --- training: the forward's lse, the flash backward, both Functions --------
+#
+# lse: f32 math on both sides, 1e-5 absolute plus 1e-6 of |lse| (one log
+# of an f32 sum). The backward: f32, 1e-5 of the largest gradient entry
+# (at least 1e-5 absolute: summation order); a bf16 gradient adds one
+# rounding, 2**-8 of each entry, against the f32 result of the same bf16
+# operands (o, dO and lse included). The Functions' gradients: autograd
+# of the plain versions on the same card within the same bands.
+
+_BWD_CASES = [  # b, sq, skv, h, kvh, d, causal, window, q_offset
+    (2, 128, 128, 9, 3, 64, True, 2**30, 0),  # smollm's heads, the global sentinel
+    (2, 128, 128, 4, 4, 64, True, None, 0),
+    (2, 128, 128, 16, 1, 64, True, None, 0),
+    (2, 128, 128, 8, 2, 64, True, None, 0),
+    (2, 256, 256, 4, 1, 256, True, 64, 0),  # gemma3's window
+    (2, 200, 333, 4, 2, 64, False, None, 0),  # ragged
+    (2, 64, 200, 4, 2, 32, True, 16, 136),  # queries at the end, a window
+    (1, 70, 70, 2, 1, 64, True, 0, 0),  # no row sees a key: dV = mean weights
+]
+
+
+def _bwd_inputs(gen, b, sq, skv, h, kvh, d, dtype):
+    return tuple(torch.randn(b, s, hh, d, generator=gen, device="cuda").to(dtype)
+                 for s, hh in ((sq, h), (skv, kvh), (skv, kvh), (sq, h)))
+
+
+def _within(got, exact, dtype):
+    tol = 1e-5 * max(1.0, exact.abs().max().item())
+    if dtype == torch.bfloat16:
+        tol = tol + 2.0**-8 * exact.abs()
+    return bool(((got.float() - exact).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("case", _BWD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_lse_and_backward(gen, case, dtype):
+    from repro_torch.kernels import flash_attention_bwd
+    from repro_torch.kernels.flash_attention import attention_bwd_ref, attention_fwd_ref
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+
+    b, sq, skv, h, kvh, d, causal, window, q_offset = case
+    q, k, v, do = _bwd_inputs(gen, b, sq, skv, h, kvh, d, dtype)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    o, lse = flash_ops._forward(q, k, v, scale=None, with_lse=True, **kw)
+    _, want_lse = attention_fwd_ref(q.float(), k.float(), v.float(), **kw)
+    assert lse.shape == (b, h, sq) and lse.dtype == torch.float32
+    assert bool(((lse - want_lse).abs() <= 1e-5 + 1e-6 * want_lse.abs().clamp(max=1e6)).all())
+    before = flash_attention_bwd.launches
+    grads = flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    assert flash_attention_bwd.launches == before + 1
+    exact = attention_bwd_ref(q.float(), k.float(), v.float(), o.float(), do.float(), lse, **kw)
+    for got, want, like in zip(grads, exact, (q, k, v)):
+        assert got.dtype == dtype and got.shape == like.shape
+        assert _within(got, want, dtype)
+    again = flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(grads, again))  # no atomics
+
+
+def test_flash_attention_without_grad_stores_no_lse_and_launches_as_before(gen):
+    from repro_torch.kernels import flash_attention_bwd
+
+    q, k, v, _ = _bwd_inputs(gen, 2, 64, 64, 4, 2, 64, torch.bfloat16)
+    before = (dict(flash_attention.variants), flash_attention_bwd.launches)
+    with torch.no_grad():
+        flash_attention(q, k, v)
+    assert flash_attention.variants["mma"] == before[0]["mma"] + 1
+    assert flash_attention_bwd.launches == before[1]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_function_gradients(gen, dtype):
+    from repro_torch.kernels import flash_attention_bwd
+
+    q, k, v, do = _bwd_inputs(gen, 2, 96, 96, 6, 2, 64, dtype)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = flash_attention_bwd.launches
+    got = torch.autograd.grad(flash_attention(*leaves, window=48), leaves, do)
+    assert flash_attention_bwd.launches == before + 1
+    ref_leaves = [t.float().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(attention_ref(*ref_leaves, window=48), ref_leaves, do.float())
+    for g, w in zip(got, want):
+        assert g.dtype == dtype
+        # bf16: the forward's o is rounded to bf16 before D = rowsum(dO o),
+        # so the band is the bf16 one of each entry and of the scale
+        tol = (3e-2 * w.abs().max().item() if dtype == torch.bfloat16
+               else 1e-5 * max(1.0, w.abs().max().item()))
+        assert (g.float() - w).abs().max().item() <= tol
+
+
+@pytest.mark.parametrize("m,k,n,tied", [(4096, 576, 576, False), (4096, 576, 192, False),
+                                        (4096, 576, 1536, False), (4096, 1536, 576, False),
+                                        (4096, 576, 49152, True)])
+def test_dos_matmul_function_gradients(gen, m, k, n, tied):
+    """dA and dB of the Function (two more wgmma launches) against autograd
+    of matmul_ref, at smollm's training projections and the tied unembed."""
+    a = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+    w = torch.randn(n, k, generator=gen, device="cuda").T if tied else \
+        torch.randn(k, n, generator=gen, device="cuda")
+    dc = torch.randn(m, n, generator=gen, device="cuda").to(torch.bfloat16)
+    a1, w1 = a.clone().requires_grad_(), w.detach().clone().requires_grad_()
+    before = dict(dos_matmul.variants)
+    torch.autograd.backward(dos_matmul(a1, w1.to(torch.bfloat16)), dc)
+    assert {v: dos_matmul.variants[v] - before[v] for v in before} == \
+        {"skinny": 0, "wgmma": 3, "general": 0, "f32": 0}
+    a2, w2 = a.clone().requires_grad_(), w.detach().clone().requires_grad_()
+    torch.autograd.backward(matmul_ref(a2, w2.to(torch.bfloat16)), dc)
+    wb = w.to(torch.bfloat16)
+    exact = (dc.float() @ wb.float().T, a.float().T @ dc.float())  # f32 sums, same operands
+    for got, want, ex, depth in ((a1.grad, a2.grad, exact[0], n), (w1.grad, w2.grad, exact[1], m)):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        # each rounds an f32 sum of the same bf16 products to bf16 once; the
+        # sum's own error, 1e-5 of the largest entry, grows linearly with its
+        # depth past 8192 terms (the tensor cores' f32 adds truncate)
+        tol = 2.0**-8 * ex.abs() + 1e-5 * max(1.0, depth / 8192) * ex.abs().max()
+        assert bool(((got.float() - ex).abs() <= tol).all())
+        assert bool(((want.float() - ex).abs() <= tol).all())

@@ -27,6 +27,8 @@ from repro_torch.models.convert import from_numpy
 from repro_torch.models.decoder import decoder_defs
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# every registered kernel, none launched (the CPU runs the plain versions)
+NO_LAUNCHES = {"dos_matmul": 0, "flash_attention": 0, "flash_attention_bwd": 0, "ssm_scan": 0}
 JSON_KEYS = {"arch", "batch", "prompt_len", "gen_tokens", "prefill_s", "decode_tok_s",
              "step_p50_s", "step_p99_s"}
 
@@ -41,8 +43,7 @@ def test_serve_loop_cpu():
     assert 0 < r["step_p50_s"] <= r["step_p99_s"]
     assert r["device"] == {"platform": "cpu", "kind": "cpu", "count": 1}
     # the CPU runs the plain versions: no kernel launched in either phase
-    assert r["launches"] == {p: {"dos_matmul": 0, "flash_attention": 0, "ssm_scan": 0}
-                             for p in ("prefill", "decode")}
+    assert r["launches"] == {p: NO_LAUNCHES for p in ("prefill", "decode")}
     again = serve_loop(cfg, batch=2, prompt_len=16, gen_tokens=6, device="cpu")
     assert torch.equal(again["generated"], gen)  # one seed, one run
 
@@ -89,7 +90,7 @@ def test_main_json_keys_hybrid(capsys):
     assert JSON_KEYS <= set(out)
     assert out["arch"] == "zamba2-2.7b"
     assert out["device"]["platform"] == "cpu"
-    assert out["launches"]["prefill"] == {"dos_matmul": 0, "flash_attention": 0, "ssm_scan": 0}
+    assert out["launches"]["prefill"] == NO_LAUNCHES
 
 
 def test_entry_points_need_a_card_unless_cpu_is_asked():
@@ -115,9 +116,10 @@ def test_unported_families_raise():
             decoder_defs(cfg)
 
 
-def test_multi_device_serving_is_not_ported():
+@pytest.mark.parametrize("kw", [{"mesh_shape": (2, 1)}, {"strategy": "megatron"}])
+def test_multi_device_serving_is_not_ported(kw):
     with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        serve_loop(reduced(get_config("smollm-135m")), mesh_shape=(2, 1), device="cpu")
+        serve_loop(reduced(get_config("smollm-135m")), device="cpu", **kw)
 
 
 def test_port_imports_no_jax_and_nothing_of_repro():
