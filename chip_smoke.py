@@ -80,32 +80,36 @@ if it fails:
     reproduces the artifact bit for bit); the search at workers 1 and 2
     (spawned workers on the card) bit-identical; the Study facade's
     overhead over direct engine calls;
-12. training (``python -m repro_torch.launch.train``): its main path,
-    run right after phase 3's with the counts set to 0 just before and
-    read just after, is ``train_loop`` on smollm-135m at full width and
-    depth (bf16 compute on f32 master weights, batch 8 x 512 tokens, seed
-    0, remat on, 30 steps): every loss finite and falling, the launches
-    per step exact (``dos_matmul`` 843, all ``wgmma``; ``flash_attention``
-    60, all ``mma``; ``flash_attention_bwd`` 30), step p50/p99, tokens/s,
-    peak memory. The three main paths together must launch every
+12. training (``python -m repro_torch.launch.train``): its main path, run
+    right after phase 3's with the counts set to 0 just before and read
+    just after, is ``train_loop`` on smollm-135m at full width and depth
+    (bf16 compute on f32 master weights, batch 8 x 512 tokens, seed 0,
+    remat on, 30 steps): every loss finite and falling, the launches per
+    step exact (``dos_matmul`` 843, all ``wgmma``; ``flash_attention`` 60,
+    all ``mma``; ``flash_attention_bwd`` 30, all ``mma``), step p50/p99,
+    tokens/s, peak memory. The three main paths together must launch every
     registered kernel. After phase 11: the forward's o and lse (both
-    variants; o also through the autograd Function) and the flash
-    backward against their plain versions at the training
-    shape (timed beside the SDPA backward) and edge shapes (every head
-    dim, GQA 4/4, 16/1, 8/2, a binding window, ragged Sq/Skv, q_offset,
-    no visible key, a base off 16 bytes, a sequence stride of 2), two
-    calls bit-identical; the dos_matmul Function's forward against
-    matmul_ref and its dA and dB against autograd of matmul_ref at every
-    training projection (all ``wgmma``), each product timed beside
-    torch.matmul; one train step under ``torch.profiler`` (device busy,
-    idle share, kernels and plain ops), at microbatches 2 (the same loss,
-    and the same gradients leaf by leaf, within the bf16 band) and without
-    remat (step time and peak memory beside remat's); the
-    card against the CPU at full width and 2 layers (loss and every
-    gradient leaf: f32 within 1e-3 of the leaf's max|g|, bf16 within
-    3e-2); ``train_loop`` with checkpoints and a fault at step 12 (depth
-    cut to 4 layers), resumed from step 10 with the losses of an
-    uninterrupted run; the CLI ``--steps 5 --json`` in a subprocess;
+    variants; o also through the autograd Function) and the flash backward
+    (``mma`` for bf16 with 16-byte rows, ``fma`` for f32 and the offset
+    layout) against their plain versions at the training shape (timed
+    beside the ``fma`` kernel on the same inputs and the SDPA backward's
+    device time) and edge shapes (every head dim, GQA 4/4, 16/1, 8/2, a
+    binding window, ragged Sq/Skv, q_offset, no visible key, a base off 16
+    bytes, a sequence stride of 2), two calls bit-identical; each pass of
+    both backward variants timed causal and unmasked (what the causal
+    mask's uneven work costs beyond its share of the pairs); the
+    dos_matmul Function's forward against matmul_ref and its dA and dB
+    against autograd of matmul_ref at every training projection (all
+    ``wgmma``), each product timed beside torch.matmul; one train step
+    under ``torch.profiler`` (device busy, idle share, kernels and plain
+    ops), at microbatches 2 (the same loss, and the same gradients leaf by
+    leaf, within the bf16 band) and without remat (step time and peak
+    memory beside remat's); the card against the CPU at full width and 2
+    layers (loss and every gradient leaf: f32 within 1e-3 of the leaf's
+    max|g|, bf16 within 3e-2); ``train_loop`` with checkpoints and a fault
+    at step 12 (depth cut to 4 layers), resumed from step 10 with the
+    losses of an uninterrupted run; the CLI ``--steps 5 --json`` in a
+    subprocess;
 13. prints the kernels line, the ``nvidia-smi`` line, and last
     ``{"ok": true, "device": {...}}``.
 
@@ -283,8 +287,8 @@ def phase_build():
 # the kernels of each variant, by function name (csrc/*.cu)
 _VARIANT_OF = {"dos_matmul_skinny": "skinny", "dos_matmul_wgmma": "wgmma",
                "dos_matmul_wmma": "general", "dos_matmul_fma": "f32",
-               "flash_mma": "mma", "flash_fwd": "fma", "flash_bwd": "fma", "ssd_mma": "mma",
-               "ssd_fwd": "fma"}
+               "flash_mma": "mma", "flash_fwd": "fma", "flash_bwd_mma": "mma", "flash_bwd": "fma",
+               "ssd_mma": "mma", "ssd_fwd": "fma"}
 
 
 def _variant_tag(name: str) -> str:
@@ -1037,6 +1041,30 @@ def _profiled(run):
     return busy, len(spans), by_name
 
 
+def device_ms_per_call(call, reps=20):
+    """Device ms per call of ``call(i)`` by kernel name, under
+    torch.profiler: ``2 reps`` calls after a synchronize, of which each
+    kernel's last ``k reps`` launches count (``k`` launches per call).
+    A session can miss its first launches; a short one, such as 20 calls
+    of a 0.1 ms kernel, by half of them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(2 * reps):
+            call(i)
+        torch.cuda.synchronize()
+    spans: dict = {}
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            spans.setdefault(evt.name, []).append((evt.time_range.start, evt.time_range.end))
+    out = {}
+    for name, ts in spans.items():
+        k = -(-len(ts) // (2 * reps))  # launches per call
+        out[name] = sum(t1 - t0 for t0, t1 in sorted(ts)[-k * reps:]) / 1e3 / reps
+    return out
+
+
 def phase_profile_prefill(arch, reps=5):
     """One prefill of the path's full model (batch 4, prompt 128, weights
     drawn on the card from a seed) under torch.profiler: device busy ms,
@@ -1725,10 +1753,11 @@ def _bwd_work(b, sq, skv, h, kvh, d, es, causal, window, q_offset):
 
 def _sdpa_bwd_ms(sets, reps=20):
     """Device ms per call of the autograd backward of
-    ``scaled_dot_product_attention`` (causal, GQA) on the same operands:
-    CUDA events around ``reps`` calls, cycling the input sets, after a
-    warm-up (autograd is not captured in a graph, so the host's launches
-    are inside the time; the backward's device time is far longer)."""
+    ``scaled_dot_product_attention`` (causal, GQA) on the same operands,
+    the backend that ran it and its three longest kernels: the sum of its
+    device operations under torch.profiler (``device_ms_per_call``,
+    cycling the input sets, after a warm-up), so autograd's host launches
+    stay outside the time. The backend is read from the kernels' names."""
     graphs = []
     for q, k, v, _, do, _ in sets:
         qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
@@ -1741,24 +1770,88 @@ def _sdpa_bwd_ms(sets, reps=20):
 
     for i in range(3):
         run(i)
-    torch.cuda.synchronize()
-    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    e0.record()
-    for i in range(reps):
-        run(i)
-    e1.record()
-    e1.synchronize()
-    return e0.elapsed_time(e1) / reps
+    by_name = device_ms_per_call(run, reps)
+    check(bool(by_name), "the profiler recorded no device time in SDPA's backward")
+    names = " ".join(by_name).lower()
+    backend = ("cudnn" if "cudnn" in names else "flash" if "flash" in names else
+               "efficient" if "fmha" in names or "cutlass" in names else "math")
+    top = sorted(by_name, key=lambda n: -by_name[n])[:3]
+    return sum(by_name.values()), backend, top
+
+
+# Tiles of the backward's passes at D <= 128, (query rows, keys) per step
+# of a block, as csrc/flash_attention_bwd.cu sets them: what the causal
+# mask's work is counted in.
+BWD_TILES = {"flash_bwd_mma_dq": (64, 64), "flash_bwd_mma_dkdv": (64, 32),
+             "flash_bwd_dq": (64, 64), "flash_bwd_dkdv": (64, 64)}
+
+
+def _tile_pairs(sq, skv, bq, bk, causal):
+    """(query tile, KV tile) pairs a pass visits with queries at 0..Sq-1."""
+    return sum(min(-(-skv // bk), (q0 + bq - 1) // bk + 1) if causal else -(-skv // bk)
+               for q0 in range(0, sq, bq))
+
+
+def _bwd_passes(sets, kw, force_fma, reps=20):
+    """Device ms per call of each pass of the flash backward (dsum, dQ,
+    dK/dV; ``device_ms_per_call``), calls cycling the sets."""
+    by_name = device_ms_per_call(lambda i: flash_ops._backward(
+        *sets[i % len(sets)], scale=None, force_fma=force_fma, **kw), reps)
+    out = {}
+    for name, ms in by_name.items():
+        key = next((k for k in ("flash_bwd_mma_dkdv", "flash_bwd_mma_dq", "flash_bwd_dkdv",
+                                "flash_bwd_dq", "flash_bwd_dsum") if k in name), None)
+        if key:
+            out[key] = out.get(key, 0.0) + ms
+    return out
+
+
+def bwd_mask_cost(gen, b, s, h, kvh, d):
+    """What the causal mask costs each pass of both backward variants at
+    the training shape: each pass timed causal and unmasked, and the
+    causal time against the unmasked time scaled by the tile pairs each
+    visits (what the causal pairs would take at the unmasked grid's rate
+    per pair). The excess holds the uneven work per block (the first KV
+    tiles see every query tile, the last one) and each block's fixed
+    costs, which weigh more on the causal grid's short blocks."""
+    sets = {True: [], False: []}
+    for _ in range(max(1, math.ceil(COLD_BYTES / (6 * b * s * h * d * 2)))):
+        q, k, v, do = (torch.randn(b, s, hh, d, generator=gen, device="cuda").to(torch.bfloat16)
+                       for hh in (h, kvh, kvh, h))
+        for c in (True, False):
+            o, lse = flash_ops._forward(q, k, v, causal=c, window=None, scale=None, q_offset=0,
+                                        with_lse=True)
+            sets[c].append((q, k, v, o, do, lse))
+    out = {}
+    for variant in ("mma", "fma"):
+        t = {c: _bwd_passes(sets[c], dict(causal=c, window=None, q_offset=0), variant == "fma")
+             for c in (True, False)}
+        for name, causal_ms in t[True].items():
+            out[name] = {"variant": variant, "causal_ms": causal_ms, "unmasked_ms": t[False][name]}
+            if name not in BWD_TILES:
+                continue
+            bq, bk = BWD_TILES[name]
+            frac = _tile_pairs(s, s, bq, bk, True) / _tile_pairs(s, s, bq, bk, False)
+            even = t[False][name] * frac
+            out[name].update(tile_pair_fraction=frac, even_ms=even, excess_ms=causal_ms - even)
+            print(f"[train] flash backward [{variant}] {name}: causal {causal_ms*1e3:.1f} us, "
+                  f"unmasked {t[False][name]*1e3:.1f} us; at the unmasked rate per tile pair the "
+                  f"causal pairs ({frac:.3f} of them) would take {even*1e3:.1f} us: "
+                  f"{(causal_ms - even)*1e3:.1f} us more", flush=True)
+    return out
 
 
 def check_flash_bwd(gen, b, sq, skv, h, kvh, d, dtype, causal=True, window=None, q_offset=0,
                     time_it=False, layout="aligned"):
     """The forward's o and lse (the variant ``layout`` plans; o also
     through ``flash_attention``'s autograd Function) and the backward
-    kernel against their plain versions. ``layout`` "offset" moves every
-    operand's base 2 bytes off 16 (the forward runs fma), "seq stride 2"
+    kernel (the same variant: ``mma`` for bf16 with 16-byte rows, ``fma``
+    otherwise) against their plain versions. ``layout`` "offset" moves
+    every operand's base 2 bytes off 16 (both run fma), "seq stride 2"
     reads q, k, v, o and dO at every other row of a tensor twice as long
-    (the forward runs mma; the backward reads the strides)."""
+    (a bf16 pair runs mma through the strides). Timed, the fma kernel
+    also runs on the same inputs (forced: it takes every layout) and is
+    held to the same gate."""
     es = 2 if dtype == torch.bfloat16 else 4
     n_bytes, n_ops = _bwd_work(b, sq, skv, h, kvh, d, es, causal, window, q_offset)
     n_sets = max(1, math.ceil(COLD_BYTES / n_bytes)) if time_it else 1
@@ -1784,7 +1877,8 @@ def check_flash_bwd(gen, b, sq, skv, h, kvh, d, dtype, causal=True, window=None,
     wrapped = _count_variant(flash_attention, variant, lambda: flash_attention(
         q.detach().requires_grad_(), k, v, **kw)).detach()
     before = flash_attention_bwd.launches
-    grads = flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    grads = _count_variant(flash_attention_bwd, variant,
+                           lambda: flash_attention_bwd(q, k, v, o, do, lse, **kw))
     check(flash_attention_bwd.launches == before + 1, "flash_attention_bwd did not launch once")
     again = flash_attention_bwd(q, k, v, o, do, lse, **kw)
     plain = attention_bwd_ref(q, k, v, o, do, lse, **kw)
@@ -1800,27 +1894,17 @@ def check_flash_bwd(gen, b, sq, skv, h, kvh, d, dtype, causal=True, window=None,
     o_tol = (2.0**-8 * want_o.abs() if dtype == torch.bfloat16 else 0.0) + 1e-5
     o_same = torch.equal(wrapped, o)
     ok = ok and bool((o_err <= o_tol).all()) and o_same
-    # gradients: f32, 1e-5 of the largest entry (they are O(10), not O(1)
-    # like the forward's output; at least 1e-5 absolute); a bf16 gradient
-    # adds one rounding, 2**-8 of each entry, against the f32 result of
-    # the same bf16 operands (o, dO and lse included)
-    errs, ref_max = [], 0.0
-    for got, ex in zip(grads, exact):
-        err = (got.float() - ex).abs()
-        tol = 1e-5 * max(1.0, ex.abs().max().item())
-        if dtype == torch.bfloat16:
-            tol = tol + 2.0**-8 * ex.abs()
-        ok = ok and bool((err <= tol).all())
-        errs.append(err.max().item())
-        ref_max = max(ref_max, ex.abs().max().item())
+    grads_ok, errs, ref_max, slack = _bwd_gate(grads, exact, dtype)
+    ok = ok and grads_ok
     same = all(torch.equal(x, y) for x, y in zip(grads, again))
     tag = (f"B{b} Sq{sq} Skv{skv} H{h}/{kvh} D{d} {str(dtype).split('.')[-1]} causal={causal} "
            f"window={window} q_offset={q_offset}"
-           f"{'' if layout == 'aligned' else ' ' + layout} [lse {variant}, bwd fma]")
-    row = {"case": tag, "variant": "fma", "lse_variant": variant,
+           f"{'' if layout == 'aligned' else ' ' + layout} [lse {variant}, bwd {variant}]")
+    row = {"case": tag, "variant": variant, "lse_variant": variant,
            "max_abs_err": max((g.float() - p.float()).abs().max().item()
                               for g, p in zip(grads, plain)),
-           "max_abs_err_vs_f32": max(errs), "lse_max_abs_err": lse_err.max().item(),
+           "max_abs_err_vs_f32": max(errs), "abs_slack_used": slack,
+           "lse_max_abs_err": lse_err.max().item(),
            "o_max_abs_err_vs_f32": o_err.max().item(), "wrapper_o_bit_identical": o_same,
            "max_ref": ref_max, "bit_identical": same, "ok": ok and same}
     if time_it:
@@ -1829,20 +1913,53 @@ def check_flash_bwd(gen, b, sq, skv, h, kvh, d, dtype, causal=True, window=None,
         row["bytes"], row["ops"] = n_bytes, n_ops
         row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, n_ops, dtype)
         row["ms"] = cuda_ms(lambda i: flash_attention_bwd(*sets[i], **kw), n_sets)
+        if variant != "fma":  # the fma kernel on the same inputs, beside it
+            fma = _count_variant(flash_attention_bwd, "fma", lambda: flash_ops._backward(
+                q, k, v, o, do, lse, scale=None, force_fma=True, **kw))
+            fma_ok, fma_errs, _, row["fma_abs_slack_used"] = _bwd_gate(fma, exact, dtype)
+            row["fma_max_abs_err_vs_f32"] = max(fma_errs)
+            row["ok"] = row["ok"] and fma_ok
+            row["fma_ms"] = cuda_ms(lambda i: flash_ops._backward(
+                *sets[i], scale=None, force_fma=True, **kw), n_sets)
         row["plain_ms"] = cuda_ms(lambda i: attention_bwd_ref(*sets[i], **kw), n_sets)
-        row["library_ms"] = _sdpa_bwd_ms(sets)
+        row["library_ms"], row["library_backend"], row["library_kernels"] = _sdpa_bwd_ms(sets)
     print(f"[train] flash_attention_bwd {tag}: max|err| vs f32 dq/dk/dv "
-          f"{'/'.join(f'{e:.3g}' for e in errs)} (max|ref| {ref_max:.3g}), lse "
+          f"{'/'.join(f'{e:.3g}' for e in errs)} (max|ref| {ref_max:.3g}; beyond one bf16 "
+          f"rounding {slack:.3f} of the 1e-5 slack), lse "
           f"{row['lse_max_abs_err']:.3g}, o {row['o_max_abs_err_vs_f32']:.3g} (through "
           f"flash_attention: same bits {o_same}), two calls bit-identical {same} "
-          + (f"kernel {row['ms']*1e3:.1f} us, plain {row['plain_ms']*1e3:.1f} us, sdpa backward "
-             f"{row['library_ms']*1e3:.1f} us, bound {row['bound_ms']*1e3:.2f} us "
-             f"({row['bound_by']})" if time_it else "")
+          + (f"kernel {row['ms']*1e3:.1f} us"
+             + (f" (fma {row['fma_ms']*1e3:.1f} us, max|err| vs f32 "
+                f"{row['fma_max_abs_err_vs_f32']:.3g})" if "fma_ms" in row else "")
+             + f", plain {row['plain_ms']*1e3:.1f} us, sdpa backward ({row['library_backend']}: "
+             f"{', '.join(n[:60] for n in row['library_kernels'])}) {row['library_ms']*1e3:.1f} "
+             f"us on the device, bound {row['bound_ms']*1e3:.2f} us ({row['bound_by']})"
+             if time_it else "")
           + ("" if row["ok"] else "  FAIL"), flush=True)
     check(same, f"flash_attention_bwd {tag}: two calls on the same inputs differ")
-    check(ok, f"flash_attention_bwd {tag} or its forward's o and lse disagree with their "
-          "plain versions")
+    check(row["ok"], f"flash_attention_bwd {tag} or its forward's o and lse disagree with "
+          "their plain versions")
     return row
+
+
+def _bwd_gate(grads, exact, dtype):
+    """The flash backward's gate: each gradient within 1e-5 of its
+    largest entry (they are O(10), not O(1) like the forward's output; at
+    least 1e-5 absolute) of the f32 result of the same operands (o, dO
+    and lse included); a bf16 gradient adds one rounding, 2**-8 of each
+    entry. Returns (ok, max|err| per gradient, the largest reference
+    entry, and how much of the 1e-5 slack the worst entry uses beyond
+    that rounding)."""
+    ok, errs, ref_max, slack = True, [], 0.0, -math.inf
+    for got, ex in zip(grads, exact):
+        err = (got.float() - ex).abs()
+        abs_tol = 1e-5 * max(1.0, ex.abs().max().item())
+        rounding = 2.0**-8 * ex.abs() if dtype == torch.bfloat16 else 0.0
+        ok = ok and bool((err <= abs_tol + rounding).all())
+        slack = max(slack, ((err - rounding) / abs_tol).max().item())
+        errs.append(err.max().item())
+        ref_max = max(ref_max, ex.abs().max().item())
+    return ok, errs, ref_max, slack
 
 
 def train_gemms(cfg) -> dict:
@@ -1947,6 +2064,7 @@ def phase_train_kernels():
     out = {"flash_attention_bwd": [], "dos_matmul_function": []}
     main = check_flash_bwd(gen, TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, h, kvh, hd, torch.bfloat16,
                            window=2**30, time_it=True)  # the global layers' sentinel
+    out["flash_attention_bwd_passes"] = bwd_mask_cost(gen, TRAIN_BATCH, TRAIN_SEQ, h, kvh, hd)
     rows = [main, check_flash_bwd(gen, TRAIN_BATCH, TRAIN_SEQ, TRAIN_SEQ, h, kvh, hd,
                                   torch.float32)]
     for dtype in (torch.bfloat16, torch.float32):
@@ -2002,7 +2120,8 @@ def phase_train_path():
     wall = time.perf_counter() - t0
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    variants = {k: dict(KERNELS[k].variants) for k in ("dos_matmul", "flash_attention")}
+    variants = {k: dict(KERNELS[k].variants)
+                for k in ("dos_matmul", "flash_attention", "flash_attention_bwd")}
     steps = sorted(wd.times)
     p50, p99 = steps[len(steps) // 2], steps[min(len(steps) - 1, int(0.99 * len(steps)))]
     tok_s = TRAIN_BATCH * TRAIN_SEQ / p50
@@ -2029,6 +2148,8 @@ def phase_train_path():
           f"a training GEMM left the wgmma kernel: {variants['dos_matmul']}")
     check(variants["flash_attention"]["mma"] == counts["flash_attention"],
           f"a training flash forward left the mma kernel: {variants['flash_attention']}")
+    check(variants["flash_attention_bwd"] == {"mma": counts["flash_attention_bwd"], "fma": 0},
+          f"a training flash backward left the mma kernel: {variants['flash_attention_bwd']}")
     RESULTS["main_paths"]["train"] = summary
     return counts, state, p50
 

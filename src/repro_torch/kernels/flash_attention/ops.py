@@ -20,11 +20,14 @@ Training: when an input requires grad, ``flash_attention`` runs through
 an autograd ``Function``. Its forward asks the kernel for each row's
 log-sum-exp as well (``lse``, (B, H, Sq) f32) and saves (q, k, v, o,
 lse); its backward calls ``flash_attention_bwd``, which launches the
-hand-written backward of ``csrc/flash_attention_bwd.cu`` (one ``fma``
-variant: f32 on the CUDA cores) for CUDA tensors. On CPU tensors the
-Function's forward and backward are the plain ``attention_fwd_ref`` and
-``attention_bwd_ref``. Without grad (serving, calibration) nothing
-changes: no lse is stored, and the launches are those of the forward.
+hand-written backward of ``csrc/flash_attention_bwd.cu`` for CUDA
+tensors, picked by the same ``plan`` over q, k, v, o and dO: ``mma``
+(the tensor-core kernels; training's bf16 steps run it) or ``fma`` (f32
+on the CUDA cores). ``flash_attention_bwd.variants`` counts its launches
+by variant. On CPU tensors the Function's forward and backward are the
+plain ``attention_fwd_ref`` and ``attention_bwd_ref``. Without grad
+(serving, calibration) nothing changes: no lse is stored, and the
+launches are those of the forward.
 
 ``decode_attention``: one query token against a KV cache. It is not a
 Pallas kernel in the JAX package either (a batched GEMV that XLA
@@ -46,8 +49,7 @@ __all__ = ["HEAD_DIMS", "VARIANTS", "flash_attention", "flash_attention_bwd", "d
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 80, 128, 256)  # built for both variants
-VARIANTS = ("mma", "fma")
-BWD_VARIANTS = ("fma",)
+VARIANTS = ("mma", "fma")  # of the forward and of the backward
 _CODES = {"fma": 0, "mma": 1}
 _NO_WINDOW = 2**62  # wider than any sequence: no window mask
 _LIB = None
@@ -75,7 +77,8 @@ def _bwd_lib() -> ctypes.CDLL:
         lib.flash_attention_bwd_launch.argtypes = (
             [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6
             + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_int,
-               ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+               ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+               ctypes.c_void_p]
         )
         lib.flash_attention_bwd_launch.restype = ctypes.c_int
         _BWD_LIB = lib
@@ -83,11 +86,12 @@ def _bwd_lib() -> ctypes.CDLL:
 
 
 def plan(dtype: torch.dtype, head_dim: int, strides, aligned: bool) -> str:
-    """The kernel variant for one call. ``strides`` holds the (b, s, h, d)
-    element strides of q, k and v; ``aligned`` says that their three
-    bases are 16-byte aligned. Raises for what neither variant takes: a
-    dtype other than f32 and bf16, a head dim not in ``HEAD_DIMS``, or a
-    head dim whose stride is not 1."""
+    """The kernel variant for one call, forward or backward. ``strides``
+    holds the (b, s, h, d) element strides of the operands (q, k and v;
+    the backward adds o and dO); ``aligned`` says that their bases are
+    16-byte aligned. Raises for what neither variant takes: a dtype
+    other than f32 and bf16, a head dim not in ``HEAD_DIMS``, or a head
+    dim whose stride is not 1."""
     if dtype not in _DTYPES:
         raise TypeError(f"flash_attention kernel takes f32 or bf16; got {dtype}")
     if head_dim not in HEAD_DIMS:
@@ -195,18 +199,24 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
     """``(dq, dk, dv)`` of ``flash_attention`` from its output ``o``, its
     ``lse`` (B, H, Sq) f32 and the output's gradient ``do``, in the
     operands' dtypes. CPU tensors take ``attention_bwd_ref``; CUDA
-    tensors launch the backward kernel or raise.
+    tensors launch the backward kernel ``plan`` picks, or raise.
 
     ``flash_attention_bwd.launches`` counts the launches of this process
-    (each runs the kernel's three passes: D, dK/dV, dQ)."""
+    (each runs the kernel's passes: D, dK/dV and dQ) and
+    ``flash_attention_bwd.variants`` counts them by variant."""
     kw = dict(causal=causal, window=window, scale=scale, q_offset=q_offset)
     if q.device.type == "cpu":
         return attention_bwd_ref(q, k, v, o, do, lse, **kw)
+    return _backward(q, k, v, o, do, lse, **kw)
+
+
+def _backward(q, k, v, o, do, lse, *, causal, window, scale, q_offset, force_fma=False):
+    """The backward kernel on CUDA tensors. ``force_fma`` launches the
+    ``fma`` kernel whatever ``plan`` says (it takes every layout), so
+    that a measurement can time both variants on the same inputs."""
     b, sq, h, d = q.shape
     _, skv, kvh, _ = k.shape
     _check_qkv(q, k, v, "flash_attention_bwd")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention_bwd kernel: head dim {d} must be one of {HEAD_DIMS}")
     if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype:
         raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)} {o.dtype}, do "
                          f"{tuple(do.shape)}, q {tuple(q.shape)} {q.dtype}")
@@ -215,6 +225,10 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
                          f"{lse.device}; want ({b}, {h}, {sq}) float32")
     do = do.to(q.dtype)
     ins = [t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v, o, do)]
+    variant = plan(q.dtype, d, tuple(t.stride() for t in ins),
+                   all(t.data_ptr() % 16 == 0 for t in ins))
+    if force_fma:
+        variant = "fma"
     lse = lse.contiguous()
     outs = [torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in (q, k, v)]
     if b and sq and h:
@@ -228,11 +242,11 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
             *(t.data_ptr() for t in outs), b, h, kvh, sq, skv, d, strides,
             scale if scale is not None else 1.0 / math.sqrt(d), int(bool(causal)),
             _NO_WINDOW if window is None else int(window), int(q_offset), _DTYPES[q.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream,
+            _CODES[variant], torch.cuda.current_stream(q.device).cuda_stream,
         )
-        _build.check(lib, err, "flash_attention_bwd (fma)")
+        _build.check(lib, err, f"flash_attention_bwd ({variant})")
         flash_attention_bwd.launches += 1
-        flash_attention_bwd.variants["fma"] += 1
+        flash_attention_bwd.variants[variant] += 1
     else:
         for t in outs:
             t.zero_()
@@ -240,7 +254,7 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True,
 
 
 flash_attention_bwd.launches = 0
-flash_attention_bwd.variants = dict.fromkeys(BWD_VARIANTS, 0)
+flash_attention_bwd.variants = dict.fromkeys(VARIANTS, 0)
 
 
 flash_attention.launches = 0

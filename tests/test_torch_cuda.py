@@ -482,6 +482,49 @@ def test_flash_attention_lse_and_backward(gen, case, dtype):
     assert all(torch.equal(x, y) for x, y in zip(grads, again))  # no atomics
 
 
+_BWD_VARIANT_CASES = [  # b, sq, skv, h, kvh, causal, window, q_offset
+    (2, 128, 128, 4, 4, True, None, 0),  # GQA 4/4
+    (2, 128, 128, 16, 1, True, None, 0),  # 16/1
+    (2, 128, 128, 8, 2, True, None, 0),  # 8/2
+    (2, 256, 256, 4, 1, True, 96, 0),  # a window that binds
+    (2, 64, 200, 4, 2, True, None, 136),  # queries at the end of the keys
+    (2, 200, 333, 4, 2, False, None, 0),  # ragged, no mask
+    (1, 70, 70, 2, 1, True, 0, 0),  # no row sees a key
+]
+
+
+@pytest.mark.parametrize("case", _BWD_VARIANT_CASES)
+@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("layout", ["aligned", "seq stride 2", "offset"])
+def test_flash_attention_bwd_variants(gen, case, d, layout):
+    """The bf16 backward at every head dim: aligned rows and rows read
+    through a sequence stride of 2 run mma, bases 2 bytes off 16 run fma;
+    each within the gate above against the f32 backward of the same
+    operands, and two calls give the same bits (no atomics)."""
+    from repro_torch.kernels import flash_attention_bwd
+    from repro_torch.kernels.flash_attention import attention_bwd_ref
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+
+    b, sq, skv, h, kvh, causal, window, q_offset = case
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    stride = 2 if layout == "seq stride 2" else 1
+    q, k, v, do = (t[:, ::stride] for t in _bwd_inputs(gen, b, stride * sq, stride * skv, h, kvh,
+                                                        d, torch.bfloat16))
+    if layout == "offset":
+        q, k, v, do = (_off16(t) for t in (q, k, v, do))
+    o, lse = flash_ops._forward(q, k, v, scale=None, with_lse=True, **kw)
+    want = "fma" if layout == "offset" else "mma"
+    before = dict(flash_attention_bwd.variants)
+    grads = flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    assert flash_attention_bwd.variants == dict(before, **{want: before[want] + 1})
+    exact = attention_bwd_ref(q.float(), k.float(), v.float(), o.float(), do.float(), lse, **kw)
+    for got, ref, like in zip(grads, exact, (q, k, v)):
+        assert got.dtype == torch.bfloat16 and got.shape == like.shape
+        assert _within(got, ref, torch.bfloat16)
+    again = flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(grads, again))
+
+
 def test_flash_attention_without_grad_stores_no_lse_and_launches_as_before(gen):
     from repro_torch.kernels import flash_attention_bwd
 
