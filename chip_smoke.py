@@ -13,7 +13,7 @@ if it fails:
    nvcc (one process per source, in parallel) and loads them; prints
    ptxas registers and spills per kernel, each tagged with its variant;
 3. main paths, each with the launch counts set to 0 just before and
-   read just after (the training path is phase 12's): ``serve_loop`` on
+   read just after (the training paths are phase 12's and 13's): ``serve_loop`` on
    smollm-135m (dense) and on zamba2-2.7b (hybrid: Mamba2 + shared
    attention), both at full width and depth (batch 4, prompt 128, 32
    tokens). Each path must launch each of its kernels exactly as often
@@ -87,7 +87,7 @@ if it fails:
     remat on, 30 steps): every loss finite and falling, the launches per
     step exact (``dos_matmul`` 843, all ``wgmma``; ``flash_attention`` 60,
     all ``mma``; ``flash_attention_bwd`` 30, all ``mma``), step p50/p99,
-    tokens/s, peak memory. The three main paths together must launch every
+    tokens/s, peak memory. The four main paths together must launch every
     registered kernel. After phase 11: the forward's o and lse (both
     variants; o also through the autograd Function) and the flash backward
     (``mma`` for bf16 with 16-byte rows, ``fma`` for f32 and the offset
@@ -110,7 +110,33 @@ if it fails:
     at step 12 (depth cut to 4 layers), resumed from step 10 with the
     losses of an uninterrupted run; the CLI ``--steps 5 --json`` in a
     subprocess;
-13. prints the kernels line, the ``nvidia-smi`` line, and last
+13. hybrid training: its main path, run right after phase 12's with the
+    counts set to 0 just before and read just after, is ``train_loop`` on
+    zamba2-2.7b at full width and depth (2,422,220,960 parameters, bf16
+    compute on f32 master weights, batch 8 x 512, seed 0, remat on, 30
+    steps): every loss finite, the launches per step exact
+    (``dos_matmul`` 1,488, all ``wgmma``; ``flash_attention`` 9 and its
+    backward 9, all ``mma``; ``ssm_scan`` 108, all ``mma``, and
+    ``ssm_scan_bwd`` 54: every scan gradient is the kernel's), step
+    p50/p99, tokens/s, peak memory; then the f32 global gradient norm of
+    its trained state (not finite: random weights grow the residual stream
+    through 54 Mamba2 layers, as in the reference, so AdamW's clip zeroes
+    every update and the loss cannot fall; ROADMAP queue 3), read in a warm
+    step, and one train step under ``torch.profiler`` (device busy, idle share, ms by
+    kernel with ``ssm_scan_bwd`` on its own line, plain ops). After phase
+    12's checks: the loss falls at full width cut to one group (6 Mamba2
+    layers and the shared block), ``train_loop`` as the main path runs it;
+    ``ssm_scan_bwd`` against ``ssm_scan_bwd_ref`` at the training shape
+    (bf16 and f32, B and C shared by the heads, ``d_state`` zero and not;
+    timed beside the plain version, its bound and the forward with and
+    without states) and edge shapes (ragged S, chunk 64, N 16/32/96, P 1
+    and 40), two calls bit-identical; the card against the CPU on the same
+    weights (one Mamba2 block at full width in bf16, every gradient within
+    3e-2 of its max|g|; the full-width model cut to one group, 6 Mamba2
+    layers and the shared block, at batch 2 x 128 in f32, the loss and
+    every gradient leaf within 1e-3); the CLI ``--arch zamba2-2.7b --steps
+    3 --json`` in a subprocess, launches per step exact;
+14. prints the kernels line, the ``nvidia-smi`` line, and last
     ``{"ok": true, "device": {...}}``.
 
 ``--details PATH`` also writes every measurement to a JSON file.
@@ -148,15 +174,18 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     attention_bwd_ref, attention_fwd_ref, attention_ref, flash_attention, flash_attention_bwd,
 )
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
-from repro_torch.kernels.ssm_scan import CHUNK, CHUNKS, ssm_scan, ssm_scan_chunked  # noqa: E402
+from repro_torch.kernels.ssm_scan import (  # noqa: E402
+    CHUNK, CHUNKS, ssm_scan, ssm_scan_bwd, ssm_scan_bwd_ref, ssm_scan_chunked,
+)
 from repro_torch.kernels.ssm_scan import ops as ssm_ops  # noqa: E402
 from repro_torch.data import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.launch.serve import serve_loop  # noqa: E402
 from repro_torch.launch.steps import accumulate_grads, loss_and_grads, make_train_step  # noqa: E402
 from repro_torch.launch.train import train_loop  # noqa: E402
 from repro_torch.models import build, decoder  # noqa: E402
-from repro_torch.models.params import leaves, map_tree  # noqa: E402
-from repro_torch.optim import OptConfig  # noqa: E402
+from repro_torch.models.params import leaves, map_tree, materialize  # noqa: E402
+from repro_torch.models.ssm import mamba_block, mamba_defs  # noqa: E402
+from repro_torch.optim import OptConfig, adamw_update  # noqa: E402
 from repro_torch.runtime import FaultInjector  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): the bound of a call
@@ -270,6 +299,7 @@ def phase_build():
     flash_ops._lib()
     flash_ops._bwd_lib()
     ssm_ops._lib()
+    ssm_ops._bwd_lib()
     dt = time.perf_counter() - t0
     print(f"[build] {len(libs)} kernels built and loaded in {dt:.1f} s", flush=True)
     for name, path in libs.items():
@@ -288,7 +318,7 @@ def phase_build():
 _VARIANT_OF = {"dos_matmul_skinny": "skinny", "dos_matmul_wgmma": "wgmma",
                "dos_matmul_wmma": "general", "dos_matmul_fma": "f32",
                "flash_mma": "mma", "flash_fwd": "fma", "flash_bwd_mma": "mma", "flash_bwd": "fma",
-               "ssd_mma": "mma", "ssd_fwd": "fma"}
+               "ssd_mma": "mma", "ssd_fwd": "fma", "ssd_bwd": "fma"}
 
 
 def _variant_tag(name: str) -> str:
@@ -329,8 +359,9 @@ def expected_launches(cfg) -> dict:
         n_attn, n_mamba = cfg.n_layers, 0
         gemms = 7 * n_attn + head
     prefill = {"dos_matmul": gemms, "flash_attention": n_attn, "flash_attention_bwd": 0,
-               "ssm_scan": n_mamba}
-    step = {"dos_matmul": gemms, "flash_attention": 0, "flash_attention_bwd": 0, "ssm_scan": 0}
+               "ssm_scan": n_mamba, "ssm_scan_bwd": 0}
+    step = {"dos_matmul": gemms, "flash_attention": 0, "flash_attention_bwd": 0, "ssm_scan": 0,
+            "ssm_scan_bwd": 0}
     return {"prefill": prefill, "decode": {k: n * (GEN - 1) for k, n in step.items()}}
 
 
@@ -1730,14 +1761,25 @@ RESTART_LAYERS, RESTART_STEPS, RESTART_FAULT = 4, 16, 12
 
 def expected_train_launches(cfg) -> dict:
     """Kernel launches of one train step with remat as the layers call
-    them: each projection's GEMM in the forward, again in each layer's
-    recompute (the unembedding is outside the checkpointed layers), and
-    dA and dB of every projection in the backward; one flash forward per
-    layer, again in its recompute, and one flash backward."""
+    them: each projection's GEMM in the forward, again in each
+    checkpointed layer's recompute (the unembedding is outside them), and
+    dA and dB of every projection in the backward. Dense: every layer is
+    checkpointed, so one flash forward per layer, again in its recompute,
+    and one flash backward. Hybrid: only the Mamba2 layers are (as the
+    reference's ``jax.checkpoint(mbody)``): one scan per Mamba2 layer,
+    again in its recompute (with the states its backward reads), and one
+    scan backward; the shared block's flash forward and backward once per
+    call."""
+    if cfg.family == "hybrid":
+        n_attn = cfg.n_layers // cfg.attn_every  # shared-block calls
+        n_mamba = n_attn * cfg.attn_every
+        gemms = 6 * n_mamba + 7 * n_attn + 1
+        return {"dos_matmul": gemms + 6 * n_mamba + 2 * gemms, "flash_attention": n_attn,
+                "flash_attention_bwd": n_attn, "ssm_scan": 2 * n_mamba, "ssm_scan_bwd": n_mamba}
     gemms = 7 * cfg.n_layers + 1
     return {"dos_matmul": gemms + 7 * cfg.n_layers + 2 * gemms,
             "flash_attention": 2 * cfg.n_layers, "flash_attention_bwd": cfg.n_layers,
-            "ssm_scan": 0}
+            "ssm_scan": 0, "ssm_scan_bwd": 0}
 
 
 def _bwd_work(b, sq, skv, h, kvh, d, es, causal, window, q_offset):
@@ -2103,13 +2145,22 @@ def phase_train_kernels():
     return main, max(r["max_abs_err"] for r in rows)
 
 
-def phase_train_path():
-    """Phase 12's main path: ``train_loop`` on smollm-135m at full size on
-    the card, with the launch counts set to 0 just before and read just
-    after. Every loss finite and falling, the launches per step exact
-    (every dos_matmul launch wgmma, every flash forward mma), step times,
-    tokens/s and peak memory. Returns the counts and the final state."""
-    cfg = get_config(ARCH)
+# Each kernel's variant on the training paths (bf16 with 16-byte rows):
+# the scan backward has one.
+TRAIN_VARIANTS = {"dos_matmul": "wgmma", "flash_attention": "mma", "flash_attention_bwd": "mma",
+                  "ssm_scan": "mma", "ssm_scan_bwd": "fma"}
+
+
+def phase_train_path(arch=ARCH):
+    """Phase 12's main path (smollm-135m) or phase 13's (zamba2-2.7b):
+    ``train_loop`` at full size on the card, with the launch counts set to
+    0 just before and read just after. Every loss finite (and falling on
+    the dense path: phase_train_hybrid_learns holds the hybrid's), the
+    launches per step exact (every dos_matmul launch wgmma, every flash
+    forward and backward and every scan forward mma), step times,
+    tokens/s and peak memory. Returns the counts, the final state and the
+    step p50."""
+    cfg = get_config(arch)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
@@ -2120,8 +2171,7 @@ def phase_train_path():
     wall = time.perf_counter() - t0
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    variants = {k: dict(KERNELS[k].variants)
-                for k in ("dos_matmul", "flash_attention", "flash_attention_bwd")}
+    variants = {k: dict(KERNELS[k].variants) for k in TRAIN_VARIANTS}
     steps = sorted(wd.times)
     p50, p99 = steps[len(steps) // 2], steps[min(len(steps) - 1, int(0.99 * len(steps)))]
     tok_s = TRAIN_BATCH * TRAIN_SEQ / p50
@@ -2139,18 +2189,19 @@ def phase_train_path():
     print(f"[train] losses: {' '.join(f'{x:.4f}' for x in losses)}", flush=True)
     print(f"[train] launches {counts}; by variant {variants}", flush=True)
     check(all(math.isfinite(x) for x in losses), "a training loss is not finite")
-    check(last < first and losses[-1] < losses[0],
-          f"the loss did not fall: {losses[0]:.4f} -> {losses[-1]:.4f} (means of 5: "
-          f"{first:.4f} -> {last:.4f})")
+    if cfg.family == "hybrid":  # phase_train_hybrid_learns holds its loss, and says why
+        print(f"[train] {cfg.name}: loss {losses[0]:.4f} -> {losses[-1]:.4f} (means of 5: "
+              f"{first:.4f} -> {last:.4f})", flush=True)
+    else:
+        check(last < first and losses[-1] < losses[0],
+              f"the loss did not fall: {losses[0]:.4f} -> {losses[-1]:.4f} (means of 5: "
+              f"{first:.4f} -> {last:.4f})")
     want = {k: n * TRAIN_STEPS for k, n in expected_train_launches(cfg).items()}
     check(counts == want, f"train launches {counts}, expected {want}")
-    check(variants["dos_matmul"]["wgmma"] == counts["dos_matmul"],
-          f"a training GEMM left the wgmma kernel: {variants['dos_matmul']}")
-    check(variants["flash_attention"]["mma"] == counts["flash_attention"],
-          f"a training flash forward left the mma kernel: {variants['flash_attention']}")
-    check(variants["flash_attention_bwd"] == {"mma": counts["flash_attention_bwd"], "fma": 0},
-          f"a training flash backward left the mma kernel: {variants['flash_attention_bwd']}")
-    RESULTS["main_paths"]["train"] = summary
+    for k, want_variant in TRAIN_VARIANTS.items():
+        check(variants[k][want_variant] == counts[k] == sum(variants[k].values()),
+              f"a training {k} launch left the {want_variant} kernel: {variants[k]}")
+    RESULTS["main_paths"]["train" if arch == ARCH else f"train {arch}"] = summary
     return counts, state, p50
 
 
@@ -2160,7 +2211,8 @@ def phase_train_profile(state, step_p50_s):
     the path's step p50, and device time by kernel and by plain op; one
     step with microbatches=2 against the same step's loss and gradients;
     and step time
-    and peak memory with and without remat."""
+    and peak memory with and without remat (these steps go on training the
+    state in place)."""
     cfg = get_config(ARCH)
     model = build(cfg, "cuda")
     opt_cfg = OptConfig(lr=1e-3, warmup_steps=20, total_steps=TRAIN_STEPS)
@@ -2168,8 +2220,12 @@ def phase_train_profile(state, step_p50_s):
     batch = {k: torch.from_numpy(x).to("cuda") for k, x in data.batch(TRAIN_STEPS).items()}
     step = make_train_step(model, opt_cfg)
     params, opt = state["params"], state["opt"]
-    _, _, loss1 = step(params, opt, batch)  # warm; the loss microbatches=2 must repeat
-    _, _, loss2 = make_train_step(model, opt_cfg, microbatches=2)(params, opt, batch)
+
+    def fresh():  # a step updates its state in place: the two compared start from clones
+        return map_tree(torch.clone, params), map_tree(torch.clone, opt)
+
+    _, _, loss1 = step(*fresh(), batch)  # warm; the loss microbatches=2 must repeat
+    _, _, loss2 = make_train_step(model, opt_cfg, microbatches=2)(*fresh(), batch)
     l1, l2 = float(loss1), float(loss2)
     rel = abs(l2 - l1) / abs(l1)
     print(f"[train] one step at microbatches 1 and 2: loss {l1:.6f} and {l2:.6f}, relative "
@@ -2221,31 +2277,52 @@ def phase_train_profile(state, step_p50_s):
           f"{out['remat_False']['step_ms']:.3f} ms "
           f"({out['remat_False']['peak_mem_bytes'] / 2**20:.1f} MiB); median of 3 steps, host "
           "clock", flush=True)
-    busy, n_ops, by_name = _profiled(lambda: step(params, opt, batch))
+    out.update(_profile_train_step(lambda: step(params, opt, batch), step_p50_s, "train step",
+                                   {"dos_matmul": "dos_matmul", "flash forward": "flash_mma",
+                                    "flash backward": "flash_bwd"}))
+    RESULTS["profile"]["train"] = out
+
+
+def _profile_train_step(run, step_p50_s, what, kernels):
+    """``run()``, one train step, under torch.profiler: device busy ms,
+    the idle share against the path's step p50, device ms by kernel
+    (``kernels``: label -> a substring of the kernel's name) and by plain
+    op. An empty dict where the profiler recorded no device time."""
+    busy, n_ops, by_name = _profiled(run)
     if not n_ops:
-        print("[profile] train step: the profiler recorded no device time: idle share not "
-              "measured")
-        RESULTS["profile"]["train"] = out
-        return
+        print(f"[profile] {what}: the profiler recorded no device time: idle share not measured")
+        return {}
     busy_ms = busy / 1e3
-    kern = {k: sum(us for n, us in by_name.items() if k in n) / 1e3
-            for k in ("dos_matmul", "flash_mma", "flash_bwd")}
-    plain = {n: us for n, us in by_name.items()
-             if not any(k in n for k in ("dos_matmul", "flash_mma", "flash_bwd"))}
+    kern = {label: sum(us for n, us in by_name.items() if key in n) / 1e3
+            for label, key in kernels.items()}
+    plain = {n: us for n, us in by_name.items() if not any(k in n for k in kernels.values())}
     copies_ms = sum(us for n, us in plain.items() if "copy" in n.lower()) / 1e3
     top = sorted(plain.items(), key=lambda kv: -kv[1])[:12]
     idle = 1 - busy_ms / (step_p50_s * 1e3)
-    print(f"[profile] train step: device busy {busy_ms:.3f} ms of a {step_p50_s*1e3:.3f} ms step "
-          f"(p50 without profiler): idle share {idle:.3f}; {n_ops} device ops; dos_matmul "
-          f"{kern['dos_matmul']:.3f} ms, flash forward {kern['flash_mma']:.3f} ms, flash backward "
-          f"{kern['flash_bwd']:.3f} ms, plain ops {sum(plain.values()) / 1e3:.3f} ms (copy kernels "
-          f"{copies_ms:.3f} ms)", flush=True)
+    print(f"[profile] {what}: device busy {busy_ms:.3f} ms of a {step_p50_s*1e3:.3f} ms step "
+          f"(p50 without profiler): idle share {idle:.3f}; {n_ops} device ops; "
+          + ", ".join(f"{label} {ms:.3f} ms" for label, ms in kern.items())
+          + f", plain ops {sum(plain.values()) / 1e3:.3f} ms (copy kernels {copies_ms:.3f} ms)",
+          flush=True)
     for name, us in top:
         print(f"[profile]   {us / 1e3:9.3f} ms  {name[:90]}")
-    out.update(busy_ms=busy_ms, idle_share=idle, device_ops=n_ops, kernel_ms=kern,
-               plain_ms=sum(plain.values()) / 1e3, copy_kernels_ms=copies_ms,
-               top_plain_ms={n: us / 1e3 for n, us in top})
-    RESULTS["profile"]["train"] = out
+    return dict(busy_ms=busy_ms, idle_share=idle, device_ops=n_ops, kernel_ms=kern,
+                plain_ms=sum(plain.values()) / 1e3, copy_kernels_ms=copies_ms,
+                top_plain_ms={n: us / 1e3 for n, us in top})
+
+
+def _grad_gap(got, want) -> tuple[float, str]:
+    """The largest max|got - want| / max|want| over the leaves of two
+    gradient trees, and its leaf; every leaf of ``got`` must be finite."""
+    worst, worst_leaf = 0.0, None
+    flat = dict(leaves(got))
+    for path, w in leaves(want):
+        g = flat[path].float().cpu()
+        check(bool(torch.isfinite(g).all()), f"non-finite gradient {path} on the card")
+        rel = (g - w.float()).abs().max().item() / max(w.abs().max().item(), 1e-30)
+        if rel > worst:
+            worst, worst_leaf = rel, ".".join(path)
+    return worst, worst_leaf
 
 
 def phase_train_e2e():
@@ -2264,15 +2341,7 @@ def phase_train_e2e():
         lc, gc = loss_and_grads(mc, params_c, batch, True)
         lg, gg = loss_and_grads(mg, params_g, {k: x.cuda() for k, x in batch.items()}, True)
         loss_rel = abs(float(lg) - float(lc)) / abs(float(lc))
-        worst, worst_leaf = 0.0, None
-        flat_g = dict(leaves(gg))
-        for path, g_cpu in leaves(gc):
-            g_card = flat_g[path].cpu()
-            check(bool(torch.isfinite(g_card).all()), f"non-finite gradient {path} on the card")
-            rel = (g_card.float() - g_cpu.float()).abs().max().item() / max(
-                g_cpu.abs().max().item(), 1e-30)
-            if rel > worst:
-                worst, worst_leaf = rel, ".".join(path)
+        worst, worst_leaf = _grad_gap(gg, gc)
         print(f"[train] card vs CPU, {cfg.name} {TRAIN_E2E_LAYERS} layers, batch "
               f"{TRAIN_E2E_BATCH} x {TRAIN_E2E_SEQ}, {dtype}: loss {float(lg):.6f} vs "
               f"{float(lc):.6f} (relative {loss_rel:.3g}); worst gradient leaf {worst_leaf} at "
@@ -2341,6 +2410,300 @@ def phase_train_cli():
 
 
 # ---------------------------------------------------------------------------
+# phase 13: hybrid training (zamba2-2.7b) on the card
+# ---------------------------------------------------------------------------
+
+# card against CPU: one Mamba2 block at full width in bf16, and the
+# full-width model cut to one group (6 Mamba2 layers and the shared block)
+# in f32, both at batch 2 x 128
+HYBRID_TRAIN_E2E_BATCH, HYBRID_TRAIN_E2E_SEQ = 2, 128
+# ssm_scan_bwd against ssm_scan_bwd_ref on the f32 result of the same
+# operands, as a fraction of each gradient's max|ref|: f32, 1e-4 (the
+# forward's gate: sums over T*N and T*P terms in other orders, the chunk's
+# cumulative log-decay inside the exps); bf16, 1e-3 (the states it reads
+# come from the bf16 forward, held to 1e-4 of the state's scale) plus one
+# bf16 rounding (2**-8) of each du, dB and dC entry
+SSM_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
+HYBRID_CLI_STEPS = 3
+
+
+def ssm_bwd_work(bt, s, h, p, n, es, shared_bc, chunk, with_dstate):
+    """Bytes of a scan backward (u, dy, ld, B, C, the forward's states and
+    d_state read once; du, dld, dB, dC written once, B and C and their
+    gradients once per step when shared by the heads) and its operations:
+    per chunk of t steps the lower triangles of C B^T, dy u^T, G dy, A C
+    and A B, and the N x P products S_c dy and the dS update (not in the
+    first chunk, whose S_c is zero and whose dS nothing reads), and B dS,
+    dS u and <dS, S_c> (not in the last chunk when d_state is zero)."""
+    nb = 1 if shared_bc else h
+    nc = -(-s // chunk)
+    n_bytes = (3 * bt * s * h * p * es + 2 * bt * s * h * 4 + 4 * bt * s * nb * n * es
+               + bt * h * nc * n * p * 4 + (bt * h * n * p * 4 if with_dstate else 0))
+    ops = 0
+    for c in range(nc):
+        t = min(chunk, s - c * chunk)
+        ops += t * (t + 1) // 2 * (3 * n + 2 * p) + (2 * t * n * p if c else 0)
+        if c < nc - 1 or with_dstate:
+            ops += 2 * t * n * p + (n * p if c else 0)
+    return n_bytes, float(2 * ops * bt * h)
+
+
+def check_ssm_bwd(gen, bt, s, h, p, n, dtype, chunk=CHUNK, shared_bc=True, with_dstate=False,
+                  time_it=False):
+    """``ssm_scan_bwd`` (the kernel) against ``ssm_scan_bwd_ref`` on the
+    f32 result of the same operands, with the forward kernel's states (B
+    and C shared by the heads come with a head dim of 1, as Mamba2 passes
+    them: the wrapper sums their gradients over the heads); two calls
+    bit-identical. Timed: the wrapper, the kernel alone (device time), the
+    plain version on the card, and the forward scan with and without the
+    states it stores."""
+    es = 2 if dtype == torch.bfloat16 else 4
+    n_bytes, n_ops = ssm_bwd_work(bt, s, h, p, n, es, shared_bc, chunk, with_dstate)
+    n_sets = max(1, math.ceil(COLD_BYTES / n_bytes)) if time_it else 1
+    sets = []
+    for _ in range(n_sets):
+        u, ld, Bh, Ch = _ssm_set(gen, bt, s, h, p, n, dtype, shared_bc)
+        B, C = (Bh[:, :, :1], Ch[:, :, :1]) if shared_bc else (Bh, Ch)
+        dy = torch.randn(bt, s, h, p, generator=gen, device="cuda").to(dtype)
+        ds = torch.randn(bt, h, n, p, generator=gen, device="cuda") if with_dstate else None
+        _, _, states = ssm_ops._forward(u, ld, Bh, Ch, chunk, with_states=True)
+        sets.append((u, ld, B, C, dy, ds, states))
+    u, ld, B, C, dy, ds, states = sets[0]
+
+    def call(i):
+        u, ld, B, C, dy, ds, states = sets[i % n_sets]
+        return ssm_scan_bwd(u, ld, B, C, dy, ds, states=states, chunk=chunk)
+
+    before = ssm_scan_bwd.launches
+    got = call(0)
+    check(ssm_scan_bwd.launches == before + 1, "ssm_scan_bwd did not launch once")
+    again = call(0)
+    exact = ssm_scan_bwd_ref(u.float(), ld, B.float().expand(-1, -1, h, -1),
+                             C.float().expand(-1, -1, h, -1), dy.float(), ds, chunk)
+    if shared_bc:
+        exact = (*exact[:2], exact[2].sum(2, keepdim=True), exact[3].sum(2, keepdim=True))
+    torch.cuda.synchronize()
+    ok, errs, rel = True, [], []
+    for g, x, rounded in zip(got, exact, (True, False, True, True)):
+        err = (g.float() - x).abs()
+        scale = max(x.abs().max().item(), 1e-30)
+        rounding = 2.0**-8 * x.abs() if dtype == torch.bfloat16 and rounded else 0.0
+        ok = ok and g.shape == x.shape and bool((err <= SSM_BWD_TOL[dtype] * scale + rounding).all())
+        errs.append(err.max().item())
+        rel.append(((err - rounding) / scale).max().item())
+    same = all(torch.equal(x, y) for x, y in zip(got, again))
+    tag = (f"Bt{bt} S{s} H{h} P{p} N{n} {str(dtype).split('.')[-1]} chunk {chunk}"
+           f"{' B/C shared' if shared_bc else ''}{' d_state' if with_dstate else ''}")
+    row = {"case": tag, "variant": "fma", "max_abs_err": max(errs), "max_abs_err_by_output": errs,
+           "err_past_rounding_of_scale": rel, "bit_identical": same, "ok": ok and same}
+    if time_it:
+        row["bytes"], row["ops"] = n_bytes, n_ops
+        row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, n_ops, dtype)
+        row["f32_cuda_core_floor_ms"] = n_ops / PEAK_OPS_S[torch.float32] * 1e3
+        row["ms"] = cuda_ms(call, n_sets)
+        row["kernel_only_ms"] = sum(ms for name, ms in device_ms_per_call(call).items()
+                                    if "ssd_bwd" in name)
+        row["plain_ms"] = cuda_ms(lambda i: ssm_scan_bwd_ref(
+            *sets[i][:2], *(t.expand(-1, -1, h, -1) for t in sets[i][2:4]), *sets[i][4:6],
+            chunk), n_sets)
+        row["library_ms"] = None  # no PyTorch call computes the scan's backward
+        fwd = [(t[0], t[1], t[2].expand(-1, -1, h, -1), t[3].expand(-1, -1, h, -1))
+               for t in sets]
+        for key, with_states in (("forward_ms", False), ("forward_with_states_ms", True)):
+            row[key] = cuda_ms(lambda i: ssm_ops._forward(*fwd[i], chunk, with_states), n_sets)
+    print(f"[train] ssm_scan_bwd {tag}: max|err| vs f32 du/dld/dB/dC "
+          f"{'/'.join(f'{e:.3g}' for e in errs)}, past one rounding "
+          f"{'/'.join(f'{r:.2g}' for r in rel)} of the scale (gate {SSM_BWD_TOL[dtype]}); two "
+          f"calls bit-identical {same}"
+          + (f"; {row['ms']*1e3:.1f} us per call ({row['kernel_only_ms']*1e3:.1f} us the kernel "
+             f"alone), plain {row['plain_ms']*1e3:.1f} us, bound {row['bound_ms']*1e3:.2f} us "
+             f"({row['bound_by']}; the f32 CUDA cores' floor {row['f32_cuda_core_floor_ms']*1e3:.1f}"
+             f" us); the forward {row['forward_ms']*1e3:.1f} us, with states "
+             f"{row['forward_with_states_ms']*1e3:.1f} us" if time_it else "")
+          + ("" if row["ok"] else "  FAIL"), flush=True)
+    check(same, f"ssm_scan_bwd {tag}: two calls on the same inputs differ")
+    check(row["ok"], f"ssm_scan_bwd {tag} disagrees with ssm_scan_bwd_ref")
+    return row
+
+
+def phase_train_ssm_bwd():
+    """Phase 13's kernel checks: ssm_scan_bwd at zamba2's training shape
+    (timed in bf16) and at edge shapes. Returns the timed row and the
+    largest error."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    cfg = get_config(HYBRID)
+    sh = (TRAIN_BATCH, TRAIN_SEQ, cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim,
+          cfg.ssm_head_dim, cfg.ssm_state)
+    main = check_ssm_bwd(gen, *sh, torch.bfloat16, time_it=True)
+    rows = [main, check_ssm_bwd(gen, *sh, torch.bfloat16, with_dstate=True),
+            check_ssm_bwd(gen, *sh, torch.bfloat16, chunk=64)]
+    for dtype in (torch.float32, torch.bfloat16):
+        sb = functools.partial(check_ssm_bwd, gen, dtype=dtype)
+        if dtype == torch.float32:
+            rows += [sb(*sh), sb(*sh, with_dstate=True)]
+        for chunk in CHUNKS:
+            rows.append(sb(2, 200, 8, 64, 64, chunk=chunk, with_dstate=True))  # ragged S
+            rows.append(sb(2, 20, 4, 64, 64, chunk=chunk, shared_bc=False))  # S below the chunk
+            rows.append(sb(2, 40, 16, 16, 16, chunk=chunk, shared_bc=False))  # N = P = 16
+            rows.append(sb(2, 40, 3, 40, 32, chunk=chunk, with_dstate=True))  # ragged P tile, N 32
+            rows.append(sb(1, 100, 2, 192, 96, chunk=chunk, shared_bc=False))  # P tiles, N 96
+            rows.append(sb(1, 33, 2, 1, 96, chunk=chunk, shared_bc=False))  # P = 1
+    RESULTS["train_ssm_bwd"] = rows
+    return main, max(r["max_abs_err"] for r in rows)
+
+
+def phase_train_hybrid_profile(state, step_p50_s):
+    """One warm train step of the hybrid path's model on its trained state
+    and the next batch, written out as train_step's two calls so that it
+    reports the global gradient norm AdamW clips with (f32, as the
+    reference forms it) and the largest gradients; then one train step
+    under torch.profiler. Both update the state in place, as train_loop's
+    steps do, so that params and moments are held once."""
+    cfg = get_config(HYBRID)
+    model = build(cfg, "cuda")
+    opt_cfg = OptConfig(lr=1e-3, warmup_steps=20, total_steps=TRAIN_STEPS)
+    step = make_train_step(model, opt_cfg)
+    data = SyntheticLM(DataConfig(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=0))
+    batch = {k: torch.from_numpy(x).to("cuda") for k, x in data.batch(TRAIN_STEPS).items()}
+    params, opt = state["params"], state["opt"]
+    _, grads = loss_and_grads(model, params, batch, True)
+    top = sorted(((g.float().abs().max().item(), ".".join(path)) for path, g in leaves(grads)),
+                 reverse=True)[:3]
+    params, opt, gnorm = adamw_update(params, grads, opt, opt_cfg)
+    gnorm = float(gnorm)
+    del grads
+    print(f"[train] {HYBRID} after {TRAIN_STEPS} steps: the f32 global gradient norm AdamW clips "
+          f"with is {gnorm:.6g} (largest |g|: "
+          + ", ".join(f"{name} {v:.3g}" for v, name in top)
+          + "); a norm that is not finite scales every update to 0, leaving weight decay alone",
+          flush=True)
+    RESULTS.setdefault("train_hybrid", {}).update(global_grad_norm=gnorm, largest_grads=top)
+    torch.cuda.synchronize()
+    RESULTS["profile"][f"train {HYBRID}"] = _profile_train_step(
+        lambda: step(params, opt, batch), step_p50_s, f"{HYBRID} train step",
+        {"dos_matmul": "dos_matmul", "flash forward": "flash_mma", "flash backward": "flash_bwd",
+         "ssm_scan": "ssd_mma", "ssm_scan_bwd": "ssd_bwd"})
+
+
+def phase_train_hybrid_learns():
+    """The hybrid's loss falls where its gradient norm is finite: zamba2-2.7b
+    at full width cut to one group (6 Mamba2 layers and the shared block),
+    ``train_loop`` as the main path runs it (8 x 512, seed 0, 30 steps,
+    remat): every loss finite, the last below the first and the mean of
+    the last 5 below that of the first 5. At full depth, random weights
+    grow the residual stream through 54 Mamba2 layers that take it without
+    a norm (as the reference's), so the f32 gradient norm overflows and
+    AdamW's clip zeroes every update (ROADMAP queue 3; the main path prints
+    its norm)."""
+    cfg = dataclasses.replace(get_config(HYBRID), n_layers=get_config(HYBRID).attn_every)
+    t0 = time.perf_counter()
+    _, losses, wd = train_loop(cfg, steps=TRAIN_STEPS, global_batch=TRAIN_BATCH,
+                               seq_len=TRAIN_SEQ, seed=0, log_every=0, device="cuda")
+    wall = time.perf_counter() - t0
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    print(f"[train] train_loop {cfg.name} cut to one group ({cfg.n_layers} Mamba2 layers and the "
+          f"shared block), batch {TRAIN_BATCH} x {TRAIN_SEQ}, {TRAIN_STEPS} steps in {wall:.2f} s: "
+          f"loss {losses[0]:.4f} -> {losses[-1]:.4f} (means of 5: {first:.4f} -> {last:.4f})",
+          flush=True)
+    check(all(math.isfinite(x) for x in losses), "a training loss of the one-group hybrid is "
+          "not finite")
+    check(last < first and losses[-1] < losses[0],
+          f"the one-group hybrid's loss did not fall: {losses[0]:.4f} -> {losses[-1]:.4f} (means "
+          f"of 5: {first:.4f} -> {last:.4f})")
+    RESULTS.setdefault("train_hybrid", {}).update(one_group_losses=losses, one_group_wall_s=wall,
+                                                  one_group_step_s=wd.times)
+
+
+def phase_train_hybrid_e2e():
+    """Card against CPU on the same f32 master weights: one Mamba2 block
+    at full width in bf16 (its input's and parameters' gradients under a
+    random output gradient, within 3e-2 of each leaf's max|g|), and the
+    full-width model cut to one group in f32 (the loss and every gradient
+    leaf of one train step, within 1e-3): the hybrid is held block by
+    block in bf16, as in serving (ROADMAP queue 3: random weights amplify
+    rounding)."""
+    cfg = get_config(HYBRID)
+    b, s = HYBRID_TRAIN_E2E_BATCH, HYBRID_TRAIN_E2E_SEQ
+    gen = torch.Generator().manual_seed(0)
+    lp = materialize(mamba_defs(cfg), gen)
+    x = torch.randn(b, s, cfg.d_model, generator=gen).to(torch.bfloat16)
+    gy = torch.randn(b, s, cfg.d_model, generator=gen).to(torch.bfloat16)
+
+    def block_grads(dev):
+        ins = {"x": x.to(dev).requires_grad_(),
+               "p": map_tree(lambda t: t.to(dev).requires_grad_(), lp)}
+        out, _ = mamba_block(ins["p"], ins["x"], cfg, mode="train")
+        torch.autograd.backward(out, gy.to(dev))
+        return map_tree(lambda t: t.grad, ins)
+
+    block_rel, block_leaf = _grad_gap(block_grads("cuda"), block_grads("cpu"))
+    print(f"[train] card vs CPU, one mamba_block of {cfg.name} at full width, batch {b} x {s}, "
+          f"bf16: worst gradient (input and parameters) {block_leaf} at {block_rel:.3g} of its "
+          f"max|g| (band {E2E_TOL})", flush=True)
+    check(block_rel <= E2E_TOL, f"mamba_block gradient {block_leaf} differs by {block_rel:.3g}")
+
+    cfg1 = dataclasses.replace(cfg, n_layers=cfg.attn_every, compute_dtype="float32")
+    mc, mg = build(cfg1, "cpu"), build(cfg1, "cuda")
+    params_c = mc.init(torch.Generator().manual_seed(0))
+    params_g = map_tree(lambda t: t.to("cuda"), params_c)
+    data = SyntheticLM(DataConfig(cfg1.vocab, s, b, seed=0))
+    batch = {k: torch.from_numpy(v) for k, v in data.batch(0).items()}
+    t0 = time.perf_counter()
+    lc, gc = loss_and_grads(mc, params_c, batch, True)
+    cpu_s = time.perf_counter() - t0
+    lg, gg = loss_and_grads(mg, params_g, {k: v.cuda() for k, v in batch.items()}, True)
+    loss_rel = abs(float(lg) - float(lc)) / abs(float(lc))
+    worst, worst_leaf = _grad_gap(gg, gc)
+    print(f"[train] card vs CPU, {cfg.name} at full width cut to one group ({cfg1.n_layers} "
+          f"Mamba2 layers and the shared block), batch {b} x {s}, float32: loss {float(lg):.6f} "
+          f"vs {float(lc):.6f} (relative {loss_rel:.3g}); worst gradient leaf {worst_leaf} at "
+          f"{worst:.3g} of its max|g| (band {TRAIN_F32_TOL}); the CPU's step {cpu_s:.1f} s",
+          flush=True)
+    check(loss_rel <= TRAIN_F32_TOL, f"float32: the card's loss differs by {loss_rel:.3g}")
+    check(worst <= TRAIN_F32_TOL, f"float32: gradient {worst_leaf} differs by {worst:.3g}")
+    RESULTS["train_hybrid_e2e"] = {"block_bf16_worst_grad_rel": block_rel,
+                                   "block_bf16_worst_leaf": block_leaf, "f32_loss_rel": loss_rel,
+                                   "f32_worst_grad_rel": worst, "f32_worst_leaf": worst_leaf}
+
+
+def phase_train_hybrid_cli():
+    """``python -m repro_torch.launch.train --arch zamba2-2.7b --steps 3
+    --json`` in a subprocess: exit 0, finite losses, the launches of 3
+    steps exact."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--arch", HYBRID,
+                        "--steps", str(HYBRID_CLI_STEPS), "--json"], capture_output=True,
+                       text=True, timeout=600, env=env, cwd=ROOT)
+    wall = time.perf_counter() - t0
+    check(r.returncode == 0, f"python -m repro_torch.launch.train --arch {HYBRID} exited "
+          f"{r.returncode}: {r.stderr[-2000:]}")
+    out = json.loads(r.stdout)
+    want = {k: n * HYBRID_CLI_STEPS
+            for k, n in expected_train_launches(get_config(HYBRID)).items()}
+    check(out["device"]["platform"] == "gpu" and len(out["losses"]) == HYBRID_CLI_STEPS
+          and all(math.isfinite(x) for x in out["losses"]) and out["launches"] == want,
+          f"the CLI's summary is wrong: {out['device']}, {out['losses']}, {out['launches']}")
+    print(f"[train] python -m repro_torch.launch.train --arch {HYBRID} --steps "
+          f"{HYBRID_CLI_STEPS} --json: exit 0 in {wall:.1f} s on {out['device']['kind']}; loss "
+          f"{out['loss_first']:.4f} -> {out['loss_last']:.4f}, step p50 "
+          f"{out['step_p50_s']*1e3:.3f} ms (batch {out['batch']} x {out['seq']}), launches "
+          f"{out['launches']}", flush=True)
+    RESULTS["train_hybrid_cli"] = {k: out[k] for k in ("losses", "step_p50_s", "launches",
+                                                       "wall_s")}
+
+
+# ---------------------------------------------------------------------------
+
+
+def timed(phase, *args):
+    """``phase(*args)``, its wall time added to ``RESULTS["phases"]`` under
+    its name and its string arguments."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    key = " ".join([phase.__name__] + [a for a in args if isinstance(a, str)]) + "_s"
+    RESULTS["phases"][key] = RESULTS["phases"].get(key, 0.0) + time.perf_counter() - t0
+    return out
 
 
 def main(argv=None) -> int:
@@ -2351,8 +2714,8 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     details = args.details
     t0 = time.perf_counter()
-    name, count, smi_line = phase_device()
-    phase_build()
+    name, count, smi_line = timed(phase_device)
+    timed(phase_build)
     if args.sweep:
         RESULTS["dos_matmul_sweep"] = sweep_dos_matmul()
         if details:
@@ -2361,35 +2724,44 @@ def main(argv=None) -> int:
         return 0
     counts, step_p50_s = {}, {}
     for arch in PATHS:  # first, so nothing else holds memory
-        counts[arch], step_p50_s[arch] = phase_main_path(arch)
-    counts["train"], train_state, train_p50 = phase_train_path()  # phase 12's main path
+        counts[arch], step_p50_s[arch] = timed(phase_main_path, arch)
+    counts["train"], train_state, train_p50 = timed(phase_train_path)  # phase 12's main path
+    counts[f"train {HYBRID}"], hybrid_state, hybrid_p50 = timed(phase_train_path,
+                                                                HYBRID)  # phase 13's
+    timed(phase_train_hybrid_profile, hybrid_state, hybrid_p50)
+    del hybrid_state  # 29 GB of params and moments
+    torch.cuda.empty_cache()
     launched = {k for c in counts.values() for k, n in c.items() if n > 0}
     check(launched == set(KERNELS), f"kernels no main path launched: {set(KERNELS) - launched}")
-    totals, main_err = phase_kernels()
+    totals, main_err = timed(phase_kernels)
     for arch in PATHS:
-        phase_profile_prefill(arch)
-    phase_profile(ARCH, *phase_e2e(ARCH)[0], step_p50_s[ARCH])
-    bf16_logits = phase_e2e_blocks(HYBRID)
-    f32_logits = phase_e2e(HYBRID, "float32", E2E_F32_TOL)[1]
+        timed(phase_profile_prefill, arch)
+    timed(phase_profile, ARCH, *timed(phase_e2e, ARCH)[0], step_p50_s[ARCH])
+    bf16_logits = timed(phase_e2e_blocks, HYBRID)
+    f32_logits = timed(phase_e2e, HYBRID, "float32", E2E_F32_TOL)[1]
     sens = ((bf16_logits.float() - f32_logits).abs().max() / f32_logits.abs().max()).item()
     print(f"[e2e] {HYBRID} ({HYBRID_E2E_LAYERS} layers): the CPU's own bf16 and f32 prefill "
           f"logits differ by {sens:.3g} of max|logits| (the model's sensitivity to rounding)")
     RESULTS["hybrid_cpu_bf16_vs_f32"] = sens
-    phase_profile(HYBRID, *full_depth_decode_state(HYBRID), step_p50_s[HYBRID])
-    counts["calibration"], cal_err = phase_calibration()
+    timed(phase_profile, HYBRID, *full_depth_decode_state(HYBRID), step_p50_s[HYBRID])
+    counts["calibration"], cal_err = timed(phase_calibration)
     check(all(counts["calibration"][k] > 0 for k in ("dos_matmul", "flash_attention", "ssm_scan")),
           f"a kernel calibration never launched: {counts['calibration']}")
-    phase_engine()
-    phase_thermal()
-    phase_systolic()
-    counts["front door calibration"] = phase_front_door()
-    bwd_row, bwd_err = phase_train_kernels()
-    phase_train_profile(train_state, train_p50)
+    timed(phase_engine)
+    timed(phase_thermal)
+    timed(phase_systolic)
+    counts["front door calibration"] = timed(phase_front_door)
+    bwd_row, bwd_err = timed(phase_train_kernels)
+    timed(phase_train_profile, train_state, train_p50)
     del train_state
     torch.cuda.empty_cache()
-    phase_train_e2e()
-    phase_train_restart()
-    phase_train_cli()
+    timed(phase_train_e2e)
+    timed(phase_train_restart)
+    timed(phase_train_cli)
+    ssm_bwd_row, ssm_bwd_err = timed(phase_train_ssm_bwd)
+    timed(phase_train_hybrid_learns)
+    timed(phase_train_hybrid_e2e)
+    timed(phase_train_hybrid_cli)
 
     replaces = {
         "dos_matmul": ("src/repro_torch/kernels/csrc/dos_matmul.cu",
@@ -2422,18 +2794,32 @@ def main(argv=None) -> int:
         **{k: n_layers * bwd_row[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
         "bound_by": bwd_row["bound_by"],
     })
+    n_mamba = expected_train_launches(get_config(HYBRID))["ssm_scan_bwd"]  # calls per train step
+    kernels.append({
+        "name": "ssm_scan_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssm_scan_bwd.cu",
+        "replaces": "src/repro/kernels/ssm_scan/ops.py:26 (autodiff of ssm_scan_chunked_jnp; the "
+                    "reference has no backward kernel)",
+        "launches": sum(c["ssm_scan_bwd"] for c in counts.values()),
+        "max_abs_err": ssm_bwd_err,
+        **{k: n_mamba * ssm_bwd_row[k] for k in ("ms", "plain_ms", "bound_ms")},
+        "bound_by": ssm_bwd_row["bound_by"], "library_ms": None,
+    })
     RESULTS["kernels"] = kernels
     RESULTS["wall_s"] = time.perf_counter() - t0
     if details:
         os.makedirs(os.path.dirname(os.path.abspath(details)), exist_ok=True)
         with open(details, "w") as f:
             json.dump(RESULTS, f, indent=1)
-    print(f"[done] {RESULTS['wall_s']:.1f} s; the kernels' launches sum the three main paths' "
-          "runs (serving smollm-135m and zamba2-2.7b, training smollm-135m), phase 7's "
-          "calibration and the front door's calibrate Study; max_abs_err is the largest of "
-          "phase 4's, phase 7's and phase 12's checks; ms, plain_ms, library_ms and bound_ms "
-          "sum both serving paths' calls of one prefill plus one decode step, and for "
-          "flash_attention_bwd the calls of one train step")
+    print(f"[done] {RESULTS['wall_s']:.1f} s; the kernels' launches sum the four main paths' "
+          "runs (serving smollm-135m and zamba2-2.7b, training smollm-135m and zamba2-2.7b), "
+          "phase 7's calibration and the front door's calibrate Study; max_abs_err is the largest "
+          "of phase 4's, phase 7's, phase 12's and phase 13's checks; ms, plain_ms, library_ms "
+          "and bound_ms sum both serving paths' calls of one prefill plus one decode step, for "
+          "flash_attention_bwd the calls of one smollm-135m train step and for ssm_scan_bwd those "
+          "of one zamba2-2.7b train step")
+    print("[done] wall s by phase: " + ", ".join(f"{k[:-2]} {v:.1f}"
+                                                 for k, v in RESULTS["phases"].items()))
     print(json.dumps({"kernels": kernels}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}))

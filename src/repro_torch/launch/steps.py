@@ -56,7 +56,10 @@ def accumulate_grads(model, params, batch, remat, microbatches):
 
 def make_train_step(model, opt_cfg: OptConfig, *, remat=True, microbatches: int = 1):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
-    loss)``: batch holds ``tokens`` and ``labels`` (B, S)."""
+    loss)``: batch holds ``tokens`` and ``labels`` (B, S). The step
+    updates the params and moments it is given in place (the reference's
+    ``donate_argnums=(0, 1)``); a caller that needs the old ones clones
+    them first."""
     def train_step(params, opt_state, batch):
         if microbatches == 1:
             loss, grads = loss_and_grads(model, params, batch, remat)

@@ -10,11 +10,10 @@ layers in a Python loop, so each layer's window and theta are Python
 numbers: the window reaches the flash kernel as a launch argument. The
 other families raise ``NotImplementedError`` naming their ROADMAP item.
 
-Modes: ``train`` (dense only: whole sequence, loss-ready logits, no
-cache; ``remat`` recomputes each layer in the backward), ``prefill``
-(whole prompt; returns the cache) and ``decode`` (one token; the cache
-advances in place). Training the hybrid branch waits for an
-``ssm_scan`` backward kernel (ROADMAP queue 1 item 7, queue 2 item 9).
+Modes: ``train`` (whole sequence, loss-ready logits, no cache; ``remat``
+recomputes each dense layer, or each of the hybrid's Mamba2 layers, in
+the backward), ``prefill`` (whole prompt; returns the cache) and
+``decode`` (one token; the cache advances in place).
 """
 
 from __future__ import annotations
@@ -52,13 +51,9 @@ def _check_family(cfg: ArchConfig):
 
 
 def check_trainable(cfg: ArchConfig):
-    """Raise unless the port can train ``cfg``: the dense family."""
+    """Raise unless the port can train ``cfg``: the dense and hybrid
+    families."""
     _check_family(cfg)
-    if cfg.family == "hybrid":
-        raise NotImplementedError(
-            f"training the hybrid family ({cfg.name}) needs an ssm_scan backward kernel "
-            "(ROADMAP queue 1 item 7, hybrid half; queue 2 item 9)"
-        )
 
 
 def _block_defs(cfg: ArchConfig):
@@ -189,14 +184,34 @@ def _dense_layers(params, x, cfg, *, mode, cache, remat=False):
     return x, {"layers": {"k": torch.stack(ks), "v": torch.stack(vs)}}
 
 
-def _hybrid_layers(params, x, cfg, *, mode, cache):
+def _train_mamba(lp, x, cfg, *, remat):
+    """One residual Mamba2 layer in training. ``remat`` (either policy)
+    recomputes it in the backward, as the reference's ``jax.checkpoint``
+    of its scanned body, which takes no policy here."""
+
+    def layer(lp, x):
+        return x + mamba_block(lp, x, cfg, mode="train")[0]
+
+    return checkpoint(layer, lp, x, use_reentrant=False) if remat else layer(lp, x)
+
+
+def _hybrid_layers(params, x, cfg, *, mode, cache, remat=False):
     """Groups of ``period`` residual Mamba2 layers, each group followed by
     the shared attention+MLP block (no window, ``cfg.rope_theta``).
-    Decode writes the new states into the stacked cache in place."""
+    Decode writes the new states into the stacked cache in place; train
+    returns no cache, and ``remat`` recomputes each Mamba2 layer (not the
+    shared block) in the backward."""
     n_groups, period = _groups(cfg)
     states, ks, vs = [], [], []  # prefill: each layer's state, each group's k, v
+    # train: one unbind of each stacked leaf, as in _dense_layers
+    stacked = (map_tree(lambda a: a.flatten(0, 1).unbind(0), params["layers"])
+               if mode == "train" else None)
     for g in range(n_groups):
         for i in range(period):
+            if mode == "train":
+                x = _train_mamba(map_tree(lambda a: a[g * period + i], stacked), x, cfg,
+                                 remat=remat)
+                continue
             lp = map_tree(lambda a: a[g, i], params["layers"])
             st = None
             if mode == "decode":
@@ -217,6 +232,8 @@ def _hybrid_layers(params, x, cfg, *, mode, cache):
         if mode == "prefill":
             ks.append(nc["k"])
             vs.append(nc["v"])
+    if mode == "train":
+        return x, None
     if mode == "decode":
         return x, {"mamba": cache["mamba"], "attn": cache["attn"]}
     mamba = {k: torch.stack([st[k] for st in states]).unflatten(0, (n_groups, period))
@@ -234,11 +251,9 @@ def decoder_forward(params, tokens, cfg: ArchConfig, *, mode: str, cache=None,
     else:
         _check_family(cfg)
     x = embed_tokens(params["embed"], tokens, getattr(torch, cfg.compute_dtype))
-    if cfg.family == "hybrid":
-        x, new_cache = _hybrid_layers(params, x, cfg, mode=mode, cache=cache)
-    else:
-        x, new_cache = _dense_layers(params, x, cfg, mode=mode, cache=cache,
-                                     remat=remat if mode == "train" else False)
+    layers = _hybrid_layers if cfg.family == "hybrid" else _dense_layers
+    x, new_cache = layers(params, x, cfg, mode=mode, cache=cache,
+                          remat=remat if mode == "train" else False)
 
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     logits = unembed(params["embed"], x, cfg.tie_embeddings)

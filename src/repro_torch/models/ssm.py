@@ -8,11 +8,15 @@ group):
   y  = SSD-scan(u = dt*x_in, log-decay = dt*A_h, B, C) + D*x_in
   out = W_o (rmsnorm(y) * silu(z))
 
-Prefill runs the chunked scan (``ssm_scan``: the CUDA kernel on the
-card); decode advances the recurrence one step with the plain
-``ssm_step_ref`` on every device, as the reference does (it has no
-kernel for the step either), carrying (ssm state, conv state). B and C
-are broadcast over the heads as views (stride 0), never copied.
+Train and prefill run the chunked scan (``ssm_scan``: the CUDA kernel
+on the card; in training its autograd Function, whose backward is the
+``ssm_scan_bwd`` kernel); train starts from zero states and drops the
+final one, as the reference does. Decode advances the recurrence one
+step with the plain ``ssm_step_ref`` on every device, as the reference
+does (it has no kernel for the step either), carrying (ssm state, conv
+state). B and C are broadcast over the heads as views (stride 0), never
+copied: the scan takes them with a head dim of 1, so that its backward
+sums their gradient over the heads in f32.
 """
 
 from __future__ import annotations
@@ -74,7 +78,8 @@ def mamba_init_state(cfg, batch, dtype=torch.float32, device=None):
 
 def mamba_block(p, x, cfg, *, mode: str, state=None):
     """Returns (y, new_state). ``state`` is required for decode; prefill
-    starts from zeros and returns the state for the decode loop."""
+    starts from zeros and returns the state for the decode loop; train
+    starts from zeros and returns no state."""
     b, s, e = x.shape
     di = cfg.ssm_expand * e
     hd = cfg.ssm_head_dim
@@ -93,23 +98,21 @@ def mamba_block(p, x, cfg, *, mode: str, state=None):
     A = p["A"].float()
     u = (dt[..., None] * xh.float()).to(x.dtype)
     ld = dt * A  # (B, S, H) log-decay, f32
-    Bh = Bm[:, :, None, :].expand(b, s, h, n)
-    Ch = Cm[:, :, None, :].expand(b, s, h, n)
-
     if mode == "decode":
         if state is None or s != 1:
             raise ValueError("decode takes one token and a state")
-        y1, new_ssm = ssm_step_ref(state["ssm"], u[:, 0], ld[:, 0], Bh[:, 0], Ch[:, 0])
+        y1, new_ssm = ssm_step_ref(state["ssm"], u[:, 0], ld[:, 0],
+                                   Bm[:, 0, None, :].expand(b, h, n),
+                                   Cm[:, 0, None, :].expand(b, h, n))
         y = y1[:, None]  # (B, 1, H, hd)
-    elif mode == "prefill":
-        y, new_ssm = ssm_scan(u, ld, Bh, Ch)
+    elif mode in ("prefill", "train"):
+        y, new_ssm = ssm_scan(u, ld, Bm[:, :, None, :], Cm[:, :, None, :])
     else:
-        raise NotImplementedError(
-            f"mode {mode!r}: training the hybrid family needs an ssm_scan backward kernel "
-            "(ROADMAP queue 1 item 7, hybrid half; queue 2 item 9)"
-        )
+        raise ValueError(f"mamba_block: unknown mode {mode!r}")
 
     y = y + p["D"].to(x.dtype)[None, None, :, None] * xh
     y = rmsnorm(y.reshape(b, s, di), p["norm"], cfg.norm_eps) * F.silu(z)
     out = proj(y.to(x.dtype), p["wo"])
+    if mode == "train":
+        return out, None
     return out, {"ssm": new_ssm, "conv": new_conv}

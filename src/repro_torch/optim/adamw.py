@@ -13,8 +13,12 @@ agrees with the reference to f32 rounding:
 The state is the reference's tree ``{"m", "v", "step"}`` (``step`` a 0-d
 int32 tensor), so checkpoints cross between the two packages.
 ``torch.optim.AdamW`` is not used: its clip and the order of its decay
-round differently, and its state is not that tree. The update is out of
-place; nothing here synchronises with the device.
+round differently, and its state is not that tree. The update is in
+place, as the reference's jitted step donates its params and moments: it
+writes the new parameters and moments into the given f32 tensors, leaf by
+leaf, so that a step never holds two copies of them. A caller that needs
+the old values clones them first. Nothing here synchronises with the
+device.
 """
 
 from __future__ import annotations
@@ -71,13 +75,6 @@ def _leaves(tree):
         yield tree
 
 
-def _zip(fn, *trees):
-    first = trees[0]
-    if isinstance(first, dict):
-        return {k: _zip(fn, *(t[k] for t in trees)) for k in first}
-    return fn(*trees)
-
-
 def global_norm(tree):
     """sqrt of the sum of every leaf's sum of squares, in f32, summed
     leaf by leaf in the reference's order."""
@@ -89,25 +86,28 @@ def global_norm(tree):
 
 @torch.no_grad()
 def adamw_update(params, grads, state, cfg: OptConfig):
-    """One AdamW step: ``(new params, new state, gnorm)``."""
+    """One AdamW step: ``(params, new state, gnorm)``, where ``params`` and
+    the new state's moments are the given f32 tensors, updated in place."""
     step = state["step"] + 1
     lr = schedule(cfg, step)
 
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
-    grads = map_tree(lambda g: g.float() * scale, grads)
-
     b1, b2 = cfg.b1, cfg.b2
-    m = _zip(lambda m_, g: b1 * m_ + (1 - b1) * g, state["m"], grads)
-    v = _zip(lambda v_, g: b2 * v_ + (1 - b2) * g * g, state["v"], grads)
     stepf = step.float()
     bc1 = 1 - torch.pow(b1, stepf)
     bc2 = 1 - torch.pow(b2, stepf)
-
-    def upd(p, m_, v_):
-        u = (m_ / bc1) / (torch.sqrt(v_ / bc2) + cfg.eps)
-        u = u + cfg.weight_decay * p.float()
-        return (p.float() - lr * u).to(p.dtype)
-
-    new_params = _zip(upd, params, m, v)
-    return new_params, {"m": m, "v": v, "step": step}, gnorm
+    for p, g, m_, v_ in zip(*(list(_leaves(t)) for t in (params, grads, state["m"],
+                                                           state["v"]))):
+        if not p.dtype == m_.dtype == v_.dtype == torch.float32:
+            raise TypeError(f"AdamW updates f32 parameters and moments in place; got "
+                            f"{p.dtype}, {m_.dtype}, {v_.dtype}")
+        g = g.float() * scale
+        m_.mul_(b1).add_(g * (1 - b1))
+        v_.mul_(b2).add_((g * (1 - b2)).mul_(g))
+        del g  # before the update's temporaries: one leaf's at a time
+        u = m_ / bc1
+        u.div_((v_ / bc2).sqrt_().add_(cfg.eps))
+        u.add_(cfg.weight_decay * p)
+        p.sub_(u.mul_(lr))
+    return params, {"m": state["m"], "v": state["v"], "step": step}, gnorm

@@ -14,6 +14,12 @@ cumulative log-decay summed in another order inside the exp), plus
 the scan are held to the same tolerances as the ``fma`` ones: they split
 the operands the reference keeps in f32 into bf16 terms that keep their
 bits (tests/test_torch_attn_plan.py and test_torch_ssm_plan.py emulate it).
+The scan's backward (``ssm_scan_bwd``) against ``ssm_scan_bwd_ref`` on
+the f32 result of the same operands: f32, 1e-4 of each gradient's
+max|ref| (as the forward); bf16, one bf16 rounding of each du, dB and dC
+entry (2**-8) plus 1e-3 of the gradient's max|ref| (the states it reads
+come from the bf16 forward, which holds 1e-4 of the state's scale; dy is
+bf16).
 """
 
 import pytest
@@ -338,6 +344,122 @@ def test_ssm_scan_bit_identical(gen, chunk, dtype):
     y, st = _check_ssm_variant(u, ld, B, C, chunk, "mma" if dtype == torch.bfloat16 else "fma")
     y2, st2 = ssm_scan(u, ld, B, C, chunk=chunk)
     assert torch.equal(y, y2) and torch.equal(st, st2)
+
+
+# bt, s, h, p, n, B/C shared by the heads (a head dim of 1)
+_SSM_BWD_CASES = [
+    (8, 512, 80, 64, 64, True),   # zamba2's training shape
+    (2, 200, 8, 64, 64, True),    # ragged S
+    (2, 20, 4, 64, 64, False),    # S below the chunk
+    (2, 40, 16, 16, 16, False),   # the reduced configs' N = P = 16
+    (2, 40, 3, 40, 32, True),     # a ragged P tile, N 32
+    (1, 100, 2, 192, 96, False),  # P over several tiles, N 96
+    (1, 33, 2, 1, 96, False),     # P = 1, N 96: mLSTM's normaliser
+]
+
+
+def _ssm_bwd_case(gen, case, dtype, chunk, with_dstate):
+    """Inputs, dy, d_state and the forward's states (the kernel's)."""
+    from repro_torch.kernels.ssm_scan import ops as ssm_ops
+
+    bt, s, h, p, n, shared = case
+    u, ld, B, C = _ssm_inputs(gen, bt, s, h, p, n, dtype, False)
+    if shared:
+        B, C = B[:, :, :1], C[:, :, :1]
+    dy = torch.randn(bt, s, h, p, generator=gen, device="cuda").to(dtype)
+    ds = torch.randn(bt, h, n, p, generator=gen, device="cuda") if with_dstate else None
+    _, _, states = ssm_ops._forward(u, ld, B.expand(-1, -1, h, -1), C.expand(-1, -1, h, -1),
+                                    chunk, with_states=True)
+    return u, ld, B, C, dy, ds, states
+
+
+def _check_ssm_bwd(got, u, ld, B, C, dy, ds, chunk):
+    from repro_torch.kernels.ssm_scan import ssm_scan_bwd_ref
+
+    h = u.shape[2]
+    e = ssm_scan_bwd_ref(u.float(), ld, B.float().expand(-1, -1, h, -1),
+                         C.float().expand(-1, -1, h, -1), dy.float(), ds, chunk)
+    if B.shape[2] == 1:
+        e = (e[0], e[1], e[2].sum(2, keepdim=True), e[3].sum(2, keepdim=True))
+    bf16 = u.dtype == torch.bfloat16
+    for g, x, rounded in zip(got, e, (True, False, True, True)):
+        assert g.shape == x.shape
+        tol = (1e-3 if bf16 else 1e-4) * x.abs().max() + (2.0**-8 * x.abs() if bf16 and rounded
+                                                          else 0)
+        assert bool(((g.float() - x).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("case", _SSM_BWD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("chunk", CHUNKS)
+@pytest.mark.parametrize("with_dstate", [False, True])
+def test_ssm_scan_bwd_kernel(gen, case, dtype, chunk, with_dstate):
+    from repro_torch.kernels import ssm_scan_bwd
+
+    u, ld, B, C, dy, ds, states = _ssm_bwd_case(gen, case, dtype, chunk, with_dstate)
+    before = ssm_scan_bwd.launches
+    got = ssm_scan_bwd(u, ld, B, C, dy, ds, states=states, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ssm_scan_bwd.launches == before + 1
+    assert [g.dtype for g in got] == [dtype, torch.float32, dtype, dtype]
+    _check_ssm_bwd(got, u, ld, B, C, dy, ds, chunk)
+
+
+@pytest.mark.parametrize("chunk", CHUNKS)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ssm_scan_states_are_the_states_entering_each_chunk(gen, chunk, dtype):
+    """Both variants' per-chunk states: chunk c's is the final state of the
+    scan over the first c chunks (zero for the first), and y and the final
+    state are the same bits as without states."""
+    from repro_torch.kernels.ssm_scan import ops as ssm_ops
+
+    u, ld, B, C = _ssm_inputs(gen, 2, 200, 8, 64, 64, dtype, True)
+    y, st, states = ssm_ops._forward(u, ld, B, C, chunk, with_states=True)
+    y0, st0 = ssm_scan(u, ld, B, C, chunk=chunk)
+    assert torch.equal(y, y0) and torch.equal(st, st0)
+    assert states.shape == (2, 8, -(-200 // chunk), 64, 64)
+    assert bool((states[:, :, 0] == 0).all())
+    for c in range(1, states.shape[2]):
+        s = c * chunk
+        _, want = ssm_scan_chunked(u[:, :s].float(), ld[:, :s], B[:, :s].float(),
+                                   C[:, :s].float(), chunk=chunk)
+        assert bool(((states[:, :, c] - want).abs() <= 1e-4 * want.abs().max()).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ssm_scan_bwd_bit_identical(gen, dtype):
+    """Two calls on the same inputs give the same bits (no atomics)."""
+    from repro_torch.kernels import ssm_scan_bwd
+
+    u, ld, B, C, dy, ds, states = _ssm_bwd_case(gen, _SSM_BWD_CASES[0], dtype, 32, True)
+    a = ssm_scan_bwd(u, ld, B, C, dy, ds, states=states)
+    b = ssm_scan_bwd(u, ld, B, C, dy, ds, states=states)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ssm_scan_function_on_the_card(gen, dtype):
+    """Autograd through ssm_scan on the card: one forward launch (with
+    states), one backward launch; the gradients those of ssm_scan_bwd on
+    the same states."""
+    from repro_torch.kernels import ssm_scan_bwd
+
+    u, ld, B, C, dy, _, states = _ssm_bwd_case(gen, (2, 100, 8, 64, 64, True), dtype, 32, False)
+    ins = [t.detach().clone().requires_grad_() for t in (u, ld, B, C)]
+    before = (ssm_scan.launches, ssm_scan_bwd.launches)
+    y, _ = ssm_scan(*ins)
+    got = torch.autograd.grad(y, ins, dy)
+    assert (ssm_scan.launches, ssm_scan_bwd.launches) == (before[0] + 1, before[1] + 1)
+    want = ssm_scan_bwd(u, ld, B, C, dy, states=states)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_ssm_scan_bwd_needs_the_forwards_states(gen):
+    from repro_torch.kernels import ssm_scan_bwd
+
+    u, ld, B, C = _ssm_inputs(gen, 1, 40, 2, 16, 16, torch.float32, False)
+    with pytest.raises(ValueError, match="states"):
+        ssm_scan_bwd(u, ld, B, C, torch.ones_like(u))
 
 
 def test_ssm_scan_rejects_unbuilt_state_dims(gen):

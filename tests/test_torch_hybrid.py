@@ -17,6 +17,10 @@ tests/test_torch_model.py: both sides run the same f32 arithmetic in
 another summation order (the reference's chunked scan pads the
 80-token prompt to 96 in chunks of 32; the port's masks the ragged
 last chunk).
+
+Two facts of the random-weight reference that the port shares are
+pinned beside them: rounding is amplified with depth, and so is the
+gradient norm (why full-depth zamba2 cannot train from random weights).
 """
 
 import dataclasses
@@ -51,7 +55,8 @@ CONFIGS = {
 }
 
 # every registered kernel, none launched (the CPU runs the plain versions)
-NO_LAUNCHES = {"dos_matmul": 0, "flash_attention": 0, "flash_attention_bwd": 0, "ssm_scan": 0}
+NO_LAUNCHES = {"dos_matmul": 0, "flash_attention": 0, "flash_attention_bwd": 0, "ssm_scan": 0,
+               "ssm_scan_bwd": 0}
 
 
 def _cfgs(name):
@@ -265,3 +270,86 @@ def test_random_weight_hybrid_amplifies_rounding_in_both_packages():
     for name in ("reference", "port"):
         assert gap[name, 6] < 0.1, gap
         assert gap[name, 12] > 0.3, gap
+
+
+def test_deep_random_hybrid_gradient_norm_explodes_in_both_packages():
+    """A fact of the reference that the port shares: random-weight zamba2
+    takes its residual stream into each Mamba2 layer without a norm, so
+    the stream, and the gradient, grow with depth. At the reduced width,
+    the global gradient norm AdamW clips with stays below 1e4 at 12
+    layers and grows more than 1e8-fold by 54, in the JAX package and in
+    the port alike (the two agree at 12 layers; at 54 the chaotic stream
+    has taken their f32 rounding orders far apart). At zamba2's full
+    width the f32 norm overflows, and the clip zeroes every update
+    (chip_smoke.py phase 13)."""
+    from repro.optim.adamw import global_norm as jax_global_norm
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.optim import global_norm
+
+    norms = {}
+    for layers in (12, 54):
+        kw = dict(n_layers=layers, attn_every=6)
+        jcfg = dataclasses.replace(jax_reduced(jax_get_config("zamba2-2.7b")), **kw)
+        jmodel = jax_build(jcfg)
+        model = build(dataclasses.replace(reduced(get_config("zamba2-2.7b")), **kw), device="cpu")
+        rng = np.random.default_rng(0)
+        params_np = jax.tree.map(np.asarray, jmodel.init(jax.random.PRNGKey(0)))
+        tokens = rng.integers(0, jcfg.vocab, (2, 64)).astype(np.int32)
+        batch_np = {"tokens": tokens, "labels": np.roll(tokens, -1, axis=1)}
+        _, jg = jax.jit(jax.value_and_grad(jmodel.loss))(
+            *(jax.tree.map(jnp.asarray, t) for t in (params_np, batch_np)))
+        _, tg = loss_and_grads(model, from_numpy(model, params_np),
+                               {k: torch.from_numpy(v) for k, v in batch_np.items()}, False)
+        norms[layers] = (float(jax_global_norm(jg)), float(global_norm(tg)))
+    (j12, t12), (j54, t54) = norms[12], norms[54]
+    assert abs(t12 - j12) <= 1e-3 * j12 and j12 < 1e4, norms
+    assert j54 > 1e8 * j12 and t54 > 1e8 * t12, norms
+
+
+def test_full_size_hybrid_init_draws_the_reference_distribution_leaf_by_leaf():
+    """Why full-depth zamba2's inf gradient norm (chip_smoke.py phase 13) is
+    the reference's, not a fault of the port's init: at full width and
+    depth the two packages define the same ParamDef tree (shape, axes,
+    fan-in axis, init, scale) leaf by leaf, and each leaf's draw has the
+    reference's distribution. Each leaf is drawn cut to about 2**20
+    elements, keeping the axis its fan-in is read from (and the heads axis
+    of ``neg_linspace``), so each package computes the full-size scale
+    itself; the leading (stacking) axes change no element's distribution.
+    Deterministic inits are equal; a normal init's mean lies within 6
+    standard errors of 0 and its std within 6 standard errors of the
+    full-size def's scale, in both packages."""
+    from repro.models.params import ParamDef as JaxParamDef
+    from repro.models.params import materialize as jax_materialize
+    from repro_torch.models.params import materialize
+
+    jdefs = jax_build(jax_get_config("zamba2-2.7b")).defs
+    tdefs = dict(leaves(build(get_config("zamba2-2.7b"), device="cpu").defs))
+    flat, _ = jax.tree_util.tree_flatten_with_path(
+        jdefs, is_leaf=lambda x: isinstance(x, JaxParamDef))
+    fields = ("shape", "axes", "contract", "out", "init", "scale")
+    assert len(flat) == len(tdefs) == 23
+    for i, (kpath, jd) in enumerate(flat):
+        path = tuple(k.key for k in kpath)
+        td = tdefs[path]
+        assert [getattr(td, f) for f in fields] == [getattr(jd, f) for f in fields], path
+        fan = jd.contract if jd.contract is not None else (0 if jd.scale is None else None)
+        keep = {fan, len(jd.shape) - 1 if jd.init == "neg_linspace" else None} - {None}
+        room = 2 ** 20 // int(np.prod([jd.shape[a] for a in keep], dtype=np.int64))
+        shape = [1 if a not in keep else n for a, n in enumerate(jd.shape)]
+        free = [a for a in range(len(shape)) if a not in keep]
+        if free:
+            shape[free[-1]] = max(1, min(jd.shape[free[-1]], room))
+        want = np.asarray(jax_materialize({"x": dataclasses.replace(jd, shape=tuple(shape))},
+                                          jax.random.PRNGKey(i))["x"])
+        got = materialize({"x": dataclasses.replace(td, shape=tuple(shape))},
+                          torch.Generator().manual_seed(i))["x"].numpy()
+        assert got.shape == want.shape == tuple(shape) and got.dtype == want.dtype, path
+        if jd.init != "normal":
+            np.testing.assert_array_equal(got, want, err_msg=str(path))
+            continue
+        sigma = jd.scale if jd.scale is not None else 1 / np.sqrt(jd.shape[fan])
+        n = got.size
+        for x in (got, want):
+            x = x.astype(np.float64)
+            assert abs(x.mean()) <= 6 * sigma / np.sqrt(n), (path, x.mean(), sigma)
+            assert abs(x.std() / sigma - 1) <= 6 / np.sqrt(2 * n), (path, x.std(), sigma)

@@ -28,7 +28,8 @@ from repro_torch.models.decoder import decoder_defs
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # every registered kernel, none launched (the CPU runs the plain versions)
-NO_LAUNCHES = {"dos_matmul": 0, "flash_attention": 0, "flash_attention_bwd": 0, "ssm_scan": 0}
+NO_LAUNCHES = {"dos_matmul": 0, "flash_attention": 0, "flash_attention_bwd": 0, "ssm_scan": 0,
+               "ssm_scan_bwd": 0}
 JSON_KEYS = {"arch", "batch", "prompt_len", "gen_tokens", "prefill_s", "decode_tok_s",
              "step_p50_s", "step_p99_s"}
 

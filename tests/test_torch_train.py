@@ -1,11 +1,13 @@
-"""The port's dense training step against the JAX package's, on the CPU,
+"""The port's training step against the JAX package's, on the CPU,
 with the same weights (the reference's parameters exported through
-numpy, norm scales and qkv biases randomised so that they are tested)
-and the same batches.
+numpy, norm scales, qkv biases and Mamba2's ``D`` and ``dt_bias``
+randomised so that they are tested) and the same batches.
 
 Per reduced config (smollm-135m; gemma3-1b with its window and global
 layers, the window binding at 80 tokens; qwen2.5-3b with qkv biases;
-qwen2-72b with an untied head):
+qwen2-72b with an untied head; zamba2-2.7b, the hybrid: 2 groups of 2
+Mamba2 layers and the shared block, 80 tokens so that the scan runs two
+whole chunks and a ragged one, its remat recomputing each Mamba2 layer):
 - ``Model.loss`` against the reference's ``model.loss``, remat off, on
   and ``"save_gathered"``: within 1e-5 of the loss (f32 on both sides,
   summed in other orders);
@@ -51,7 +53,8 @@ from repro_torch.optim import OptConfig, adamw_update, schedule
 
 BATCH = 2
 # arch -> sequence length (gemma3's reduced window is 64: 80 makes it bind)
-CONFIGS = {"smollm-135m": 32, "gemma3-1b": 80, "qwen2.5-3b": 32, "qwen2-72b": 32}
+CONFIGS = {"smollm-135m": 32, "gemma3-1b": 80, "qwen2.5-3b": 32, "qwen2-72b": 32,
+           "zamba2-2.7b": 80}
 
 
 def _randomize(tree, rng):
@@ -60,9 +63,9 @@ def _randomize(tree, rng):
     for k, v in tree.items():
         if isinstance(v, dict):
             out[k] = _randomize(v, rng)
-        elif k in ("ln1", "ln2", "final_norm", "q_norm", "k_norm"):
+        elif k in ("ln1", "ln2", "final_norm", "q_norm", "k_norm", "norm", "D"):
             out[k] = (1.0 + 0.2 * rng.normal(size=v.shape)).astype(v.dtype)
-        elif k in ("bq", "bk", "bv"):
+        elif k in ("bq", "bk", "bv", "dt_bias"):
             out[k] = (0.1 * rng.normal(size=v.shape)).astype(v.dtype)
         else:
             out[k] = v
@@ -154,9 +157,9 @@ def test_adamw_update_and_schedule_match_reference(step):
     jcfg, cfg = JaxOptConfig(**kw), OptConfig(**kw)
     jstate = {"m": _jax(m), "v": _jax(v), "step": jnp.int32(step)}
     jp, js, jn = jax_adamw_update(_jax(params), _jax(grads), jstate, jcfg)
-    tstate = {"m": jax.tree.map(torch.from_numpy, m), "v": jax.tree.map(torch.from_numpy, v),
+    tstate = {"m": jax.tree.map(torch.tensor, m), "v": jax.tree.map(torch.tensor, v),
               "step": torch.tensor(step, dtype=torch.int32)}
-    tp, ts, tn = adamw_update(jax.tree.map(torch.from_numpy, params),
+    tp, ts, tn = adamw_update(jax.tree.map(torch.tensor, params),
                               jax.tree.map(torch.from_numpy, grads), tstate, cfg)
     _close_ulps(tn.numpy(), np.asarray(jn))
     assert int(ts["step"]) == int(js["step"]) == step + 1 and ts["step"].dtype == torch.int32
@@ -167,6 +170,36 @@ def test_adamw_update_and_schedule_match_reference(step):
             _close_ulps(g, w)
     for s in (0, 1, 9, 10, 11, 55, 100, 140):
         _close_ulps(schedule(cfg, s).numpy(), np.asarray(jax_schedule(jcfg, s)))
+
+
+@pytest.mark.parametrize("step", [0, 57])
+def test_adamw_update_writes_into_the_given_tensors(step):
+    """The update is in place (train_loop's step donates its state, as
+    the reference's jitted step does): it returns the given params and
+    moments, updated, and a fresh step counter; clones taken before are
+    untouched, and a second update of those clones gives the same bits.
+    A leaf that is not f32 cannot be updated in place and raises."""
+    rng = np.random.default_rng(100 + step)
+    params, grads, m, v = [jax.tree.map(torch.from_numpy, _random_tree(rng, positive=(i == 3)))
+                           for i in range(4)]
+    cfg = OptConfig(lr=3e-3, warmup_steps=10, total_steps=100, clip_norm=0.5)
+    state = {"m": m, "v": v, "step": torch.tensor(step, dtype=torch.int32)}
+    before = jax.tree.map(torch.clone, {"p": params, "m": m, "v": v, "step": state["step"]})
+    got_p, got_s, got_n = adamw_update(params, grads, state, cfg)
+    again_p, again_s, again_n = adamw_update(*jax.tree.map(torch.clone, (
+        before["p"], grads, {"m": before["m"], "v": before["v"], "step": before["step"]})), cfg)
+    assert int(got_s["step"]) == step + 1 and int(state["step"]) == step
+    assert torch.equal(got_n, again_n)
+    for got, given, old, again in ((got_p, params, before["p"], again_p),
+                                   (got_s["m"], m, before["m"], again_s["m"]),
+                                   (got_s["v"], v, before["v"], again_s["v"])):
+        for (path, g), (_, d), (_, o), (_, a) in zip(leaves(got), leaves(given), leaves(old),
+                                                     leaves(again)):
+            assert g is d and torch.equal(g, a) and not torch.equal(g, o), path
+    bf16 = jax.tree.map(lambda t: t.to(torch.bfloat16), before["p"])
+    with pytest.raises(TypeError, match="f32"):
+        adamw_update(bf16, grads, {"m": before["m"], "v": before["v"],
+                                   "step": before["step"]}, cfg)
 
 
 @pytest.mark.parametrize("microbatches", [1, 2])

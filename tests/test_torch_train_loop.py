@@ -2,7 +2,9 @@
 the CPU: the synthetic data bit for bit, checkpoints that either package
 writes restored by the other bit for bit, retention and async writes,
 the reference's own fault-tolerance tests run on the port's
-``train_loop`` (a reduced smollm-135m), the CLI in a subprocess, and the
+``train_loop`` (a reduced smollm-135m, and the reduced zamba2-2.7b
+hybrid: its loss falls, a resume repeats the uninterrupted run, two
+microbatches agree with one), the CLI in a subprocess, and the
 configurations that are not ported raising with their ROADMAP items.
 """
 
@@ -25,6 +27,8 @@ from repro.data import SyntheticLM as JaxSyntheticLM
 from repro_torch.checkpoint import checkpointer
 from repro_torch.configs import get_config, reduced
 from repro_torch.data import DataConfig, SyntheticLM
+from repro_torch.kernels import launch_counts
+from repro_torch.launch.steps import accumulate_grads, loss_and_grads
 from repro_torch.launch.train import train_loop
 from repro_torch.models import build
 from repro_torch.models.params import leaves
@@ -215,7 +219,7 @@ def test_train_loop_needs_a_card_unless_asked_for_the_cpu():
 @pytest.mark.parametrize("arch,kw,match", [
     ("smollm-135m", {"mesh_shape": (2, 1)}, "item 10"),
     ("smollm-135m", {"strategy": "megatron"}, "item 10"),
-    ("zamba2-2.7b", {}, "item 7"),
+    ("whisper-medium", {}, "item 9"),
     ("deepseek-moe-16b", {}, "item 9"),
     ("xlstm-125m", {}, "item 8"),
 ])
@@ -224,9 +228,68 @@ def test_not_ported_configurations_name_their_roadmap_items(arch, kw, match):
         train_loop(reduced(get_config(arch)), steps=1, device="cpu", **kw)
 
 
-def test_hybrid_loss_names_the_ssm_scan_backward():
+def test_hybrid_loss_is_differentiable_in_every_leaf():
+    """The reduced hybrid's loss has a finite gradient in every leaf, and
+    none is zero: the scan's backward reaches B, C, the decays and D."""
     model = build(reduced(get_config("zamba2-2.7b")), device="cpu")
     params = model.init(torch.Generator().manual_seed(0))
-    tokens = torch.zeros((1, 8), dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="ssm_scan backward"):
-        model.loss(params, {"tokens": tokens, "labels": tokens})
+    tokens = torch.randint(0, model.cfg.vocab, (2, 40), generator=torch.Generator().manual_seed(1))
+    loss, grads = loss_and_grads(model, params, {"tokens": tokens, "labels": tokens.roll(-1, 1)},
+                                 True)
+    assert np.isfinite(float(loss))
+    for path, g in leaves(grads):
+        assert bool(torch.isfinite(g).all()) and g.abs().max() > 0, path
+
+
+def _hybrid_kw(**kw):
+    return dict(dict(steps=16, global_batch=2, seq_len=32, log_every=100, device="cpu"), **kw)
+
+
+def test_hybrid_train_loop_loss_falls_without_launches():
+    cfg = reduced(get_config("zamba2-2.7b"))
+    before = launch_counts()
+    _, losses, _ = train_loop(cfg, **_hybrid_kw(steps=25))
+    assert launch_counts() == before  # plain versions on the CPU
+    assert np.isfinite(losses).all()
+    assert losses[-1] < losses[0] - 0.5, (losses[0], losses[-1])
+
+
+def test_hybrid_restart_resumes_from_checkpoint(tmp_path):
+    """A fault at step 12 of the reduced hybrid: the loop resumes from the
+    checkpoint of step 10 and its losses repeat an uninterrupted run's bit
+    for bit; the checkpoint holds the hybrid's tree in the reference's
+    layout, so the reference restores it."""
+    cfg = reduced(get_config("zamba2-2.7b"))
+    inj = FaultInjector(fail_at_steps=(12,))
+    state, losses, _ = train_loop(cfg, ckpt_dir=str(tmp_path), ckpt_every=5,
+                                  fault_injector=inj, **_hybrid_kw())
+    assert 12 in inj.fired and len(losses) == 18
+    _, clean, _ = train_loop(cfg, **_hybrid_kw())
+    assert losses[:12] == clean[:12] and losses[12:] == clean[10:]
+    like = jax.tree.map(lambda t: t.numpy(), {"params": state["params"], "opt": state["opt"]})
+    back = jax_checkpointer.restore(tmp_path, 16, like)
+    for (path, want), (_, got) in zip(jax.tree_util.tree_flatten_with_path(like)[0],
+                                      jax.tree_util.tree_flatten_with_path(back)[0]):
+        np.testing.assert_array_equal(got, want, err_msg=str(path))
+
+
+def test_hybrid_microbatches_agree_with_one():
+    """Two microbatches of the reduced hybrid: the accumulated gradients
+    equal the full batch's leaf by leaf within 1e-5 of the leaf's max|g|
+    (f32 sums in another order), and 3 steps of train_loop give the same
+    losses within 5e-3 (tests/test_models_smoke.py's band for the
+    reference)."""
+    cfg = reduced(get_config("zamba2-2.7b"))
+    model = build(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    batch = {k: torch.from_numpy(x)
+             for k, x in SyntheticLM(DataConfig(cfg.vocab, 32, 2, seed=0)).batch(0).items()}
+    loss, grads = loss_and_grads(model, params, batch, True)
+    acc_loss, acc = accumulate_grads(model, params, batch, True, 2)
+    assert abs(float(acc_loss) - float(loss)) <= 1e-5 * abs(float(loss))
+    flat = dict(leaves(acc))
+    for path, want in leaves(grads):
+        assert (flat[path] - want).abs().max() <= 1e-5 * want.abs().max(), path
+    _, one, _ = train_loop(cfg, **_hybrid_kw(steps=3))
+    _, two, _ = train_loop(cfg, microbatches=2, **_hybrid_kw(steps=3))
+    assert max(abs(a - b) for a, b in zip(one, two)) < 5e-3, (one, two)
