@@ -116,8 +116,8 @@ if it fails:
     compute on f32 master weights, batch 8 x 512, seed 0, remat on, 30
     steps): every loss finite, the launches per step exact
     (``dos_matmul`` 1,488, all ``wgmma``; ``flash_attention`` 9 and its
-    backward 9, all ``mma``; ``ssm_scan`` 108, all ``mma``, and
-    ``ssm_scan_bwd`` 54: every scan gradient is the kernel's), step
+    backward 9, all ``mma``; ``ssm_scan`` 108 and ``ssm_scan_bwd`` 54, all
+    ``mma``: every scan gradient is the tensor-core kernel's), step
     p50/p99, tokens/s, peak memory; then the f32 global gradient norm of
     its trained state (not finite: random weights grow the residual stream
     through 54 Mamba2 layers, as in the reference, so AdamW's clip zeroes
@@ -127,10 +127,12 @@ if it fails:
     12's checks: the loss falls at full width cut to one group (6 Mamba2
     layers and the shared block), ``train_loop`` as the main path runs it;
     ``ssm_scan_bwd`` against ``ssm_scan_bwd_ref`` at the training shape
-    (bf16 and f32, B and C shared by the heads, ``d_state`` zero and not;
-    timed beside the plain version, its bound and the forward with and
-    without states) and edge shapes (ragged S, chunk 64, N 16/32/96, P 1
-    and 40), two calls bit-identical; the card against the CPU on the same
+    (bf16 ``mma`` and f32 ``fma``, B and C shared by the heads and summed
+    over groups of 8 heads on chip, ``d_state`` zero and not; timed beside
+    the ``fma`` kernel on the same inputs, the plain version, its bound and
+    the forward with and without states) and edge shapes (ragged S, chunk
+    64, N 16/32/96, P 1 and 40; each bf16 one that ``mma`` takes on both
+    variants), two calls bit-identical; the card against the CPU on the same
     weights (one Mamba2 block at full width in bf16, every gradient within
     3e-2 of its max|g|; the full-width model cut to one group, 6 Mamba2
     layers and the shared block, at batch 2 x 128 in f32, the loss and
@@ -318,7 +320,7 @@ def phase_build():
 _VARIANT_OF = {"dos_matmul_skinny": "skinny", "dos_matmul_wgmma": "wgmma",
                "dos_matmul_wmma": "general", "dos_matmul_fma": "f32",
                "flash_mma": "mma", "flash_fwd": "fma", "flash_bwd_mma": "mma", "flash_bwd": "fma",
-               "ssd_mma": "mma", "ssd_fwd": "fma", "ssd_bwd": "fma"}
+               "ssd_mma": "mma", "ssd_fwd": "fma", "ssd_bwd_mma": "mma", "ssd_bwd": "fma"}
 
 
 def _variant_tag(name: str) -> str:
@@ -2145,10 +2147,9 @@ def phase_train_kernels():
     return main, max(r["max_abs_err"] for r in rows)
 
 
-# Each kernel's variant on the training paths (bf16 with 16-byte rows):
-# the scan backward has one.
+# Each kernel's variant on the training paths (bf16 with 16-byte rows).
 TRAIN_VARIANTS = {"dos_matmul": "wgmma", "flash_attention": "mma", "flash_attention_bwd": "mma",
-                  "ssm_scan": "mma", "ssm_scan_bwd": "fma"}
+                  "ssm_scan": "mma", "ssm_scan_bwd": "mma"}
 
 
 def phase_train_path(arch=ARCH):
@@ -2448,15 +2449,34 @@ def ssm_bwd_work(bt, s, h, p, n, es, shared_bc, chunk, with_dstate):
     return n_bytes, float(2 * ops * bt * h)
 
 
+def _ssm_bwd_gate(got, exact, dtype):
+    """The scan backward's gate (``SSM_BWD_TOL``): each of du, dld, dB, dC
+    within the tolerance of its max|ref| plus, in bf16, one rounding of each
+    du, dB and dC entry. Returns (ok, max|err| by output, the error past
+    the rounding as a fraction of the scale by output)."""
+    ok, errs, rel = True, [], []
+    for g, x, rounded in zip(got, exact, (True, False, True, True)):
+        err = (g.float() - x).abs()
+        scale = max(x.abs().max().item(), 1e-30)
+        rounding = 2.0**-8 * x.abs() if dtype == torch.bfloat16 and rounded else 0.0
+        ok = ok and g.shape == x.shape and bool((err <= SSM_BWD_TOL[dtype] * scale + rounding).all())
+        errs.append(err.max().item())
+        rel.append(((err - rounding) / scale).max().item())
+    return ok, errs, rel
+
+
 def check_ssm_bwd(gen, bt, s, h, p, n, dtype, chunk=CHUNK, shared_bc=True, with_dstate=False,
                   time_it=False):
-    """``ssm_scan_bwd`` (the kernel) against ``ssm_scan_bwd_ref`` on the
+    """``ssm_scan_bwd`` (the variant ``plan`` picks: ``mma`` for bf16 with
+    16-byte rows, ``fma`` otherwise) against ``ssm_scan_bwd_ref`` on the
     f32 result of the same operands, with the forward kernel's states (B
     and C shared by the heads come with a head dim of 1, as Mamba2 passes
-    them: the wrapper sums their gradients over the heads); two calls
-    bit-identical. Timed: the wrapper, the kernel alone (device time), the
-    plain version on the card, and the forward scan with and without the
-    states it stores."""
+    them: the kernel sums their gradients over groups of heads, the
+    wrapper over the groups); two calls bit-identical. Where the call runs
+    ``mma``, the ``fma`` kernel runs on the same inputs too (forced: it
+    takes every layout), held to the same gate. Timed: the wrapper, the
+    kernel alone (device time), ``fma`` beside them, the plain version on
+    the card, and the forward scan with and without the states it stores."""
     es = 2 if dtype == torch.bfloat16 else 4
     n_bytes, n_ops = ssm_bwd_work(bt, s, h, p, n, es, shared_bc, chunk, with_dstate)
     n_sets = max(1, math.ceil(COLD_BYTES / n_bytes)) if time_it else 1
@@ -2469,13 +2489,19 @@ def check_ssm_bwd(gen, bt, s, h, p, n, dtype, chunk=CHUNK, shared_bc=True, with_
         _, _, states = ssm_ops._forward(u, ld, Bh, Ch, chunk, with_states=True)
         sets.append((u, ld, B, C, dy, ds, states))
     u, ld, B, C, dy, ds, states = sets[0]
+    variant = _want_variant(dtype) if p % 8 == 0 else "fma"
 
     def call(i):
         u, ld, B, C, dy, ds, states = sets[i % n_sets]
         return ssm_scan_bwd(u, ld, B, C, dy, ds, states=states, chunk=chunk)
 
+    def call_fma(i):  # the fma kernel on the same inputs, through the same sums and casts
+        u, ld, B, C, dy, ds, states = sets[i % n_sets]
+        return ssm_ops._backward(u, ld, B.expand(-1, -1, h, -1), C.expand(-1, -1, h, -1), dy, ds,
+                                 states, chunk, shared=shared_bc, force_fma=True, grad_dtype=dtype)
+
     before = ssm_scan_bwd.launches
-    got = call(0)
+    got = _count_variant(ssm_scan_bwd, variant, lambda: call(0))
     check(ssm_scan_bwd.launches == before + 1, "ssm_scan_bwd did not launch once")
     again = call(0)
     exact = ssm_scan_bwd_ref(u.float(), ld, B.float().expand(-1, -1, h, -1),
@@ -2483,19 +2509,19 @@ def check_ssm_bwd(gen, bt, s, h, p, n, dtype, chunk=CHUNK, shared_bc=True, with_
     if shared_bc:
         exact = (*exact[:2], exact[2].sum(2, keepdim=True), exact[3].sum(2, keepdim=True))
     torch.cuda.synchronize()
-    ok, errs, rel = True, [], []
-    for g, x, rounded in zip(got, exact, (True, False, True, True)):
-        err = (g.float() - x).abs()
-        scale = max(x.abs().max().item(), 1e-30)
-        rounding = 2.0**-8 * x.abs() if dtype == torch.bfloat16 and rounded else 0.0
-        ok = ok and g.shape == x.shape and bool((err <= SSM_BWD_TOL[dtype] * scale + rounding).all())
-        errs.append(err.max().item())
-        rel.append(((err - rounding) / scale).max().item())
+    ok, errs, rel = _ssm_bwd_gate(got, exact, dtype)
     same = all(torch.equal(x, y) for x, y in zip(got, again))
     tag = (f"Bt{bt} S{s} H{h} P{p} N{n} {str(dtype).split('.')[-1]} chunk {chunk}"
-           f"{' B/C shared' if shared_bc else ''}{' d_state' if with_dstate else ''}")
-    row = {"case": tag, "variant": "fma", "max_abs_err": max(errs), "max_abs_err_by_output": errs,
+           f"{' B/C shared' if shared_bc else ''}{' d_state' if with_dstate else ''} [{variant}]")
+    row = {"case": tag, "variant": variant, "max_abs_err": max(errs), "max_abs_err_by_output": errs,
            "err_past_rounding_of_scale": rel, "bit_identical": same, "ok": ok and same}
+    if variant == "mma":
+        fma = _count_variant(ssm_scan_bwd, "fma", lambda: call_fma(0))
+        fma_ok, fma_errs, fma_rel = _ssm_bwd_gate(fma, exact, dtype)
+        fma_same = all(torch.equal(x, y) for x, y in zip(fma, call_fma(0)))
+        row.update(fma_max_abs_err=max(fma_errs), fma_err_past_rounding_of_scale=fma_rel,
+                   fma_bit_identical=fma_same)
+        row["ok"] = row["ok"] and fma_ok and fma_same
     if time_it:
         row["bytes"], row["ops"] = n_bytes, n_ops
         row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, n_ops, dtype)
@@ -2503,6 +2529,10 @@ def check_ssm_bwd(gen, bt, s, h, p, n, dtype, chunk=CHUNK, shared_bc=True, with_
         row["ms"] = cuda_ms(call, n_sets)
         row["kernel_only_ms"] = sum(ms for name, ms in device_ms_per_call(call).items()
                                     if "ssd_bwd" in name)
+        if variant == "mma":  # the fma kernel on the same inputs, beside it
+            row["fma_ms"] = cuda_ms(call_fma, n_sets)
+            row["fma_kernel_only_ms"] = sum(ms for name, ms in device_ms_per_call(call_fma).items()
+                                            if "ssd_bwd" in name)
         row["plain_ms"] = cuda_ms(lambda i: ssm_scan_bwd_ref(
             *sets[i][:2], *(t.expand(-1, -1, h, -1) for t in sets[i][2:4]), *sets[i][4:6],
             chunk), n_sets)
@@ -2515,21 +2545,28 @@ def check_ssm_bwd(gen, bt, s, h, p, n, dtype, chunk=CHUNK, shared_bc=True, with_
           f"{'/'.join(f'{e:.3g}' for e in errs)}, past one rounding "
           f"{'/'.join(f'{r:.2g}' for r in rel)} of the scale (gate {SSM_BWD_TOL[dtype]}); two "
           f"calls bit-identical {same}"
+          + (f"; fma on the same inputs past one rounding "
+             f"{'/'.join(f'{r:.2g}' for r in row['fma_err_past_rounding_of_scale'])}, "
+             f"bit-identical {row['fma_bit_identical']}" if variant == "mma" else "")
           + (f"; {row['ms']*1e3:.1f} us per call ({row['kernel_only_ms']*1e3:.1f} us the kernel "
-             f"alone), plain {row['plain_ms']*1e3:.1f} us, bound {row['bound_ms']*1e3:.2f} us "
+             f"alone)"
+             + (f", fma {row['fma_ms']*1e3:.1f} us ({row['fma_kernel_only_ms']*1e3:.1f} us)"
+                if "fma_ms" in row else "")
+             + f", plain {row['plain_ms']*1e3:.1f} us, bound {row['bound_ms']*1e3:.2f} us "
              f"({row['bound_by']}; the f32 CUDA cores' floor {row['f32_cuda_core_floor_ms']*1e3:.1f}"
              f" us); the forward {row['forward_ms']*1e3:.1f} us, with states "
              f"{row['forward_with_states_ms']*1e3:.1f} us" if time_it else "")
           + ("" if row["ok"] else "  FAIL"), flush=True)
     check(same, f"ssm_scan_bwd {tag}: two calls on the same inputs differ")
-    check(row["ok"], f"ssm_scan_bwd {tag} disagrees with ssm_scan_bwd_ref")
+    check(row["ok"], f"ssm_scan_bwd {tag} (or fma beside it) disagrees with ssm_scan_bwd_ref")
     return row
 
 
 def phase_train_ssm_bwd():
     """Phase 13's kernel checks: ssm_scan_bwd at zamba2's training shape
-    (timed in bf16) and at edge shapes. Returns the timed row and the
-    largest error."""
+    (timed in bf16, ``mma`` with ``fma`` on the same inputs beside it) and
+    at edge shapes, each bf16 one that ``mma`` takes on both variants.
+    Returns the timed row and the largest error."""
     gen = torch.Generator(device="cuda").manual_seed(13)
     cfg = get_config(HYBRID)
     sh = (TRAIN_BATCH, TRAIN_SEQ, cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim,
@@ -2548,6 +2585,7 @@ def phase_train_ssm_bwd():
             rows.append(sb(2, 40, 3, 40, 32, chunk=chunk, with_dstate=True))  # ragged P tile, N 32
             rows.append(sb(1, 100, 2, 192, 96, chunk=chunk, shared_bc=False))  # P tiles, N 96
             rows.append(sb(1, 33, 2, 1, 96, chunk=chunk, shared_bc=False))  # P = 1
+            rows.append(sb(2, 70, 8, 64, 96, chunk=chunk, with_dstate=True))  # 8 heads' sums, N 96
     RESULTS["train_ssm_bwd"] = rows
     return main, max(r["max_abs_err"] for r in rows)
 

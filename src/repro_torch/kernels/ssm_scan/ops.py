@@ -31,13 +31,17 @@ as a view (stride 0) before the kernel or the plain version reads it.
 Training: when an input requires grad, ``ssm_scan`` runs through an
 autograd ``Function``. On the card its forward asks the kernel for the
 f32 state entering each chunk as well (``states``, (Bt, H, n_chunks, N,
-P)) and its backward calls ``ssm_scan_bwd``, which launches the
-hand-written backward of ``csrc/ssm_scan_bwd.cu`` (one variant, ``fma``:
-f32 on the CUDA cores; ``ssm_scan_bwd.launches`` and ``.variants``
-count it). On CPU tensors the Function's forward and backward are the
-plain ``ssm_scan_chunked`` and ``ssm_scan_bwd_ref``. dB and dC are
-formed per head in f32 and, for a head dim of 1, summed over the heads
-in f32 before the cast to B's dtype. Without grad (serving, calibration)
+P)) and its backward calls ``ssm_scan_bwd``, which launches one of the
+hand-written backwards of ``csrc/ssm_scan_bwd.cu``, picked by the same
+``plan`` over u, dy, B and C: ``mma`` (bf16 on the tensor cores, for the
+layouts the forward's ``mma`` takes; zamba2's training runs it) or
+``fma`` (f32 on the CUDA cores, for f32 and other layouts);
+``ssm_scan_bwd.launches`` and ``.variants`` count them. On CPU tensors
+the Function's forward and backward are the plain ``ssm_scan_chunked``
+and ``ssm_scan_bwd_ref``. dB and dC are summed in f32 before the cast to
+B's dtype: for a head dim of 1 over the heads, which ``mma`` does on
+chip for groups of up to 8 heads (a thread-block cluster) and the
+wrapper does for what is left. Without grad (serving, calibration)
 nothing changes: no states are stored.
 """
 
@@ -50,8 +54,8 @@ import torch
 from .. import _build
 from .ref import _chunks, ssm_scan_bwd_ref
 
-__all__ = ["CHUNK", "CHUNKS", "STATE_DIMS", "VARIANTS", "plan", "ssm_scan", "ssm_scan_bwd",
-           "ssm_scan_chunked"]
+__all__ = ["CHUNK", "CHUNKS", "STATE_DIMS", "VARIANTS", "head_group", "plan", "ssm_scan",
+           "ssm_scan_bwd", "ssm_scan_chunked"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 CHUNKS = (32, 64)  # chunk lengths the kernel is built for
@@ -83,9 +87,11 @@ def _bwd_lib() -> ctypes.CDLL:
         lib = _build.load("ssm_scan_bwd")
         lib.ssm_scan_bwd_launch.argtypes = (
             [ctypes.c_void_p] * 11 + [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
-            + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+            + [ctypes.c_int] * 4 + [ctypes.c_void_p]
         )
         lib.ssm_scan_bwd_launch.restype = ctypes.c_int
+        lib.ssm_scan_bwd_max_group.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.ssm_scan_bwd_max_group.restype = ctypes.c_int
         _BWD_LIB = lib
     return _BWD_LIB
 
@@ -102,8 +108,9 @@ def _check(dtype: torch.dtype, n: int, chunk: int):
 
 def plan(dtype: torch.dtype, n: int, chunk: int, p: int, strides, aligned: bool) -> str:
     """The kernel variant for one call. ``strides`` holds the element
-    strides of u (b, s, h, p), B and C (b, s, h, n); ``aligned`` says
-    that their three bases are 16-byte aligned. Raises for what neither
+    strides of u (b, s, h, p), B and C (b, s, h, n), and for the backward
+    dy (b, s, h, p) as well; ``aligned`` says that all their bases are
+    16-byte aligned. Raises for what neither
     variant takes: a dtype other than f32 and bf16, N not in
     ``STATE_DIMS`` or a chunk not in ``CHUNKS``."""
     _check(dtype, n, chunk)
@@ -111,6 +118,18 @@ def plan(dtype: torch.dtype, n: int, chunk: int, p: int, strides, aligned: bool)
             and all(st[3] == 1 and all(x % 8 == 0 for x in st[:3]) for st in strides)):
         return "mma"
     return "fma"
+
+
+def head_group(h: int, shared: bool, variant: str, most: int = 8) -> int:
+    """The heads over which the backward kernel sums dB and dC on chip:
+    ``mma`` with B and C shared by the heads runs a thread-block cluster
+    of one block per head, ``most`` blocks at most (8, the portable cluster
+    size, or 1 where the kernel's ``ssm_scan_bwd_max_group`` says the
+    heads' slices do not fit in shared memory), and as many as divide H;
+    otherwise 1 (per-head gradients)."""
+    if not shared or variant != "mma":
+        return 1
+    return next(k for k in (8, 4, 2, 1) if h % k == 0 and k <= most)
 
 
 def ssm_scan_chunked(u, ld, B, C, chunk: int = CHUNK):
@@ -239,27 +258,43 @@ def ssm_scan_bwd(u, ld, B, C, dy, d_state=None, *, states=None, chunk: int | Non
     (``d_state``, or None where the caller dropped it), each in its
     input's dtype and shape (a head dim of 1 in B and C: the heads'
     gradients summed in f32). CPU tensors take ``ssm_scan_bwd_ref``;
-    CUDA tensors launch the backward kernel, which reads the forward's
-    ``states`` (``_forward(..., with_states=True)``), or raise.
+    CUDA tensors launch the backward kernel ``plan`` picks, which reads
+    the forward's ``states`` (``_forward(..., with_states=True)``), or
+    raise.
 
-    ``ssm_scan_bwd.launches`` counts the launches of this process."""
+    ``ssm_scan_bwd.launches`` counts the launches of this process and
+    ``ssm_scan_bwd.variants`` counts them by variant."""
     chunk = CHUNK if chunk is None else chunk
     h = u.shape[2]
     Bh, Ch = _heads(B, h), _heads(C, h)
     if u.device.type == "cpu":
         du, dld, dB, dC = ssm_scan_bwd_ref(u, ld, Bh, Ch, dy, d_state, chunk)
     else:
-        du, dld, dB, dC = _backward(u, ld, Bh, Ch, dy, d_state, states, chunk)
-    if B.shape[2] != h:  # one B, C for all heads: sum the heads' gradients in f32
-        dB, dC = dB.sum(2, keepdim=True), dC.sum(2, keepdim=True)
+        shared = B.shape[2] != h and C.shape[2] != h
+        du, dld, dB, dC = _backward(u, ld, Bh, Ch, dy, d_state, states, chunk, shared=shared,
+                                    grad_dtype=B.dtype if B.shape == C.shape
+                                    else torch.float32)
+    # one B or C for all heads: sum the heads' gradients in f32 (where the
+    # kernel has not)
+    if dB.shape[2] != B.shape[2]:
+        dB = dB.sum(2, keepdim=True)
+    if dC.shape[2] != C.shape[2]:
+        dC = dC.sum(2, keepdim=True)
     return du.to(u.dtype), dld.to(ld.dtype), dB.to(B.dtype), dC.to(C.dtype)
 
 
-def _backward(u, ld, B, C, dy, d_state, states, chunk):
-    """The backward kernel on CUDA tensors (B, C with H heads): du in u's
-    dtype, dld f32, dB and dC per head in f32. The kernel runs one block
-    per (b, h, 64-column P tile) and writes each tile's share of dld, dB
-    and dC; they are summed over the tiles here, in a fixed order."""
+def _backward(u, ld, B, C, dy, d_state, states, chunk, shared=False, force_fma=False,
+              grad_dtype=torch.float32):
+    """The backward kernel on CUDA tensors (B, C with H heads, views of
+    one B, C when ``shared``): du in u's dtype, dld f32, dB and dC in
+    ``grad_dtype``, (Bt, S, H, N), or (Bt, S, 1, N) summed over the heads
+    in f32 when ``shared``. The kernel runs one block per (b, h, 64-column
+    P tile) and writes each tile's share of dld, dB and dC (``mma`` with
+    ``shared``: summed over groups of heads on chip, group-major); they
+    are summed over the tiles, groups or heads here, in a fixed order,
+    dB and dC in one pass, then cast once. ``force_fma`` launches
+    the ``fma`` kernel whatever ``plan`` says (it takes every layout), so
+    that a measurement can time both variants on the same inputs."""
     bt, s, h, p = u.shape
     n = B.shape[-1]
     _check_inputs(u, ld, B, C, "ssm_scan_bwd")
@@ -277,31 +312,45 @@ def _backward(u, ld, B, C, dy, d_state, states, chunk):
                                 or d_state.device != u.device):
         raise ValueError(f"ssm_scan_bwd: d_state {tuple(d_state.shape)}, want ({bt}, {h}, {n}, {p})")
     dy, ld = dy.to(u.dtype), ld.float()
+    variant = "fma" if force_fma else plan(
+        u.dtype, n, chunk, p, (u.stride(), dy.stride(), B.stride(), C.stride()),
+        (u.data_ptr() | dy.data_ptr() | B.data_ptr() | C.data_ptr()) % 16 == 0)
+    group = (head_group(h, shared, variant, _bwd_lib().ssm_scan_bwd_max_group(chunk, n))
+             if shared and variant == "mma" and bt and s and p else 1)
     states = states.contiguous()
     d_state = None if d_state is None else d_state.float().contiguous()
     npt = -(-p // 64)  # the kernel's P tiles
     du = torch.empty((bt, s, h, p), dtype=u.dtype, device=u.device)
     dld = torch.empty((npt, bt, s, h), dtype=torch.float32, device=u.device)
-    dB, dC = (torch.empty((npt, bt, s, h, n), dtype=torch.float32, device=u.device)
-              for _ in range(2))
+    # dB, dC stacked: (2, tiles x groups, Bt, S, N) or per head (2, tiles, Bt, S, H, N)
+    shape = (2, npt * (h // group), bt, s, n) if group > 1 else (2, npt, bt, s, h, n)
+    dBC = torch.empty(shape, dtype=torch.float32, device=u.device)
     if not (bt and s and h and p):
-        return du.zero_(), dld.sum(0), dB.sum(0), dC.sum(0)
+        dBC = dBC.sum(1)
+        dBC = (dBC.sum(3, keepdim=True) if shared else dBC).to(grad_dtype)
+        return du.zero_(), dld.sum(0), dBC[0], dBC[1]
     strides = (ctypes.c_longlong * 19)(*u.stride(), *ld.stride(), *B.stride(), *C.stride(),
                                        *dy.stride())
     lib = _bwd_lib()
     err = lib.ssm_scan_bwd_launch(
         u.data_ptr(), ld.data_ptr(), B.data_ptr(), C.data_ptr(), dy.data_ptr(),
         states.data_ptr(), None if d_state is None else d_state.data_ptr(), du.data_ptr(),
-        dld.data_ptr(), dB.data_ptr(), dC.data_ptr(), bt, s, h, p, n, strides, chunk,
-        _DTYPES[u.dtype], torch.cuda.current_stream(u.device).cuda_stream,
+        dld.data_ptr(), dBC[0].data_ptr(), dBC[1].data_ptr(), bt, s, h, p, n, strides, chunk,
+        _DTYPES[u.dtype], _CODES[variant], group, torch.cuda.current_stream(u.device).cuda_stream,
     )
-    _build.check(lib, err, "ssm_scan_bwd (fma)")
+    _build.check(lib, err, f"ssm_scan_bwd ({variant})")
     ssm_scan_bwd.launches += 1
-    ssm_scan_bwd.variants["fma"] += 1
-    if npt == 1:
-        return du, dld[0], dB[0], dC[0]
-    return du, dld.sum(0), dB.sum(0), dC.sum(0)
+    ssm_scan_bwd.variants[variant] += 1
+    dld = dld[0] if npt == 1 else dld.sum(0)
+    if group > 1:
+        dBC = dBC.sum(1).unsqueeze(3)
+    else:
+        dBC = dBC[:, 0] if npt == 1 else dBC.sum(1)
+        if shared:
+            dBC = dBC.sum(3, keepdim=True)
+    dBC = dBC.to(grad_dtype)
+    return du, dld, dBC[0], dBC[1]
 
 
 ssm_scan_bwd.launches = 0
-ssm_scan_bwd.variants = {"fma": 0}
+ssm_scan_bwd.variants = dict.fromkeys(VARIANTS, 0)

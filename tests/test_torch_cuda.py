@@ -19,7 +19,8 @@ the f32 result of the same operands: f32, 1e-4 of each gradient's
 max|ref| (as the forward); bf16, one bf16 rounding of each du, dB and dC
 entry (2**-8) plus 1e-3 of the gradient's max|ref| (the states it reads
 come from the bf16 forward, which holds 1e-4 of the state's scale; dy is
-bf16).
+bf16). Both of its variants are held to it: the one ``plan`` picks (``mma``
+for bf16 with 16-byte rows) and ``fma`` forced on the same inputs.
 """
 
 import pytest
@@ -389,18 +390,42 @@ def _check_ssm_bwd(got, u, ld, B, C, dy, ds, chunk):
         assert bool(((g.float() - x).abs() <= tol).all())
 
 
+def _ssm_bwd_variant(dtype, p, force_fma):
+    """The variant a backward call launches: mma for bf16 with P a multiple
+    of 8 (these inputs' rows start on 16 bytes), fma for the rest and when
+    forced."""
+    return "mma" if dtype == torch.bfloat16 and p % 8 == 0 and not force_fma else "fma"
+
+
+def _run_ssm_bwd(u, ld, B, C, dy, ds, states, chunk, force_fma):
+    """``ssm_scan_bwd``, or the fma kernel forced on the same inputs (through
+    the wrapper's sums and casts)."""
+    from repro_torch.kernels import ssm_scan_bwd
+    from repro_torch.kernels.ssm_scan import ops as ssm_ops
+
+    if not force_fma:
+        return ssm_scan_bwd(u, ld, B, C, dy, ds, states=states, chunk=chunk)
+    h = u.shape[2]
+    return ssm_ops._backward(u, ld, B.expand(-1, -1, h, -1), C.expand(-1, -1, h, -1), dy, ds,
+                             states, chunk, shared=B.shape[2] != h, force_fma=True,
+                             grad_dtype=u.dtype)
+
+
 @pytest.mark.parametrize("case", _SSM_BWD_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("chunk", CHUNKS)
 @pytest.mark.parametrize("with_dstate", [False, True])
-def test_ssm_scan_bwd_kernel(gen, case, dtype, chunk, with_dstate):
+@pytest.mark.parametrize("force_fma", [False, True])
+def test_ssm_scan_bwd_kernel(gen, case, dtype, chunk, with_dstate, force_fma):
     from repro_torch.kernels import ssm_scan_bwd
 
     u, ld, B, C, dy, ds, states = _ssm_bwd_case(gen, case, dtype, chunk, with_dstate)
-    before = ssm_scan_bwd.launches
-    got = ssm_scan_bwd(u, ld, B, C, dy, ds, states=states, chunk=chunk)
+    want = _ssm_bwd_variant(dtype, u.shape[3], force_fma)
+    before = (ssm_scan_bwd.launches, dict(ssm_scan_bwd.variants))
+    got = _run_ssm_bwd(u, ld, B, C, dy, ds, states, chunk, force_fma)
     torch.cuda.synchronize()
-    assert ssm_scan_bwd.launches == before + 1
+    assert ssm_scan_bwd.launches == before[0] + 1
+    assert ssm_scan_bwd.variants == dict(before[1], **{want: before[1][want] + 1})
     assert [g.dtype for g in got] == [dtype, torch.float32, dtype, dtype]
     _check_ssm_bwd(got, u, ld, B, C, dy, ds, chunk)
 
@@ -427,29 +452,37 @@ def test_ssm_scan_states_are_the_states_entering_each_chunk(gen, chunk, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_ssm_scan_bwd_bit_identical(gen, dtype):
-    """Two calls on the same inputs give the same bits (no atomics)."""
+@pytest.mark.parametrize("force_fma", [False, True])
+def test_ssm_scan_bwd_bit_identical(gen, dtype, force_fma):
+    """Two calls on the same inputs give the same bits (no atomics; mma's
+    heads summed on chip in rank order)."""
     from repro_torch.kernels import ssm_scan_bwd
 
     u, ld, B, C, dy, ds, states = _ssm_bwd_case(gen, _SSM_BWD_CASES[0], dtype, 32, True)
-    a = ssm_scan_bwd(u, ld, B, C, dy, ds, states=states)
-    b = ssm_scan_bwd(u, ld, B, C, dy, ds, states=states)
+    want = _ssm_bwd_variant(dtype, u.shape[3], force_fma)
+    before = dict(ssm_scan_bwd.variants)
+    a = _run_ssm_bwd(u, ld, B, C, dy, ds, states, 32, force_fma)
+    b = _run_ssm_bwd(u, ld, B, C, dy, ds, states, 32, force_fma)
+    assert ssm_scan_bwd.variants == dict(before, **{want: before[want] + 2})
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_ssm_scan_function_on_the_card(gen, dtype):
     """Autograd through ssm_scan on the card: one forward launch (with
-    states), one backward launch; the gradients those of ssm_scan_bwd on
-    the same states."""
+    states), one backward launch (mma for bf16); the gradients those of
+    ssm_scan_bwd on the same states."""
     from repro_torch.kernels import ssm_scan_bwd
 
     u, ld, B, C, dy, _, states = _ssm_bwd_case(gen, (2, 100, 8, 64, 64, True), dtype, 32, False)
     ins = [t.detach().clone().requires_grad_() for t in (u, ld, B, C)]
     before = (ssm_scan.launches, ssm_scan_bwd.launches)
+    variants = dict(ssm_scan_bwd.variants)
     y, _ = ssm_scan(*ins)
     got = torch.autograd.grad(y, ins, dy)
     assert (ssm_scan.launches, ssm_scan_bwd.launches) == (before[0] + 1, before[1] + 1)
+    want = "mma" if dtype == torch.bfloat16 else "fma"
+    assert ssm_scan_bwd.variants == dict(variants, **{want: variants[want] + 1})
     want = ssm_scan_bwd(u, ld, B, C, dy, states=states)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
 
