@@ -87,8 +87,8 @@ if it fails:
     remat on, 30 steps): every loss finite and falling, the launches per
     step exact (``dos_matmul`` 843, all ``wgmma``; ``flash_attention`` 60,
     all ``mma``; ``flash_attention_bwd`` 30, all ``mma``), step p50/p99,
-    tokens/s, peak memory. The four main paths together must launch every
-    registered kernel. After phase 11: the forward's o and lse (both
+    tokens/s, peak memory. The six main paths (phases 3, 12, 13 and 14)
+    together must launch every registered kernel. After phase 11: the forward's o and lse (both
     variants; o also through the autograd Function) and the flash backward
     (``mma`` for bf16 with 16-byte rows, ``fma`` for f32 and the offset
     layout) against their plain versions at the training shape (timed
@@ -137,8 +137,35 @@ if it fails:
     3e-2 of its max|g|; the full-width model cut to one group, 6 Mamba2
     layers and the shared block, at batch 2 x 128 in f32, the loss and
     every gradient leaf within 1e-3); the CLI ``--arch zamba2-2.7b --steps
-    3 --json`` in a subprocess, launches per step exact;
-14. prints the kernels line, the ``nvidia-smi`` line, and last
+    3 --json`` in a subprocess, launches per step exact; and the
+    dos_matmul Function at zamba2's training projections (forward, dA,
+    dB), timed beside torch.matmul;
+14. xLSTM (xlstm-125m, 66,153,264 parameters: 10 mLSTM and 2 sLSTM
+    blocks) at full width and depth. Its serving main path runs right
+    after phase 3's, its training main path right after phase 13's, each
+    with the counts set to 0 just before and read just after:
+    ``serve_loop`` (batch 4, prompt 128, 32 tokens) with the launches
+    per prefill and per decode step exact by kernel and variant
+    (``dos_matmul`` ``wgmma`` and, for the (768, 4) ``wi``/``wf``
+    projections only, ``general`` in prefill, ``skinny`` in decode;
+    ``ssm_scan`` 10 ``mma`` + 10 ``fma`` per prefill; ``slstm_scan`` 2
+    per prefill and per decode step), profiled like phase 6; and
+    ``train_loop`` (bf16 on f32 masters, 8 x 512, seed 0, 30 steps):
+    every loss finite and falling, the launches per step exact by kernel
+    and variant, its gradient norm and one profiled step. After phase
+    13's checks: ``slstm_scan`` against its plain loop at the serving and
+    training shapes, a decode step with a state, a ragged S and the
+    reduced width, ``slstm_scan_bwd`` (with dr) against autograd of the
+    loop, two calls of each bit-identical, each timed beside the plain
+    loop and its bound; the mLSTM's scans and their backwards (memory N
+    96, P 192 ``mma``; normaliser P 1 ``fma``) and the path's GEMMs
+    (``wi``/``wf`` ``general`` forward, dA and dB) timed; card against
+    CPU: one mLSTM and one sLSTM block at full width in bf16 (output and
+    every gradient within 3e-2), the full model in f32 at 2 x 128
+    (logits, loss and every gradient leaf within 1e-3), a prefill and 4
+    decode steps block by block in bf16; both CLIs in subprocesses with
+    launches exact;
+15. prints the kernels line, the ``nvidia-smi`` line, and last
     ``{"ok": true, "device": {...}}``.
 
 ``--details PATH`` also writes every measurement to a JSON file.
@@ -176,6 +203,10 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     attention_bwd_ref, attention_fwd_ref, attention_ref, flash_attention, flash_attention_bwd,
 )
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
+from repro_torch.kernels.slstm import (  # noqa: E402
+    slstm_dr, slstm_scan, slstm_scan_bwd, slstm_scan_bwd_ref, slstm_scan_ref,
+)
+from repro_torch.kernels.slstm import ops as slstm_ops  # noqa: E402
 from repro_torch.kernels.ssm_scan import (  # noqa: E402
     CHUNK, CHUNKS, ssm_scan, ssm_scan_bwd, ssm_scan_bwd_ref, ssm_scan_chunked,
 )
@@ -187,6 +218,7 @@ from repro_torch.launch.train import train_loop  # noqa: E402
 from repro_torch.models import build, decoder  # noqa: E402
 from repro_torch.models.params import leaves, map_tree, materialize  # noqa: E402
 from repro_torch.models.ssm import mamba_block, mamba_defs  # noqa: E402
+from repro_torch.models.xlstm import mlstm_block, mlstm_defs, slstm_block, slstm_defs  # noqa: E402
 from repro_torch.optim import OptConfig, adamw_update  # noqa: E402
 from repro_torch.runtime import FaultInjector  # noqa: E402
 
@@ -201,6 +233,7 @@ COLD_BYTES = 128 * 2**20  # rotate inputs over more than the 50 MB L2
 # batch 4, prompt 128, 32 generated tokens.
 ARCH, HYBRID, BATCH, PROMPT, GEN = "smollm-135m", "zamba2-2.7b", 4, 128, 32
 PATHS = (ARCH, HYBRID)
+XLSTM = "xlstm-125m"  # phase 14's serving and training paths, at the same sizes
 E2E_DECODE_STEPS = 4
 # zamba2's end-to-end check against the CPU keeps full width but 2 of
 # its 9 groups (12 Mamba2 layers, 2 shared-block calls) at batch 2.
@@ -233,12 +266,13 @@ def check(ok: bool, what: str):
         raise Failure(what)
 
 
-def cuda_ms(fn, n_sets: int) -> float:
+def cuda_ms(fn, n_sets: int, iters: int | None = None) -> float:
     """Mean device ms per call of ``fn(i)``. The calls cycle over
     ``n_sets`` input sets (so each finds its inputs outside L2, as on the
     serve path) and are replayed from a CUDA graph, so the host's launch
-    rate does not enter the time."""
-    iters = max(50, n_sets)
+    rate does not enter the time. ``iters`` calls per graph (default at
+    least 50; fewer for a call of thousands of kernels)."""
+    iters = iters or max(50, n_sets)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):  # warm-up off the capture, as graphs need
@@ -302,6 +336,8 @@ def phase_build():
     flash_ops._bwd_lib()
     ssm_ops._lib()
     ssm_ops._bwd_lib()
+    slstm_ops._lib()
+    slstm_ops._bwd_lib()
     dt = time.perf_counter() - t0
     print(f"[build] {len(libs)} kernels built and loaded in {dt:.1f} s", flush=True)
     for name, path in libs.items():
@@ -320,7 +356,8 @@ def phase_build():
 _VARIANT_OF = {"dos_matmul_skinny": "skinny", "dos_matmul_wgmma": "wgmma",
                "dos_matmul_wmma": "general", "dos_matmul_fma": "f32",
                "flash_mma": "mma", "flash_fwd": "fma", "flash_bwd_mma": "mma", "flash_bwd": "fma",
-               "ssd_mma": "mma", "ssd_fwd": "fma", "ssd_bwd_mma": "mma", "ssd_bwd": "fma"}
+               "ssd_mma": "mma", "ssd_fwd": "fma", "ssd_bwd_mma": "mma", "ssd_bwd": "fma",
+               "slstm_fwd": "fma", "slstm_bwd": "fma"}
 
 
 def _variant_tag(name: str) -> str:
@@ -348,11 +385,35 @@ def _kernel_tag(mangled: str) -> str:
 # ---------------------------------------------------------------------------
 
 
-def expected_launches(cfg) -> dict:
-    """Kernel launches of one prefill (and of each decode step) as the
-    layers call them: a GEMM per projection, one flash call per
-    attention layer in prefill, one scan per Mamba2 layer in prefill."""
+def xlstm_block_counts(cfg) -> tuple[int, int]:
+    """(mLSTM blocks, sLSTM blocks) of an xLSTM config."""
+    n_s = sum(1 for i in range(cfg.n_layers) if i in cfg.slstm_at)
+    return cfg.n_layers - n_s, n_s
+
+
+def xlstm_gemms(cfg) -> tuple[int, int]:
+    """(GEMMs of one forward, of which the (E, H) wi and wf ones): an
+    mLSTM block's q k v i f o_gate o, an sLSTM block's z i f o_gate o, and
+    the unembedding."""
+    n_m, n_s = xlstm_block_counts(cfg)
+    return 7 * n_m + 5 * n_s + 1, 2 * (n_m + n_s)
+
+
+def expected_launches(cfg, gen_tokens: int = GEN) -> dict:
+    """Kernel launches of one prefill (and of the ``gen_tokens - 1``
+    decode steps) as the layers call them: a GEMM per projection, one
+    flash call per attention layer in prefill, one scan per Mamba2 layer
+    in prefill; an xLSTM's two scans per mLSTM block in prefill and one
+    recurrence per sLSTM block in prefill and in each decode step."""
     head = 1  # the unembedding, tied or not
+    prefill = dict.fromkeys(KERNELS, 0)
+    step = dict.fromkeys(KERNELS, 0)
+    if cfg.family == "ssm":
+        n_m, n_s = xlstm_block_counts(cfg)
+        gemms = xlstm_gemms(cfg)[0]
+        prefill.update(dos_matmul=gemms, ssm_scan=2 * n_m, slstm_scan=n_s)
+        step.update(dos_matmul=gemms, slstm_scan=n_s)
+        return {"prefill": prefill, "decode": {k: n * (gen_tokens - 1) for k, n in step.items()}}
     if cfg.family == "hybrid":
         n_attn = cfg.n_layers // cfg.attn_every  # shared-block calls
         n_mamba = n_attn * cfg.attn_every
@@ -360,11 +421,27 @@ def expected_launches(cfg) -> dict:
     else:
         n_attn, n_mamba = cfg.n_layers, 0
         gemms = 7 * n_attn + head
-    prefill = {"dos_matmul": gemms, "flash_attention": n_attn, "flash_attention_bwd": 0,
-               "ssm_scan": n_mamba, "ssm_scan_bwd": 0}
-    step = {"dos_matmul": gemms, "flash_attention": 0, "flash_attention_bwd": 0, "ssm_scan": 0,
-            "ssm_scan_bwd": 0}
-    return {"prefill": prefill, "decode": {k: n * (GEN - 1) for k, n in step.items()}}
+    prefill.update(dos_matmul=gemms, flash_attention=n_attn, ssm_scan=n_mamba)
+    step.update(dos_matmul=gemms)
+    return {"prefill": prefill, "decode": {k: n * (gen_tokens - 1) for k, n in step.items()}}
+
+
+def expected_serve_variants(cfg, gen_tokens: int = GEN) -> dict:
+    """An xLSTM serve run's launches by kernel and variant, prefill and
+    decode together: every prefill GEMM ``wgmma`` but the (E, H) wi and
+    wf ones (their ldb of 4 is no TMA row: ``general``), every decode GEMM
+    ``skinny`` (M = batch <= 16; neither prefill variant takes M <= 16,
+    nor ``skinny`` M > 16, so the counts pin each phase's variants), the
+    mLSTM's memory scan ``mma`` and its P = 1 normaliser ``fma``, the
+    recurrence ``fma``."""
+    n_m, n_s = xlstm_block_counts(cfg)
+    gemms, gates = xlstm_gemms(cfg)
+    out = {k: dict.fromkeys(fn.variants, 0) for k, fn in KERNELS.items()}
+    out["dos_matmul"].update(wgmma=gemms - gates, general=gates,
+                             skinny=gemms * (gen_tokens - 1))
+    out["ssm_scan"].update(mma=n_m, fma=n_m)
+    out["slstm_scan"].update(fma=n_s * gen_tokens)
+    return out
 
 
 def phase_main_path(arch):
@@ -393,17 +470,24 @@ def phase_main_path(arch):
     variants = dict(dos_matmul.variants)
     print(f"[main] {arch} dos_matmul launches by variant: {variants}", flush=True)
     summary["dos_matmul_variants"] = variants
-    check(variants["general"] == 0 and variants["f32"] == 0,
-          f"{arch}: a bf16 main-path GEMM left the skinny and wgmma kernels: {variants}")
-    check(variants["skinny"] + variants["wgmma"] == counts["dos_matmul"],
-          f"{arch}: variants {variants} do not add up to {counts['dos_matmul']} launches")
-    for kname, fn in (("flash_attention", flash_attention), ("ssm_scan", ssm_scan)):
-        v = dict(fn.variants)
-        print(f"[main] {arch} {kname} launches by variant: {v}", flush=True)
-        summary[f"{kname}_variants"] = v
-        check(v["fma"] == 0, f"{arch}: a bf16 main-path {kname} call launched fma: {v}")
-        check(sum(v.values()) == counts[kname],
-              f"{arch}: {kname} variants {v} do not add up to {counts[kname]} launches")
+    if cfg.family == "ssm":  # phase 14: every kernel's variants exact
+        got = {k: dict(fn.variants) for k, fn in KERNELS.items()}
+        want_v = expected_serve_variants(cfg)
+        print(f"[main] {arch} launches by kernel and variant: {got}", flush=True)
+        summary["variants"] = got
+        check(got == want_v, f"{arch}: launches by variant {got}, expected {want_v}")
+    else:
+        check(variants["general"] == 0 and variants["f32"] == 0,
+              f"{arch}: a bf16 main-path GEMM left the skinny and wgmma kernels: {variants}")
+        check(variants["skinny"] + variants["wgmma"] == counts["dos_matmul"],
+              f"{arch}: variants {variants} do not add up to {counts['dos_matmul']} launches")
+        for kname, fn in (("flash_attention", flash_attention), ("ssm_scan", ssm_scan)):
+            v = dict(fn.variants)
+            print(f"[main] {arch} {kname} launches by variant: {v}", flush=True)
+            summary[f"{kname}_variants"] = v
+            check(v["fma"] == 0, f"{arch}: a bf16 main-path {kname} call launched fma: {v}")
+            check(sum(v.values()) == counts[kname],
+                  f"{arch}: {kname} variants {v} do not add up to {counts[kname]} launches")
     want = expected_launches(cfg)
     check(r["launches"] == want, f"{arch}: launches {r['launches']}, expected {want}")
     check(all(counts[k] > 0 for k, n in want["prefill"].items() if n),
@@ -740,7 +824,7 @@ def check_ssm(gen, bt, s, h, p, n, dtype, shared_bc=True, chunk=CHUNK, time_it=F
         u = _off16(u)
     elif layout == "strided":
         u = torch.stack([u, u], dim=-1).flatten(-2)[..., ::2]
-    variant = _want_variant(dtype, layout)
+    variant = _want_variant(dtype, layout) if p % 8 == 0 else "fma"  # plan's P rule
     y, st = _count_variant(ssm_scan, variant, lambda: ssm_scan(u, ld, B, C, chunk=chunk))
     py, pst = ssm_scan_chunked(u, ld, B, C, chunk)
     ey, est = ssm_scan_chunked(u.float(), ld, B.float(), C.float(), chunk)  # f32 of the same operands
@@ -905,6 +989,8 @@ def _e2e_setup(arch, dtype=None):
     cfg, batch = get_config(arch), BATCH
     if cfg.family == "hybrid":
         cfg, batch = dataclasses.replace(cfg, n_layers=HYBRID_E2E_LAYERS), HYBRID_E2E_BATCH
+    elif cfg.family == "ssm":  # full depth, batch 2: the CPU side stays short
+        batch = HYBRID_E2E_BATCH
     if dtype:
         cfg = dataclasses.replace(cfg, compute_dtype=dtype)
     mc, mg = build(cfg, "cpu"), build(cfg, "cuda")
@@ -943,7 +1029,8 @@ def phase_e2e(arch, dtype=None, tol=E2E_TOL):
     return (mg, params_g, cg, lg[:, -1:].argmax(dim=-1)), lc0
 
 
-_BLOCKS = ("mamba_block", "_attn_mlp_block", "unembed")  # the decoder's blocks, by name
+# the decoder's blocks, by name
+_BLOCKS = ("mamba_block", "_attn_mlp_block", "mlstm_block", "slstm_block", "unembed")
 
 
 def _tree(fn, tree):
@@ -960,8 +1047,9 @@ def _tree(fn, tree):
 def recorded_blocks(run):
     """Run ``run()`` with the decoder's blocks recorded: returns its result
     and every call as (name, function, args, kwargs, output). The state
-    and cache arguments are copied before each call (decode writes them
-    in place); weights and activations are not modified and are kept."""
+    and cache arguments are copied before each call and the outputs after
+    it (decode writes states in place); weights and activations are not
+    modified and are kept."""
     calls, originals = [], {n: getattr(decoder, n) for n in _BLOCKS}
 
     def hook(name):
@@ -971,7 +1059,9 @@ def recorded_blocks(run):
             kept = {k: _tree(torch.clone, v) if k in ("state", "cache") else v
                     for k, v in kwargs.items()}
             out = fn(*args, **kwargs)
-            calls.append((name, fn, args, kept, out))
+            # a copy: an xLSTM block's prefill state is the cache that the
+            # decode steps then write in place
+            calls.append((name, fn, args, kept, _tree(torch.clone, out)))
             return out
 
         return recorded
@@ -989,10 +1079,11 @@ def recorded_blocks(run):
 def phase_e2e_blocks(arch):
     """Card against CPU block by block: the CPU runs the prefill and
     E2E_DECODE_STEPS teacher-forced decode steps; every call of a Mamba2
-    block, of the shared block and of the head is run again on the card
-    with the CPU's inputs and states, and each output (the block's
-    output, and a Mamba2 block's new SSM and conv states) must agree
-    within the bf16 band of the CPU's. Returns the CPU's prefill logits."""
+    block, of the shared block, of an mLSTM or sLSTM block and of the head
+    is run again on the card with the CPU's inputs and states, and each
+    output (the block's output, and a Mamba2 block's new SSM and conv
+    states or an xLSTM block's new state) must agree within the bf16 band
+    of the CPU's. Returns the CPU's prefill logits."""
     cfg, batch, mc, _, params_c, prompts = _e2e_setup(arch)
 
     def run():
@@ -1010,6 +1101,9 @@ def phase_e2e_blocks(arch):
         if name == "mamba_block":
             pairs = {"out": (got[0], out[0]), "ssm state": (got[1]["ssm"], out[1]["ssm"]),
                      "conv state": (got[1]["conv"], out[1]["conv"])}
+        elif name in ("mlstm_block", "slstm_block"):
+            pairs = {"out": (got[0], out[0]),
+                     **{f"state {k}": (got[1][k], out[1][k]) for k in out[1]}}
         elif name == "_attn_mlp_block":
             pairs = {"out": (got[0], out[0])}
         else:
@@ -1131,12 +1225,13 @@ def phase_profile_prefill(arch, reps=5):
         return
     busy_ms = busy / 1e3
     by_kernel = {k: sum(us for n, us in by_name.items() if k in n) / 1e3
-                 for k in ("dos_matmul", "flash", "ssd")}
+                 for k in ("dos_matmul", "flash", "ssd", "slstm")}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     print(f"[profile] {key}: device busy {busy_ms:.3f} ms of a {wall_ms:.3f} ms prefill (median "
           f"of {reps} without profiler): idle share {1 - busy_ms / wall_ms:.3f}; {n_ops} device "
           f"ops; dos_matmul {by_kernel['dos_matmul']:.3f} ms, flash_attention "
-          f"{by_kernel['flash']:.3f} ms, ssm_scan {by_kernel['ssd']:.3f} ms", flush=True)
+          f"{by_kernel['flash']:.3f} ms, ssm_scan {by_kernel['ssd']:.3f} ms, slstm_scan "
+          f"{by_kernel['slstm']:.3f} ms", flush=True)
     for name, us in top:
         print(f"[profile]   {us / 1e3:9.3f} ms  {name[:90]}")
     RESULTS["profile"][key] = {"busy_ms": busy_ms, "wall_ms": wall_ms, "walls_ms":
@@ -1166,14 +1261,16 @@ def phase_profile(arch, model, params, cache, tok, step_p50_s):
     busy_ms = busy / 1e3 / PROFILE_STEPS
     idle = 1.0 - busy_ms / (step_p50_s * 1e3)
     dos_ms = sum(us for n, us in by_name.items() if "dos_matmul" in n) / 1e3 / PROFILE_STEPS
+    slstm_ms = sum(us for n, us in by_name.items() if "slstm" in n) / 1e3 / PROFILE_STEPS
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     print(f"[profile] {arch} decode step: device busy {busy_ms:.3f} ms of a {step_p50_s*1e3:.3f} ms "
           f"step (p50 without profiler): idle share {idle:.3f}; {n_ops / PROFILE_STEPS:.0f} "
-          f"device ops per step; dos_matmul {dos_ms:.3f} ms per step", flush=True)
+          f"device ops per step; dos_matmul {dos_ms:.3f} ms per step"
+          + (f", slstm_scan {slstm_ms:.3f} ms" if slstm_ms else ""), flush=True)
     for name, us in top:
         print(f"[profile]   {us / PROFILE_STEPS:9.1f} us/step  {name[:90]}")
     RESULTS["profile"][arch] = {"busy_ms_per_step": busy_ms, "idle_share": idle,
-                                "dos_matmul_ms_per_step": dos_ms,
+                                "dos_matmul_ms_per_step": dos_ms, "slstm_ms_per_step": slstm_ms,
                                 "device_ops_per_step": n_ops / PROFILE_STEPS,
                                 "top_us_per_step": {n: us / PROFILE_STEPS for n, us in top}}
 
@@ -1771,17 +1868,41 @@ def expected_train_launches(cfg) -> dict:
     reference's ``jax.checkpoint(mbody)``): one scan per Mamba2 layer,
     again in its recompute (with the states its backward reads), and one
     scan backward; the shared block's flash forward and backward once per
-    call."""
+    call. xLSTM: no remat (as the reference): each GEMM once forward, then
+    dA and dB; two scans per mLSTM block (with states) and their two
+    backwards; one recurrence per sLSTM block and its backward."""
+    out = dict.fromkeys(KERNELS, 0)
+    if cfg.family == "ssm":
+        n_m, n_s = xlstm_block_counts(cfg)
+        out.update(dos_matmul=3 * xlstm_gemms(cfg)[0], ssm_scan=2 * n_m, ssm_scan_bwd=2 * n_m,
+                   slstm_scan=n_s, slstm_scan_bwd=n_s)
+        return out
     if cfg.family == "hybrid":
         n_attn = cfg.n_layers // cfg.attn_every  # shared-block calls
         n_mamba = n_attn * cfg.attn_every
         gemms = 6 * n_mamba + 7 * n_attn + 1
-        return {"dos_matmul": gemms + 6 * n_mamba + 2 * gemms, "flash_attention": n_attn,
-                "flash_attention_bwd": n_attn, "ssm_scan": 2 * n_mamba, "ssm_scan_bwd": n_mamba}
+        out.update(dos_matmul=gemms + 6 * n_mamba + 2 * gemms, flash_attention=n_attn,
+                   flash_attention_bwd=n_attn, ssm_scan=2 * n_mamba, ssm_scan_bwd=n_mamba)
+        return out
     gemms = 7 * cfg.n_layers + 1
-    return {"dos_matmul": gemms + 7 * cfg.n_layers + 2 * gemms,
-            "flash_attention": 2 * cfg.n_layers, "flash_attention_bwd": cfg.n_layers,
-            "ssm_scan": 0, "ssm_scan_bwd": 0}
+    out.update(dos_matmul=gemms + 7 * cfg.n_layers + 2 * gemms,
+               flash_attention=2 * cfg.n_layers, flash_attention_bwd=cfg.n_layers)
+    return out
+
+
+def expected_train_variants(cfg) -> dict:
+    """An xLSTM train step's launches by kernel and variant: the wi and wf
+    GEMMs, their dA (K = 4) and their dB (N = 4) ``general``, every other
+    GEMM ``wgmma``; each mLSTM block's memory scan and its backward
+    ``mma``, its P = 1 normaliser's ``fma``; the recurrence ``fma``."""
+    n_m, n_s = xlstm_block_counts(cfg)
+    gemms, gates = xlstm_gemms(cfg)
+    out = {k: dict.fromkeys(fn.variants, 0) for k, fn in KERNELS.items()}
+    out["dos_matmul"].update(wgmma=3 * (gemms - gates), general=3 * gates)
+    for k in ("ssm_scan", "ssm_scan_bwd"):
+        out[k].update(mma=n_m, fma=n_m)
+    out["slstm_scan"]["fma"] = out["slstm_scan_bwd"]["fma"] = n_s
+    return out
 
 
 def _bwd_work(b, sq, skv, h, kvh, d, es, causal, window, q_offset):
@@ -2018,9 +2139,10 @@ def train_gemms(cfg) -> dict:
     return out
 
 
-def check_dos_function(gen, m, k, n, tied, time_it=True):
+def check_dos_function(gen, m, k, n, tied, time_it=True, variant="wgmma"):
     """The dos_matmul Function's forward against ``matmul_ref``, and its
-    dA and dB (two more launches, each ``wgmma``) against autograd of
+    dA and dB (two more launches, each of ``variant``: ``wgmma``, or
+    ``general`` for xLSTM's (E, H) gates) against autograd of
     ``matmul_ref`` on the card, for a
     bf16 activation and an f32 master weight cast in the graph; and the
     times of the forward, dA, dB, the transposed copy of A that dB reads,
@@ -2090,8 +2212,8 @@ def check_dos_function(gen, m, k, n, tied, time_it=True):
                      f"{row[n + '_torch_matmul_ms']*1e3:.1f} us)" for n in ("forward", "dA", "dB"))
              + f"; A^T copy {row['transpose_copy_ms']*1e3:.1f} us" if time_it else "")
           + ("" if ok else "  FAIL"), flush=True)
-    check(launched == {"skinny": 0, "wgmma": 3, "general": 0, "f32": 0},
-          f"dos_matmul Function {tag}: launches {launched}, expected 3 wgmma")
+    check(launched == dict(dict.fromkeys(launched, 0), **{variant: 3}),
+          f"dos_matmul Function {tag}: launches {launched}, expected 3 {variant}")
     check(ok, f"dos_matmul Function {tag}: the forward or the gradients disagree with "
           "matmul_ref and its autograd")
     return row
@@ -2172,7 +2294,7 @@ def phase_train_path(arch=ARCH):
     wall = time.perf_counter() - t0
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    variants = {k: dict(KERNELS[k].variants) for k in TRAIN_VARIANTS}
+    variants = {k: dict(fn.variants) for k, fn in KERNELS.items()}
     steps = sorted(wd.times)
     p50, p99 = steps[len(steps) // 2], steps[min(len(steps) - 1, int(0.99 * len(steps)))]
     tok_s = TRAIN_BATCH * TRAIN_SEQ / p50
@@ -2182,8 +2304,9 @@ def phase_train_path(arch=ARCH):
                "first_step_s": wd.times[0], "tok_s_p50": tok_s, "losses": losses,
                "peak_mem_bytes": peak, "mem_before_bytes": base, "launches": counts,
                "variants": variants, "slow_steps": wd.slow_steps}
+    remat = "no remat, as the reference" if cfg.family == "ssm" else "remat"
     print(f"[train] train_loop {cfg.name} ({build(cfg, 'cuda').n_params:,} parameters, "
-          f"{cfg.compute_dtype} compute on {cfg.param_dtype} masters, remat) batch {TRAIN_BATCH} "
+          f"{cfg.compute_dtype} compute on {cfg.param_dtype} masters, {remat}) batch {TRAIN_BATCH} "
           f"x {TRAIN_SEQ} tokens, {TRAIN_STEPS} steps in {wall:.2f} s: step p50 {p50*1e3:.3f} ms, "
           f"p99 {p99*1e3:.3f} ms (first step {wd.times[0]*1e3:.1f} ms), {tok_s:,.0f} tokens/s at "
           f"p50, peak memory {peak / 2**20:.1f} MiB ({base / 2**20:.1f} MiB before)", flush=True)
@@ -2199,9 +2322,14 @@ def phase_train_path(arch=ARCH):
               f"{first:.4f} -> {last:.4f})")
     want = {k: n * TRAIN_STEPS for k, n in expected_train_launches(cfg).items()}
     check(counts == want, f"train launches {counts}, expected {want}")
-    for k, want_variant in TRAIN_VARIANTS.items():
-        check(variants[k][want_variant] == counts[k] == sum(variants[k].values()),
-              f"a training {k} launch left the {want_variant} kernel: {variants[k]}")
+    if cfg.family == "ssm":  # phase 14: every kernel's variants exact
+        want_v = {k: {v: n * TRAIN_STEPS for v, n in c.items()}
+                  for k, c in expected_train_variants(cfg).items()}
+        check(variants == want_v, f"train launches by variant {variants}, expected {want_v}")
+    else:
+        for k, want_variant in TRAIN_VARIANTS.items():
+            check(variants[k][want_variant] == counts[k] == sum(variants[k].values()),
+                  f"a training {k} launch left the {want_variant} kernel: {variants[k]}")
     RESULTS["main_paths"]["train" if arch == ARCH else f"train {arch}"] = summary
     return counts, state, p50
 
@@ -2322,7 +2450,7 @@ def _grad_gap(got, want) -> tuple[float, str]:
         check(bool(torch.isfinite(g).all()), f"non-finite gradient {path} on the card")
         rel = (g - w.float()).abs().max().item() / max(w.abs().max().item(), 1e-30)
         if rel > worst:
-            worst, worst_leaf = rel, ".".join(path)
+            worst, worst_leaf = rel, ".".join(map(str, path))
     return worst, worst_leaf
 
 
@@ -2731,6 +2859,438 @@ def phase_train_hybrid_cli():
                                                        "wall_s")}
 
 
+def phase_train_hybrid_gemms():
+    """The dos_matmul Function (forward, dA, dB; each ``wgmma``) at every
+    projection of zamba2's train step (M = 8 x 512 tokens), each timed
+    beside torch.matmul on the same operands, and summed over one step's
+    calls: each Mamba2 projection's forward twice (remat), every
+    projection's dA and dB (with the copy of A^T that dB reads) once."""
+    cfg = get_config(HYBRID)
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    e, di = cfg.d_model, cfg.ssm_expand * cfg.d_model
+    q, kv = cfg.n_heads * cfg.head_dim_, cfg.n_kv_heads * cfg.head_dim_
+    n_attn = cfg.n_layers // cfg.attn_every
+    n_mamba = n_attn * cfg.attn_every
+    calls: dict = {}  # (K, N, tied) -> [forward calls, backward calls] per step
+    for k, n, c in ((e, di, 2), (e, cfg.ssm_state, 2), (e, di // cfg.ssm_head_dim, 1),
+                    (di, e, 1)):  # wx wz, wB wC, wdt, wo
+        calls.setdefault((k, n, False), [0, 0])
+        calls[(k, n, False)][0] += 2 * c * n_mamba
+        calls[(k, n, False)][1] += c * n_mamba
+    for k, n, c in ((e, q, 1), (e, kv, 2), (q, e, 1), (e, cfg.d_ff, 2), (cfg.d_ff, e, 1)):
+        calls.setdefault((k, n, False), [0, 0])
+        calls[(k, n, False)][0] += c * n_attn
+        calls[(k, n, False)][1] += c * n_attn
+    calls[(e, cfg.vocab, cfg.tie_embeddings)] = [1, 1]
+    launches = sum(f + 2 * b for f, b in calls.values())
+    check(launches == expected_train_launches(cfg)["dos_matmul"],
+          f"zamba2's training GEMMs: {launches} launches counted, expected "
+          f"{expected_train_launches(cfg)['dos_matmul']}")
+    tot = {"ms": 0.0, "torch_matmul_ms": 0.0, "transpose_copy_ms": 0.0}
+    rows = []
+    for (k, n, tied), (fwd, bwd) in calls.items():
+        row = check_dos_function(gen, TRAIN_BATCH * TRAIN_SEQ, k, n, tied)
+        rows.append(dict(row, forward_calls=fwd, backward_calls=bwd))
+        tot["ms"] += fwd * row["forward_ms"] + bwd * (row["dA_ms"] + row["dB_ms"]
+                                                      + row["transpose_copy_ms"])
+        tot["torch_matmul_ms"] += (fwd * row["forward_torch_matmul_ms"]
+                                   + bwd * (row["dA_torch_matmul_ms"]
+                                            + row["dB_torch_matmul_ms"]))
+        tot["transpose_copy_ms"] += bwd * row["transpose_copy_ms"]
+    print(f"[train] {HYBRID}'s GEMMs of one train step ({launches} launches): dos_matmul "
+          f"{tot['ms']:.3f} ms (A^T copies {tot['transpose_copy_ms']:.3f} ms of it), "
+          f"torch.matmul on the same operands {tot['torch_matmul_ms']:.3f} ms", flush=True)
+    RESULTS["train_hybrid_gemms"] = {"rows": rows, **tot}
+
+
+# ---------------------------------------------------------------------------
+# phase 14: xLSTM (xlstm-125m) serving and training on the card
+# ---------------------------------------------------------------------------
+
+# the sLSTM recurrence against its plain loop on the same card, as a
+# fraction of each output's max|ref|: the kernel sums each column's d
+# products as 4 partial sums (the loop's einsum in another order) and its
+# tanh, exp and divides round in other ways; the forget gate damps what
+# the recurrence carries. 1e-4 is the f32 scan's gate (phase 4).
+SLSTM_TOL = 1e-4
+# its backward (and dr) against autograd of the loop: 1e-4 of each
+# gradient's max|ref|, the same f32 math summed in other orders
+SLSTM_BWD_TOL = 1e-4
+XLSTM_CLI_STEPS = 3
+
+
+def slstm_work(b, s, h, d, store):
+    """Bytes of a recurrence (z_in, o_in, i_in, f_in, r and the initial
+    state read once; ys and the final state written once; with ``store``
+    each step's c, n, z too) and its operations: 2 d^2 for the matvec and
+    8 per element for the gates, per (b, h, step)."""
+    e = h * d
+    n_bytes = 4 * (3 * b * s * e + 2 * b * s * h + h * d * d + 2 * (2 * b * e + b * h)
+                   + ((2 * b * s * e + b * s * h) if store else 0))
+    return n_bytes, float(b * s * h * (2 * d * d + 8 * d))
+
+
+def slstm_bwd_work(b, s, h, d):
+    """Bytes of the backward (i_in, f_in, n_all, o_in, c_all, z_all, dys,
+    r and the initial c, n read once; dz_in, do_in, di_in, df_in and the
+    initial state's gradients written once) and its operations: 2 d^2 for
+    the transposed matvec and 20 per element for the gates' gradients."""
+    e = h * d
+    n_bytes = 4 * (3 * b * s * h + 4 * b * s * e + h * d * d + b * e + b * h
+                   + 2 * b * s * e + 2 * b * s * h + 2 * b * e + b * h)
+    return n_bytes, float(b * s * h * (2 * d * d + 20 * d))
+
+
+def _slstm_set(gen, b, s, h, d, with_state):
+    """Recurrence inputs on the card: z_in, o_in ~ N(0, 1), i_in ~ N(0, 4),
+    f_in ~ N(1, 4), r ~ N(0, 0.01) (the reference's init scale 0.1), and
+    the initial state zeros (prefill, training) or random (decode)."""
+    e = h * d
+
+    def rn(*shape, scale=1.0, shift=0.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale + shift
+
+    ins = [rn(b, s, e), rn(b, s, h, scale=2.0), rn(b, s, h, scale=2.0, shift=1.0), rn(b, s, e),
+           rn(h, d, d, scale=0.1)]
+    if with_state:
+        return ins + [rn(b, e), rn(b, h).abs() + 0.5, rn(b, e, scale=0.5)]
+    return ins + [torch.zeros(b, e, device="cuda"), torch.zeros(b, h, device="cuda"),
+                  torch.zeros(b, e, device="cuda")]
+
+
+def _rel_errs(got, want):
+    """max|got - want| / max|want| of each pair."""
+    return [(g.float() - w.float()).abs().max().item() / max(w.abs().max().item(), 1e-30)
+            for g, w in zip(got, want)]
+
+
+def _host_ms(fn, reps=3):
+    """Wall ms per call of ``fn()`` launched from the host, ending in a
+    synchronize (the plain loop's cost as a caller meets it)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def check_slstm(gen, b, s, h, d, with_state=False, time_it=False, store=False):
+    """``slstm_scan`` against ``slstm_scan_ref`` (the loop, on the same
+    card) within SLSTM_TOL of each output's max|ref| (ys, c, n, h); two
+    calls bit-identical. Timed: the kernel (with ``store``: as training
+    calls it, keeping c, n, z), the loop replayed from a CUDA graph and
+    launched from the host, and the bound."""
+    n_bytes, n_ops = slstm_work(b, s, h, d, store)
+    n_sets = max(1, math.ceil(COLD_BYTES / n_bytes)) if time_it else 1
+    sets = [_slstm_set(gen, b, s, h, d, with_state) for _ in range(n_sets)]
+    ins = sets[0]
+    got = _count_variant(slstm_scan, "fma", lambda: slstm_scan(*ins))
+    again = slstm_scan(*ins)
+    plain = slstm_scan_ref(*ins)
+    torch.cuda.synchronize()
+    rel = _rel_errs(got, plain)
+    same = all(torch.equal(x, y) for x, y in zip(got, again))
+    tag = f"B{b} S{s} H{h} d{d}{' state in' if with_state else ''}{' store' if store else ''}"
+    row = {"case": tag, "max_abs_err": max((g - w).abs().max().item() for g, w in zip(got, plain)),
+           "rel_err_by_output": rel, "bit_identical": same,
+           "ok": max(rel) <= SLSTM_TOL and same}
+    if time_it:
+        row["bytes"], row["ops"] = n_bytes, n_ops
+        row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, n_ops, torch.float32)
+        row["ms"] = cuda_ms(lambda i: slstm_ops._forward(*sets[i], store=store), n_sets)
+        row["plain_ms"] = cuda_ms(lambda i: slstm_scan_ref(*sets[i], store=store), n_sets,
+                                  iters=None if s == 1 else 3)
+        row["plain_host_ms"] = _host_ms(lambda: slstm_scan_ref(*ins, store=store))
+        row["library_ms"] = None  # no PyTorch call computes the recurrence
+    print(f"[xlstm] slstm_scan {tag}: max|err| / max|ref| ys/c/n/h "
+          f"{'/'.join(f'{r:.2g}' for r in rel)} (gate {SLSTM_TOL}); two calls bit-identical "
+          f"{same}"
+          + (f"; kernel {row['ms']*1e3:.1f} us, plain loop {row['plain_ms']*1e3:.1f} us (graph "
+             f"replay; {row['plain_host_ms']*1e3:.1f} us launched from the host), bound "
+             f"{row['bound_ms']*1e3:.2f} us ({row['bound_by']})" if time_it else "")
+          + ("" if row["ok"] else "  FAIL"), flush=True)
+    check(same, f"slstm_scan {tag}: two calls on the same inputs differ")
+    check(row["ok"], f"slstm_scan {tag} disagrees with slstm_scan_ref: {rel}")
+    return row
+
+
+def check_slstm_bwd(gen, b, s, h, d, with_state=False, with_final=False, time_it=False):
+    """``slstm_scan`` through its autograd Function (the forward kernel
+    storing c, n, z; the backward kernel; dr by ``slstm_dr``) against
+    autograd of ``slstm_scan_ref`` on the same card, every input's
+    gradient within SLSTM_BWD_TOL of its max|ref|; two calls
+    bit-identical. Timed: the backward kernel alone, dr's product, the
+    closed-form loop ``slstm_scan_bwd_ref`` on the card, and the bound."""
+    ins = _slstm_set(gen, b, s, h, d, with_state)
+    e = h * d
+    dys = torch.randn(b, s, e, generator=gen, device="cuda")
+    d_final = ([torch.randn(b, e, generator=gen, device="cuda"),
+                torch.randn(b, h, generator=gen, device="cuda"),
+                torch.randn(b, e, generator=gen, device="cuda")] if with_final else [])
+
+    def grads(fn):
+        leaves_in = [t.clone().requires_grad_() for t in ins]
+        outs = fn(*leaves_in)
+        torch.autograd.backward(list(outs[:1 + len(d_final)]), [dys] + d_final)
+        return [t.grad for t in leaves_in]
+
+    before = (slstm_scan.launches, slstm_scan_bwd.launches)
+    got = _count_variant(slstm_scan_bwd, "fma", lambda: grads(slstm_scan))
+    check((slstm_scan.launches, slstm_scan_bwd.launches) == (before[0] + 1, before[1] + 1),
+          "the sLSTM Function did not launch one forward and one backward")
+    want = grads(slstm_scan_ref)
+    again = grads(slstm_scan)
+    torch.cuda.synchronize()
+    rel = _rel_errs(got, want)
+    same = all(torch.equal(x, y) for x, y in zip(got, again))
+    names = ("z_in", "i_in", "f_in", "o_in", "r", "c0", "n0", "h0")
+    tag = (f"B{b} S{s} H{h} d{d}{' state in' if with_state else ''}"
+           f"{' final-state gradient' if with_final else ''}")
+    row = {"case": tag, "max_abs_err": max((g - w).abs().max().item() for g, w in zip(got, want)),
+           "rel_err_by_input": dict(zip(names, rel)), "bit_identical": same,
+           "ok": max(rel) <= SLSTM_BWD_TOL and same}
+    if time_it:
+        z_in, i_in, f_in, o_in, r, c0, n0, h0 = ins
+        ys, _, _, _, saved = slstm_ops._forward(*ins, store=True)
+        n_bytes, n_ops = slstm_bwd_work(b, s, h, d)
+        row["bytes"], row["ops"] = n_bytes, n_ops
+        row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, n_ops, torch.float32)
+        row["ms"] = cuda_ms(lambda i: slstm_scan_bwd(i_in, f_in, o_in, r, c0, n0, saved, dys), 1)
+        dz = slstm_scan_bwd(i_in, f_in, o_in, r, c0, n0, saved, dys)[0]
+        row["dr_ms"] = cuda_ms(lambda i: slstm_dr(h0, ys, dz, h), 1)
+        row["plain_ms"] = cuda_ms(lambda i: slstm_scan_bwd_ref(i_in, f_in, o_in, r, c0, n0, saved,
+                                                               dys), 1, iters=3)
+        row["forward_with_store_ms"] = cuda_ms(lambda i: slstm_ops._forward(*ins, store=True), 1)
+        row["library_ms"] = None
+    print(f"[xlstm] slstm_scan_bwd {tag}: max|err| / max|ref| "
+          + ", ".join(f"{n} {r:.2g}" for n, r in zip(names, rel))
+          + f" (gate {SLSTM_BWD_TOL}); two calls bit-identical {same}"
+          + (f"; kernel {row['ms']*1e3:.1f} us (+ dr {row['dr_ms']*1e3:.1f} us), plain "
+             f"closed form {row['plain_ms']*1e3:.1f} us, bound {row['bound_ms']*1e3:.2f} us "
+             f"({row['bound_by']}); the forward storing c, n, z "
+             f"{row['forward_with_store_ms']*1e3:.1f} us" if time_it else "")
+          + ("" if row["ok"] else "  FAIL"), flush=True)
+    check(same, f"slstm_scan_bwd {tag}: two calls on the same inputs differ")
+    check(row["ok"], f"slstm_scan_bwd {tag} disagrees with autograd of the loop: {rel}")
+    return row
+
+
+def xlstm_path_gemms(cfg) -> dict:
+    """{(K, N, B transposed): calls per prefill and per decode step} of
+    the xLSTM's projections and its tied unembedding."""
+    n_m, n_s = xlstm_block_counts(cfg)
+    e, h = cfg.d_model, cfg.n_heads
+    qk, hv = h * cfg.ssm_state, h * cfg.ssm_head_dim
+    out: dict = {}
+    for k, n, count in ((e, qk, 2 * n_m), (e, hv, 2 * n_m), (hv, e, n_m), (e, e, 3 * n_s),
+                        (e, h, 2 * (n_m + n_s)), (e, cfg.vocab, 1)):
+        key = (k, n, cfg.tie_embeddings and (k, n) == (e, cfg.vocab))
+        out[key] = out.get(key, 0) + count
+    return out
+
+
+def phase_xlstm_kernels():
+    """Phase 14's kernel checks: ``slstm_scan`` at the serving prefill,
+    decode (a state in) and training (storing c, n, z) shapes, timed, and
+    at a ragged S and the reduced width; ``slstm_scan_bwd`` at the training
+    shape, timed, and at edge shapes; the mLSTM's scans (memory N 96, P
+    192, B and C per head: ``mma``; normaliser P 1: ``fma``) at the serving
+    and training shapes and their backwards at the training shape, timed;
+    the path's GEMMs at the prefill and decode shapes, timed, and the
+    general wi/wf GEMMs' Function at the training shape. Returns the rows,
+    the path's GEMM totals and the largest errors by kernel."""
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    cfg = get_config(XLSTM)
+    h, d = cfg.n_heads, cfg.d_model // cfg.n_heads
+    n_m, n_s = xlstm_block_counts(cfg)
+    rows = {"slstm_scan": {}, "slstm_scan_bwd": {}, "ssm_scan": {}, "ssm_scan_bwd": {},
+            "dos_matmul": []}
+    fwd = rows["slstm_scan"]
+    fwd["prefill"] = check_slstm(gen, BATCH, PROMPT, h, d, time_it=True)
+    fwd["decode"] = check_slstm(gen, BATCH, 1, h, d, with_state=True, time_it=True)
+    fwd["train"] = check_slstm(gen, TRAIN_BATCH, TRAIN_SEQ, h, d, time_it=True, store=True)
+    fwd["ragged"] = check_slstm(gen, 2, 77, h, d, with_state=True)
+    fwd["reduced"] = check_slstm(gen, 2, 40, 4, 32, with_state=True)
+    bwd = rows["slstm_scan_bwd"]
+    bwd["train"] = check_slstm_bwd(gen, TRAIN_BATCH, TRAIN_SEQ, h, d, time_it=True)
+    bwd["decode"] = check_slstm_bwd(gen, BATCH, 1, h, d, with_state=True, with_final=True)
+    bwd["ragged"] = check_slstm_bwd(gen, 2, 77, h, d, with_state=True, with_final=True)
+    bwd["reduced"] = check_slstm_bwd(gen, 2, 40, 4, 32)
+    mem, nrm = (cfg.ssm_head_dim, cfg.ssm_state), (1, cfg.ssm_state)
+    for tag, (bt, s) in (("serve", (BATCH, PROMPT)), ("train", (TRAIN_BATCH, TRAIN_SEQ))):
+        for part, (p, n) in (("memory", mem), ("normaliser", nrm)):
+            rows["ssm_scan"][f"{tag} {part}"] = check_ssm(gen, bt, s, h, p, n, torch.bfloat16,
+                                                          shared_bc=False, time_it=True)
+    for part, (p, n) in (("memory", mem), ("normaliser", nrm)):
+        rows["ssm_scan_bwd"][part] = check_ssm_bwd(gen, TRAIN_BATCH, TRAIN_SEQ, h, p, n,
+                                                   torch.bfloat16, shared_bc=False, time_it=True)
+    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "general_ms": 0.0}
+    for m in (BATCH * PROMPT, BATCH):
+        for (k, n, tr), count in xlstm_path_gemms(cfg).items():
+            row = check_gemm(gen, m, k, n, torch.bfloat16, b_transposed=tr)
+            rows["dos_matmul"].append(dict(row, calls_per_prefill_and_step=count))
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+                tot[key] += count * row[key]
+            if row["variant"] == "general":
+                tot["general_ms"] += count * row["ms"]
+    gates = check_dos_function(gen, TRAIN_BATCH * TRAIN_SEQ, cfg.d_model, h, False,
+                               variant="general")
+    rows["train_gates"] = gates
+    gates_ms = 2 * (n_m + n_s) * (gates["forward_ms"] + gates["dA_ms"] + gates["dB_ms"]
+                                  + gates["transpose_copy_ms"])
+    print(f"[xlstm] {XLSTM}'s GEMMs of one prefill plus one decode step: dos_matmul "
+          f"{tot['ms']:.4f} ms (the general wi/wf products {tot['general_ms']:.4f} ms of it), "
+          f"plain {tot['plain_ms']:.4f} ms, torch.matmul {tot['library_ms']:.4f} ms, bound "
+          f"{tot['bound_ms']:.4f} ms; the wi/wf products of one train step (forward, dA, dB, "
+          f"general) {gates_ms:.4f} ms", flush=True)
+    errs = {"slstm_scan": max(r["max_abs_err"] for r in fwd.values()),
+            "slstm_scan_bwd": max(r["max_abs_err"] for r in bwd.values()),
+            "ssm_scan": max(r["max_abs_err"] for r in rows["ssm_scan"].values()),
+            "ssm_scan_bwd": max(r["max_abs_err"] for r in rows["ssm_scan_bwd"].values()),
+            "dos_matmul": max(r["max_abs_err"] for r in rows["dos_matmul"])}
+    RESULTS["xlstm_kernels"] = {k: v for k, v in rows.items()}
+    RESULTS["xlstm_gemm_totals"] = dict(tot, train_gates_ms=gates_ms)
+    return rows, errs
+
+
+def phase_train_xlstm_profile(state, step_p50_s):
+    """One warm train step of the xLSTM path's model on its trained state
+    and the next batch, written out as train_step's two calls so that it
+    reports the f32 global gradient norm AdamW clips with; then one train
+    step under torch.profiler. Both update the state in place."""
+    cfg = get_config(XLSTM)
+    model = build(cfg, "cuda")
+    opt_cfg = OptConfig(lr=1e-3, warmup_steps=20, total_steps=TRAIN_STEPS)
+    step = make_train_step(model, opt_cfg)
+    data = SyntheticLM(DataConfig(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=0))
+    batch = {k: torch.from_numpy(x).to("cuda") for k, x in data.batch(TRAIN_STEPS).items()}
+    params, opt = state["params"], state["opt"]
+    _, grads = loss_and_grads(model, params, batch, True)
+    params, opt, gnorm = adamw_update(params, grads, opt, opt_cfg)
+    gnorm = float(gnorm)
+    del grads
+    print(f"[xlstm] {XLSTM} after {TRAIN_STEPS} steps: the f32 global gradient norm AdamW clips "
+          f"with is {gnorm:.6g}", flush=True)
+    check(math.isfinite(gnorm), f"{XLSTM}: the gradient norm is not finite")
+    RESULTS.setdefault("train_xlstm", {}).update(global_grad_norm=gnorm)
+    torch.cuda.synchronize()
+    RESULTS["profile"][f"train {XLSTM}"] = _profile_train_step(
+        lambda: step(params, opt, batch), step_p50_s, f"{XLSTM} train step",
+        {"dos_matmul": "dos_matmul", "ssm_scan mma": "ssd_mma", "ssm_scan fma": "ssd_fwd",
+         "ssm_scan_bwd": "ssd_bwd", "slstm_scan": "slstm_fwd", "slstm_scan_bwd": "slstm_bwd"})
+
+
+def phase_xlstm_e2e():
+    """Card against CPU on the same f32 master weights: one mLSTM and one
+    sLSTM block at full width in bf16 (the output, and the input's and
+    parameters' gradients under a random output gradient, within 3e-2 of
+    each one's max), and the full model (12 blocks) in f32 at batch 2 x
+    128 (the logits, the loss and every gradient leaf of one train step
+    within 1e-3)."""
+    cfg = get_config(XLSTM)
+    b, s = HYBRID_TRAIN_E2E_BATCH, HYBRID_TRAIN_E2E_SEQ
+    gen = torch.Generator().manual_seed(0)
+    out = {}
+    for name, defs, block in (("mlstm_block", mlstm_defs, mlstm_block),
+                              ("slstm_block", slstm_defs, slstm_block)):
+        lp = materialize(defs(cfg), gen)
+        x = torch.randn(b, s, cfg.d_model, generator=gen).to(torch.bfloat16)
+        gy = torch.randn(b, s, cfg.d_model, generator=gen).to(torch.bfloat16)
+
+        def run(dev):
+            ins = {"x": x.to(dev).requires_grad_(),
+                   "p": map_tree(lambda t: t.to(dev).requires_grad_(), lp)}
+            y, _ = block(ins["p"], ins["x"], cfg, mode="train")
+            torch.autograd.backward(y, gy.to(dev))
+            return y.detach().float().cpu(), map_tree(lambda t: t.grad, ins)
+
+        (yg, gg), (yc, gc) = run("cuda"), run("cpu")
+        y_rel = (yg - yc).abs().max().item() / yc.abs().max().item()
+        g_rel, leaf = _grad_gap(gg, gc)
+        print(f"[xlstm] card vs CPU, one {name} of {XLSTM} at full width, batch {b} x {s}, bf16: "
+              f"output {y_rel:.3g} of its max, worst gradient {leaf} at {g_rel:.3g} of its max|g| "
+              f"(band {E2E_TOL})", flush=True)
+        check(y_rel <= E2E_TOL, f"{name}: the card's output differs by {y_rel:.3g}")
+        check(g_rel <= E2E_TOL, f"{name}: gradient {leaf} differs by {g_rel:.3g}")
+        out[name] = {"out_rel": y_rel, "worst_grad_rel": g_rel, "worst_leaf": leaf}
+
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    mc, mg = build(cfg32, "cpu"), build(cfg32, "cuda")
+    params_c = mc.init(torch.Generator().manual_seed(0))
+    params_g = map_tree(lambda t: t.to("cuda"), params_c)
+    data = SyntheticLM(DataConfig(cfg.vocab, s, b, seed=0))
+    batch = {k: torch.from_numpy(v) for k, v in data.batch(0).items()}
+    with torch.no_grad():
+        lc = decoder.decoder_forward(params_c, batch["tokens"], cfg32, mode="train")[0]
+        lg = decoder.decoder_forward(params_g, batch["tokens"].cuda(), cfg32, mode="train")[0]
+    logit_rel = (lg.cpu() - lc).abs().max().item() / lc.abs().max().item()
+    t0 = time.perf_counter()
+    loss_c, gc = loss_and_grads(mc, params_c, batch, True)
+    cpu_s = time.perf_counter() - t0
+    loss_g, gg = loss_and_grads(mg, params_g, {k: v.cuda() for k, v in batch.items()}, True)
+    loss_rel = abs(float(loss_g) - float(loss_c)) / abs(float(loss_c))
+    worst, worst_leaf = _grad_gap(gg, gc)
+    print(f"[xlstm] card vs CPU, {XLSTM} (all {cfg.n_layers} blocks), batch {b} x {s}, float32: "
+          f"logits {logit_rel:.3g} of their max, loss {float(loss_g):.6f} vs {float(loss_c):.6f} "
+          f"(relative {loss_rel:.3g}); worst gradient leaf {worst_leaf} at {worst:.3g} of its "
+          f"max|g| (band {TRAIN_F32_TOL}); the CPU's step {cpu_s:.1f} s", flush=True)
+    check(bool(torch.isfinite(lg).all()), "non-finite f32 logits on the card")
+    check(logit_rel <= TRAIN_F32_TOL, f"float32: the card's logits differ by {logit_rel:.3g}")
+    check(loss_rel <= TRAIN_F32_TOL, f"float32: the card's loss differs by {loss_rel:.3g}")
+    check(worst <= TRAIN_F32_TOL, f"float32: gradient {worst_leaf} differs by {worst:.3g}")
+    out["f32"] = {"logits_rel": logit_rel, "loss_rel": loss_rel, "worst_grad_rel": worst,
+                  "worst_leaf": worst_leaf}
+    RESULTS["xlstm_e2e"] = out
+
+
+def phase_xlstm_cli():
+    """``python -m repro_torch.launch.train --arch xlstm-125m --steps 3
+    --json`` and ``python -m repro_torch.launch.serve --arch xlstm-125m
+    --json`` in two subprocesses started together: each exits 0 on the
+    card with finite losses (training) and launches exact."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    cmds = {"train": ["repro_torch.launch.train", "--arch", XLSTM, "--steps",
+                      str(XLSTM_CLI_STEPS), "--json"],
+            "serve": ["repro_torch.launch.serve", "--arch", XLSTM, "--json"]}
+    t0 = time.perf_counter()
+    procs = {k: subprocess.Popen([sys.executable, "-m", *c], stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT)
+             for k, c in cmds.items()}
+    outs = {}
+    try:
+        for k, p in procs.items():
+            stdout, stderr = p.communicate(timeout=600)
+            check(p.returncode == 0, f"python -m {cmds[k][0]} --arch {XLSTM} exited "
+                  f"{p.returncode}: {stderr[-2000:]}")
+            outs[k] = json.loads(stdout)
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t0
+    cfg = get_config(XLSTM)
+    tr, sv = outs["train"], outs["serve"]
+    want_tr = {k: n * XLSTM_CLI_STEPS for k, n in expected_train_launches(cfg).items()}
+    check(tr["device"]["platform"] == "gpu" and len(tr["losses"]) == XLSTM_CLI_STEPS
+          and all(math.isfinite(x) for x in tr["losses"]) and tr["launches"] == want_tr,
+          f"the train CLI's summary is wrong: {tr['device']}, {tr['losses']}, {tr['launches']}")
+    want_sv = expected_launches(cfg, sv["gen_tokens"])
+    check(sv["device"]["platform"] == "gpu" and sv["launches"] == want_sv,
+          f"the serve CLI's launches {sv['launches']}, expected {want_sv}")
+    print(f"[xlstm] the train and serve CLIs (--arch {XLSTM}) in two subprocesses: exit 0 in "
+          f"{wall:.1f} s together; train {XLSTM_CLI_STEPS} steps (batch {tr['batch']} x "
+          f"{tr['seq']}) loss {tr['loss_first']:.4f} -> {tr['loss_last']:.4f}, step p50 "
+          f"{tr['step_p50_s']*1e3:.3f} ms, launches {tr['launches']}; serve batch {sv['batch']} "
+          f"prompt {sv['prompt_len']} gen {sv['gen_tokens']}: prefill {sv['prefill_s']*1e3:.2f} "
+          f"ms, decode {sv['decode_tok_s']:.1f} tok/s, launches {sv['launches']}", flush=True)
+    RESULTS["xlstm_cli"] = {"train": {k: tr[k] for k in ("losses", "step_p50_s", "launches")},
+                            "serve": {k: sv[k] for k in ("prefill_s", "decode_tok_s",
+                                                         "launches")}, "wall_s": wall}
+
+
 # ---------------------------------------------------------------------------
 
 
@@ -2761,13 +3321,18 @@ def main(argv=None) -> int:
                 json.dump(RESULTS, f, indent=1)
         return 0
     counts, step_p50_s = {}, {}
-    for arch in PATHS:  # first, so nothing else holds memory
+    for arch in PATHS + (XLSTM,):  # first, so nothing else holds memory; XLSTM: phase 14's
         counts[arch], step_p50_s[arch] = timed(phase_main_path, arch)
     counts["train"], train_state, train_p50 = timed(phase_train_path)  # phase 12's main path
     counts[f"train {HYBRID}"], hybrid_state, hybrid_p50 = timed(phase_train_path,
                                                                 HYBRID)  # phase 13's
     timed(phase_train_hybrid_profile, hybrid_state, hybrid_p50)
     del hybrid_state  # 29 GB of params and moments
+    torch.cuda.empty_cache()
+    counts[f"train {XLSTM}"], xlstm_state, xlstm_p50 = timed(phase_train_path,
+                                                             XLSTM)  # phase 14's
+    timed(phase_train_xlstm_profile, xlstm_state, xlstm_p50)
+    del xlstm_state
     torch.cuda.empty_cache()
     launched = {k for c in counts.values() for k, n in c.items() if n > 0}
     check(launched == set(KERNELS), f"kernels no main path launched: {set(KERNELS) - launched}")
@@ -2800,6 +3365,13 @@ def main(argv=None) -> int:
     timed(phase_train_hybrid_learns)
     timed(phase_train_hybrid_e2e)
     timed(phase_train_hybrid_cli)
+    timed(phase_train_hybrid_gemms)
+    timed(phase_profile_prefill, XLSTM)  # phase 14 from here
+    timed(phase_profile, XLSTM, *full_depth_decode_state(XLSTM), step_p50_s[XLSTM])
+    xlstm_rows, xlstm_err = timed(phase_xlstm_kernels)
+    timed(phase_xlstm_e2e)
+    timed(phase_e2e_blocks, XLSTM)
+    timed(phase_xlstm_cli)
 
     replaces = {
         "dos_matmul": ("src/repro_torch/kernels/csrc/dos_matmul.cu",
@@ -2816,7 +3388,7 @@ def main(argv=None) -> int:
         kernels.append({
             "name": kname, "route": "cuda", "source": source, "replaces": repl,
             "launches": sum(c[kname] for c in counts.values()),
-            "max_abs_err": max(main_err[kname], cal_err[kname]),
+            "max_abs_err": max(main_err[kname], cal_err[kname], xlstm_err.get(kname, 0.0)),
             "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
             "bound_by": "bytes" if by_bytes else "operations",
             "library_ms": tot["library_ms"],
@@ -2839,23 +3411,43 @@ def main(argv=None) -> int:
         "replaces": "src/repro/kernels/ssm_scan/ops.py:26 (autodiff of ssm_scan_chunked_jnp; the "
                     "reference has no backward kernel)",
         "launches": sum(c["ssm_scan_bwd"] for c in counts.values()),
-        "max_abs_err": ssm_bwd_err,
+        "max_abs_err": max(ssm_bwd_err, xlstm_err["ssm_scan_bwd"]),
         **{k: n_mamba * ssm_bwd_row[k] for k in ("ms", "plain_ms", "bound_ms")},
         "bound_by": ssm_bwd_row["bound_by"], "library_ms": None,
     })
+    n_slstm = xlstm_block_counts(get_config(XLSTM))[1]  # the recurrence's calls per prefill, step
+    fwd_rows = (xlstm_rows["slstm_scan"]["prefill"], xlstm_rows["slstm_scan"]["decode"])
+    bwd_row = xlstm_rows["slstm_scan_bwd"]["train"]
+    for kname, rows_k, src in (("slstm_scan", fwd_rows, "slstm.cu"),
+                               ("slstm_scan_bwd", (bwd_row,), "slstm_bwd.cu")):
+        n_bytes, n_ops = (n_slstm * sum(r[k] for r in rows_k) for k in ("bytes", "ops"))
+        kernels.append({
+            "name": kname, "route": "cuda", "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": "src/repro/models/xlstm.py:149 (slstm_block's step under lax.scan"
+                        + ("; its autodiff" if kname == "slstm_scan_bwd" else "")
+                        + "; jnp, not a Pallas kernel)",
+            "launches": sum(c[kname] for c in counts.values()),
+            "max_abs_err": xlstm_err[kname],
+            **{k: n_slstm * sum(r[k] for r in rows_k) for k in ("ms", "plain_ms", "bound_ms")},
+            "bound_by": ("bytes" if n_bytes / HBM_BYTES_S >= n_ops / PEAK_OPS_S[torch.float32]
+                         else "operations"),
+            "library_ms": None,
+        })
     RESULTS["kernels"] = kernels
     RESULTS["wall_s"] = time.perf_counter() - t0
     if details:
         os.makedirs(os.path.dirname(os.path.abspath(details)), exist_ok=True)
         with open(details, "w") as f:
             json.dump(RESULTS, f, indent=1)
-    print(f"[done] {RESULTS['wall_s']:.1f} s; the kernels' launches sum the four main paths' "
-          "runs (serving smollm-135m and zamba2-2.7b, training smollm-135m and zamba2-2.7b), "
-          "phase 7's calibration and the front door's calibrate Study; max_abs_err is the largest "
-          "of phase 4's, phase 7's, phase 12's and phase 13's checks; ms, plain_ms, library_ms "
-          "and bound_ms sum both serving paths' calls of one prefill plus one decode step, for "
-          "flash_attention_bwd the calls of one smollm-135m train step and for ssm_scan_bwd those "
-          "of one zamba2-2.7b train step")
+    print(f"[done] {RESULTS['wall_s']:.1f} s; the kernels' launches sum the six main paths' "
+          "runs (serving and training smollm-135m, zamba2-2.7b and xlstm-125m), phase 7's "
+          "calibration and the front door's calibrate Study; max_abs_err is the largest of phase "
+          "4's, 7's, 12's, 13's and 14's checks; ms, plain_ms, library_ms and bound_ms sum the "
+          "calls of one prefill plus one decode step of both phase-3 serving paths "
+          "(dos_matmul, flash_attention, ssm_scan) or of xlstm-125m (slstm_scan), for "
+          "flash_attention_bwd the calls of one smollm-135m train step, for ssm_scan_bwd those "
+          "of one zamba2-2.7b train step and for slstm_scan_bwd those of one xlstm-125m train "
+          "step")
     print("[done] wall s by phase: " + ", ".join(f"{k[:-2]} {v:.1f}"
                                                  for k, v in RESULTS["phases"].items()))
     print(json.dumps({"kernels": kernels}))

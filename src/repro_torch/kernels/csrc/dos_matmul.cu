@@ -912,7 +912,11 @@ cudaError_t launch_wgmma(const void* a, const void* b, void* c, int M, int N, in
                          int split, int k_chunk, cudaStream_t s) {
   using Cfg = WgCfg<BN>;
   auto kernel = dos_matmul_wgmma<BN, B_T>;
-  static bool smem_set = false;  // once per instantiation
+  // once per instantiation and host thread: a thread whose first CUDA call
+  // is this launch (autograd's backward thread, say) must raise the cap
+  // itself; a flag shared by the threads made such a launch fail with
+  // "invalid argument" after another thread had set it
+  static thread_local bool smem_set = false;
   if (!smem_set) {
     cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          Cfg::SMEM);

@@ -227,7 +227,7 @@ int launch(const void* q, const void* k, const void* v, void* o, const Args& a,
            cudaStream_t s) {
   constexpr int BT = D <= 128 ? 64 : 32;
   constexpr size_t smem = sizeof(float) * BT * ((D + 1) * 2 + D + BT + 1);
-  static bool configured = false;  // raise the dynamic shared-memory cap once
+  static thread_local bool configured = false;  // the cap, once per host thread
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(flash_fwd<T, D, BT>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -471,7 +471,7 @@ int launch_mma(const void* q, const void* k, const void* v, void* o, const Args&
                cudaStream_t s) {
   constexpr size_t smem = MmaTile<D>::smem;
   static_assert(smem <= 232448, "shared memory of one block exceeds 227 KB");
-  static bool configured = false;  // raise the dynamic shared-memory cap once
+  static thread_local bool configured = false;  // the cap, once per host thread
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(flash_mma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);

@@ -464,7 +464,7 @@ int launch(const void* q, const void* k, const void* v, const void* o, const voi
   constexpr int BT = D <= 128 ? 64 : 32;
   constexpr size_t smem = Tile<D, BT>::smem;
   static_assert(smem <= 232448, "shared memory of one block exceeds 227 KB");
-  static bool configured = false;  // raise the dynamic shared-memory caps once
+  static thread_local bool configured = false;  // the caps, once per host thread
   if (!configured) {
     int e = raise_smem(flash_bwd_dkdv<T, D, BT>, smem);
     if (e == 0) e = raise_smem(flash_bwd_dq<T, D, BT>, smem);
@@ -1000,7 +1000,7 @@ int launch_mma(const void* q, const void* k, const void* v, const void* o, const
                void* dq, void* dk, void* dv, const Args& a, cudaStream_t s) {
   constexpr size_t smem_kv = KvTile<D>::smem, smem_q = QTile<D>::smem;
   static_assert(smem_kv <= 232448 && smem_q <= 232448, "shared memory of one block exceeds 227 KB");
-  static bool configured = false;  // raise the dynamic shared-memory caps once
+  static thread_local bool configured = false;  // the caps, once per host thread
   if (!configured) {
     int e = raise_smem(flash_bwd_mma_dkdv<D>, smem_kv);
     if (e == 0) e = raise_smem(flash_bwd_mma_dq<D>, smem_q);

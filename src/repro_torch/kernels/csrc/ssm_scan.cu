@@ -305,7 +305,7 @@ int launch(const void* u, const float* ld, const void* B, const void* C, void* y
            float* states, const Args& a, cudaStream_t s) {
   constexpr size_t smem = sizeof(float) * smem_floats<T, N>();
   static_assert(smem <= 232448, "shared memory of one block exceeds 227 KB");
-  static bool configured = false;  // raise the dynamic shared-memory cap once
+  static thread_local bool configured = false;  // the cap, once per host thread
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(ssd_fwd<E, T, N>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -648,7 +648,7 @@ int launch_mma(const void* u, const float* ld, const void* B, const void* C, voi
                float* states, const Args& a, cudaStream_t s) {
   constexpr size_t smem = SsdTile<T, N>::smem;
   static_assert(smem <= 232448, "shared memory of one block exceeds 227 KB");
-  static bool configured = false;  // raise the dynamic shared-memory cap once
+  static thread_local bool configured = false;  // the cap, once per host thread
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(ssd_mma<T, N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);

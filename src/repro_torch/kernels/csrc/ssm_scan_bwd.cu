@@ -520,7 +520,7 @@ int launch(const void* u, const float* ld, const void* B, const void* C, const v
            const Args& a, cudaStream_t s) {
   constexpr size_t smem = sizeof(float) * BwdTile<T, N>::floats;
   static_assert(smem <= 232448, "shared memory of one block exceeds 227 KB");
-  static bool configured = false;  // raise the dynamic shared-memory cap once
+  static thread_local bool configured = false;  // the cap, once per host thread
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(ssd_bwd<E, T, N>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1298,7 +1298,7 @@ int launch_mma(const void* u, const float* ld, const void* B, const void* C, con
   constexpr bool heads_fit = L::smem_heads <= kMaxSmem;
   if (cl > 1 && !heads_fit) return (int)cudaErrorInvalidValue;  // ssm_scan_bwd_max_group says 1
   const size_t smem = cl > 1 ? L::smem_heads : L::smem;
-  static bool configured = false;  // raise the dynamic shared-memory cap once
+  static thread_local bool configured = false;  // the cap, once per host thread
   if (!configured) {
     cudaError_t e = cudaFuncSetAttribute(ssd_bwd_mma<T, N>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -1,7 +1,9 @@
 """Serving launcher: batched prefill + greedy decode loop.
 
-Measures prefill latency, aggregate decode throughput and per-step
-decode latency percentiles, with each step ended by a device
+Serves the dense, hybrid (zamba2) and SSM (xLSTM) families; the others
+raise, naming their ROADMAP item. Measures prefill latency, aggregate
+decode throughput and per-step decode latency percentiles, with each
+step ended by a device
 synchronize, so the times are device work and not enqueue time. It also
 records how many times each CUDA kernel launched in prefill and in
 decode. ``--json`` prints the machine-readable summary with the JAX
@@ -9,6 +11,7 @@ package's keys, plus the device the run used.
 
     python -m repro_torch.launch.serve --json            # on the card
     python -m repro_torch.launch.serve --arch zamba2-2.7b --json
+    python -m repro_torch.launch.serve --arch xlstm-125m --json
     python -m repro_torch.launch.serve --smoke --device cpu
 """
 

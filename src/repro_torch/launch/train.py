@@ -2,6 +2,7 @@
 
     python -m repro_torch.launch.train --arch smollm-135m --steps 30 --batch 8 --seq 512
     python -m repro_torch.launch.train --arch zamba2-2.7b --steps 30 --batch 8 --seq 512
+    python -m repro_torch.launch.train --arch xlstm-125m --steps 30 --batch 8 --seq 512
     python -m repro_torch.launch.train --smoke --device cpu --steps 3 --json
 
 The same loop as the JAX package's: a deterministic restart-safe data
@@ -19,9 +20,9 @@ synchronize, so the watchdog's step times are the device's.
 
 Runs on the card unless ``device="cpu"``; raises without one. One device
 only: a ``mesh_shape`` other than (1, 1), or a ``strategy`` other than
-``"dos"``, is ROADMAP queue 1 item 10. The dense and hybrid families
-train; the MoE, VLM and encoder-decoder families wait for item 9 and the
-SSM family for item 8. The step donates the state it is given, as the
+``"dos"``, is ROADMAP queue 1 item 10. The dense, hybrid and SSM
+(xLSTM) families train; the MoE, VLM and encoder-decoder families wait
+for item 9. The step donates the state it is given, as the
 reference's jitted step does (``donate_argnums``): AdamW writes the new
 parameters and moments into the old ones' memory, so a step holds
 params, moments and gradients once each (zamba2-2.7b: ~39 GB in f32,

@@ -1,4 +1,4 @@
-"""Model zoo of the port: the dense and hybrid (Mamba2) decoders."""
+"""Model zoo of the port: the dense, hybrid (Mamba2) and SSM (xLSTM) decoders."""
 
 from .zoo import Model, build
 

@@ -1,8 +1,9 @@
 """Weight bridge: the JAX package's parameter tree -> the port's.
 
-The reference's tree crosses as nested dicts of numpy arrays (a test
-exports it with ``jax.tree.map(np.asarray, params)``) in its stacked
-layer layout: ``layers.attn.wq`` is (L, E, H*hd), and so on. The port
+The reference's tree crosses as nested dicts (and, for the xLSTM's
+``blocks``, lists) of numpy arrays (a test exports it with
+``jax.tree.map(np.asarray, params)``) in its stacked layer layout:
+``layers.attn.wq`` is (L, E, H*hd), and so on. The port
 keeps that layout, so the bridge checks every leaf against the model's
 ParamDef tree (same keys, same shapes) and moves it to the model's
 device. It reads numpy only. ``opt_state_from_numpy`` carries the

@@ -1,6 +1,8 @@
 """Decoder LM: the dense branch (llama/smollm/qwen and gemma3's
-local:global) and the hybrid branch (zamba2: groups of Mamba2 layers,
-each group followed by one weight-shared attention+MLP block).
+local:global), the hybrid branch (zamba2: groups of Mamba2 layers,
+each group followed by one weight-shared attention+MLP block) and the
+``ssm`` branch (xLSTM: a list of mLSTM and sLSTM blocks, each behind
+its own rmsnorm ``ln``, with no MLP).
 
 The reference scans stacked layer trees with ``lax.scan`` and carries
 each layer's window and rope theta as scanned arrays. The port keeps the
@@ -29,6 +31,9 @@ from .layers import (
 )
 from .params import compute_cast, map_tree, stack_defs
 from .ssm import mamba_block, mamba_defs, mamba_init_state
+from .xlstm import (
+    mlstm_block, mlstm_defs, mlstm_init_state, slstm_block, slstm_defs, slstm_init_state,
+)
 
 __all__ = ["check_trainable", "decoder_defs", "decoder_forward", "init_cache", "layer_metadata"]
 
@@ -38,12 +43,11 @@ _NOT_PORTED = {
     "moe": "ROADMAP queue 1 item 9",
     "vlm": "ROADMAP queue 1 item 9",
     "encdec": "ROADMAP queue 1 item 9",
-    "ssm": "ROADMAP queue 1 item 8",
 }
 
 
 def _check_family(cfg: ArchConfig):
-    if cfg.family not in ("dense", "hybrid"):
+    if cfg.family not in ("dense", "hybrid", "ssm"):
         where = _NOT_PORTED.get(cfg.family, "no ROADMAP item")
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported to repro_torch: {where}"
@@ -51,8 +55,8 @@ def _check_family(cfg: ArchConfig):
 
 
 def check_trainable(cfg: ArchConfig):
-    """Raise unless the port can train ``cfg``: the dense and hybrid
-    families."""
+    """Raise unless the port can train ``cfg``: the dense, hybrid and ssm
+    (xLSTM) families."""
     _check_family(cfg)
 
 
@@ -77,6 +81,14 @@ def decoder_defs(cfg: ArchConfig):
         n_groups, period = _groups(cfg)
         defs["layers"] = stack_defs(stack_defs(mamba_defs(cfg), period), n_groups)
         defs["shared_attn"] = _block_defs(cfg)  # ONE set of weights, applied every period
+    elif cfg.family == "ssm":
+        defs["blocks"] = [
+            {"kind_slstm": slstm_defs(cfg)} if i in cfg.slstm_at
+            else {"kind_mlstm": mlstm_defs(cfg)}
+            for i in range(cfg.n_layers)
+        ]
+        for blk in defs["blocks"]:
+            blk["ln"] = rmsnorm_def(cfg.d_model)
     else:
         defs["layers"] = stack_defs(_block_defs(cfg), cfg.n_layers)
     return defs
@@ -106,8 +118,16 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16,
     KVH, D) k/v buffers under ``layers``. Hybrid: the Mamba2 states
     stacked (n_groups, period, ...) under ``mamba`` (``ssm`` in f32,
     ``conv`` in ``dtype``) and the shared block's (n_groups, B, max_len,
-    KVH, D) k/v under ``attn``."""
+    KVH, D) k/v under ``attn``. xLSTM: each block's f32 state under
+    ``blocks``, a list (mLSTM ``C`` (B, H, N, P) and ``n`` (B, H, N, 1);
+    sLSTM ``c``, ``h`` (B, E) and ``n`` (B, H)), whatever ``dtype`` and
+    ``max_len``, as in the reference."""
     _check_family(cfg)
+    if cfg.family == "ssm":
+        return {"blocks": [slstm_init_state(cfg, batch, device) if i in cfg.slstm_at
+                           else mlstm_init_state(cfg, batch, device)
+                           for i in range(cfg.n_layers)],
+                "length": 0}
 
     def kv(n):
         shape = (n, batch, max_len, cfg.n_kv_heads, cfg.head_dim_)
@@ -241,6 +261,33 @@ def _hybrid_layers(params, x, cfg, *, mode, cache, remat=False):
     return x, {"mamba": mamba, "attn": {"k": torch.stack(ks), "v": torch.stack(vs)}}
 
 
+def _xlstm_blocks(params, x, cfg, *, mode, cache, remat=False):
+    """The xLSTM's residual blocks, ``x + block(rmsnorm(x, ln))``, each an
+    mLSTM or (at ``cfg.slstm_at``) an sLSTM. Prefill returns every block's
+    final state; decode writes the new states into the cache in place;
+    train returns no cache. ``remat`` is ignored: the reference applies no
+    checkpoint to this branch."""
+    del remat
+    states = []
+    for i, bp in enumerate(params["blocks"]):
+        slstm = i in cfg.slstm_at
+        block = slstm_block if slstm else mlstm_block
+        st = cache["blocks"][i] if mode == "decode" else None
+        y, nst = block(bp["kind_slstm" if slstm else "kind_mlstm"],
+                       rmsnorm(x, bp["ln"], cfg.norm_eps), cfg, mode=mode, state=st)
+        x = x + y
+        if mode == "decode":
+            for k, t in st.items():
+                t.copy_(nst[k])
+        elif mode == "prefill":
+            states.append(nst)
+    if mode == "train":
+        return x, None
+    if mode == "decode":
+        return x, {"blocks": cache["blocks"]}
+    return x, {"blocks": states}
+
+
 def decoder_forward(params, tokens, cfg: ArchConfig, *, mode: str, cache=None,
                     max_len: int = 0, remat=False):
     """tokens (B, S) int -> (logits (B, S, V) f32, new cache); ``train``
@@ -251,7 +298,7 @@ def decoder_forward(params, tokens, cfg: ArchConfig, *, mode: str, cache=None,
     else:
         _check_family(cfg)
     x = embed_tokens(params["embed"], tokens, getattr(torch, cfg.compute_dtype))
-    layers = _hybrid_layers if cfg.family == "hybrid" else _dense_layers
+    layers = {"hybrid": _hybrid_layers, "ssm": _xlstm_blocks}.get(cfg.family, _dense_layers)
     x, new_cache = layers(params, x, cfg, mode=mode, cache=cache,
                           remat=remat if mode == "train" else False)
 
@@ -271,8 +318,11 @@ def decoder_forward(params, tokens, cfg: ArchConfig, *, mode: str, cache=None,
 
 def _pad_cache_tree(cache, max_len):
     """Pad the k/v buffers (dim -3 = seq; under ``layers`` or ``attn``)
-    up to max_len."""
+    up to max_len. A cache with no k/v (the xLSTM's states) is returned
+    as it is."""
     kv = "attn" if "attn" in cache else "layers"
+    if kv not in cache:
+        return cache
     s = cache[kv]["k"].shape[-3]
     if s >= max_len:
         return cache

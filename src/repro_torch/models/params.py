@@ -7,6 +7,11 @@ same init rules (normal x 1/sqrt(fan_in), or the def's own scale; ones;
 zeros; Mamba's ``A`` as -[1..H] over the stacking dims) drawn from a ``torch.Generator``, whose stream differs from
 ``jax.random``'s: parity tests load the reference's weights instead
 (``models.convert``).
+
+A tree is nested dicts and lists (the xLSTM's ``blocks`` is a list of
+per-layer dicts). The walkers visit them in the reference's flattening
+order: a dict by sorted keys, a list by index, with the index as the
+path element.
 """
 
 from __future__ import annotations
@@ -19,9 +24,12 @@ import torch
 __all__ = ["ParamDef", "materialize", "tree_size", "stack_defs", "map_tree", "leaves", "unflatten",
            "compute_cast"]
 
-# Leaves the reference reads in f32: the norm scales (rmsnorm), and
-# Mamba2's A, dt_bias and its gated-norm scale ``norm`` (ssm.py).
-_FLOAT_LEAVES_KEPT = ("ln1", "ln2", "final_norm", "q_norm", "k_norm", "A", "dt_bias", "norm")
+# Leaves the reference reads in f32: the norm scales (rmsnorm; the
+# xLSTM's per-block ``ln`` and its blocks' ``norm``), Mamba2's A, dt_bias
+# and its gated-norm scale ``norm`` (ssm.py), and the xLSTM's forget-gate
+# bias ``bf`` and sLSTM recurrent weights ``r`` (xlstm.py).
+_FLOAT_LEAVES_KEPT = ("ln1", "ln2", "ln", "final_norm", "q_norm", "k_norm", "A", "dt_bias",
+                      "norm", "bf", "r")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,9 +47,11 @@ class ParamDef:
 
 
 def map_tree(fn, tree):
-    """Apply ``fn`` to the leaves of nested dicts."""
+    """Apply ``fn`` to the leaves of nested dicts and lists."""
     if isinstance(tree, dict):
         return {k: map_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [map_tree(fn, v) for v in tree]
     return fn(tree)
 
 
@@ -52,28 +62,42 @@ def compute_cast(tree, dtype, name=None):
     dtype where it uses them."""
     if isinstance(tree, dict):
         return {k: compute_cast(v, dtype, k) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [compute_cast(v, dtype) for v in tree]
     return tree if name in _FLOAT_LEAVES_KEPT else tree.to(dtype)
 
 
 def leaves(tree, path=()):
-    """(path, leaf) pairs of nested dicts in the reference's flattening
-    order (sorted keys)."""
+    """(path, leaf) pairs of nested dicts and lists in the reference's
+    flattening order (sorted keys, list indices)."""
     if isinstance(tree, dict):
         for k in sorted(tree):
             yield from leaves(tree[k], path + (k,))
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from leaves(v, path + (i,))
     else:
         yield path, tree
 
 
 def unflatten(pairs) -> dict:
-    """Nested dicts from (path, leaf) pairs, the inverse of ``leaves``."""
+    """Nested dicts and lists from (path, leaf) pairs, the inverse of
+    ``leaves``: a node whose path elements are integers is a list."""
     out: dict = {}
     for path, leaf in pairs:
         node = out
         for key in path[:-1]:
             node = node.setdefault(key, {})
         node[path[-1]] = leaf
-    return out
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        if node and all(isinstance(k, int) for k in node):
+            return [lists(node[i]) for i in range(len(node))]
+        return {k: lists(v) for k, v in node.items()}
+
+    return lists(out)
 
 
 def materialize(defs, generator: torch.Generator, dtype=torch.float32, device=None):

@@ -1,0 +1,160 @@
+"""xLSTM blocks: mLSTM (matrix memory) and sLSTM (scalar memory).
+
+mLSTM runs as two SSD scans, as in the JAX package:
+
+  C_t = f_t C_{t-1} + (i_t k_t) v_t^T       -> ssm_scan(u=v, ld=log f, B=i*k, C=q)
+  n_t = f_t n_{t-1} + (i_t k_t)             -> ssm_scan(u=1, ...) with P=1
+  y_t = (C_t^T q_t) / max(|n_t^T q_t|, 1)
+
+Prefill and train run the chunked scan (``ssm_scan``: the CUDA kernel on
+the card, its autograd Function in training, B and C per head); decode
+advances both by one ``ssm_step_ref``, as the reference does. sLSTM is
+sequential over time: every mode runs ``slstm_scan``, the hand-written
+recurrence kernel on the card and its plain loop on the CPU. Casts
+follow the reference's order: k divided by sqrt(N) in the compute dtype,
+the gates and the scans' decays in f32, i*k cast back to the compute
+dtype, the normaliser's ``ones`` in the compute dtype, the sLSTM's
+inputs and r in f32.
+
+The reference's ``max(|yn|, 1)`` and ``min(i, 10)`` split their
+gradient in halves at a tie (``jnp.maximum``, ``jnp.minimum``); so do
+``torch.maximum`` and ``torch.minimum`` here.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels import slstm_scan, ssm_scan, ssm_step_ref
+from .layers import proj, rmsnorm
+from .params import ParamDef
+
+__all__ = [
+    "mlstm_defs", "mlstm_block", "mlstm_init_state",
+    "slstm_defs", "slstm_block", "slstm_init_state",
+]
+
+
+# --- mLSTM -------------------------------------------------------------------
+
+
+def mlstm_defs(cfg):
+    e = cfg.d_model
+    h = cfg.n_heads
+    n = cfg.ssm_state  # key/query dim per head
+    p_ = cfg.ssm_head_dim  # value dim per head
+    return {
+        "wq": ParamDef((e, h * n), ("embed", "heads_flat"), contract=0, out=1),
+        "wk": ParamDef((e, h * n), ("embed", "heads_flat"), contract=0, out=1),
+        "wv": ParamDef((e, h * p_), ("embed", "heads_flat"), contract=0, out=1),
+        "wi": ParamDef((e, h), ("embed", "ssm_heads"), contract=0, out=1),
+        "wf": ParamDef((e, h), ("embed", "ssm_heads"), contract=0, out=1),
+        "bf": ParamDef((h,), ("ssm_heads",), init="ones"),
+        "wo_gate": ParamDef((e, h * p_), ("embed", "heads_flat"), contract=0, out=1),
+        "norm": ParamDef((h * p_,), ("heads_flat",), init="ones"),
+        "wo": ParamDef((h * p_, e), ("heads_flat", "embed"), contract=0, out=1),
+    }
+
+
+def mlstm_init_state(cfg, batch, device=None):
+    h, n, p_ = cfg.n_heads, cfg.ssm_state, cfg.ssm_head_dim
+    return {
+        "C": torch.zeros((batch, h, n, p_), dtype=torch.float32, device=device),
+        "n": torch.zeros((batch, h, n, 1), dtype=torch.float32, device=device),
+    }
+
+
+def _f32_scalar(value, like):
+    """A 0-d f32 tensor on ``like``'s device, filled there (no host copy)."""
+    return torch.full((), value, dtype=torch.float32, device=like.device)
+
+
+def mlstm_block(p, x, cfg, *, mode: str, state=None):
+    """Returns (y, new_state). ``state`` is required for decode; prefill
+    and train start from zeros (train's final state is returned and
+    dropped by the decoder, as in the reference)."""
+    b, s, e = x.shape
+    h, n, p_ = cfg.n_heads, cfg.ssm_state, cfg.ssm_head_dim
+
+    q = proj(x, p["wq"]).reshape(b, s, h, n)
+    k = proj(x, p["wk"]).reshape(b, s, h, n) / (n**0.5)
+    v = proj(x, p["wv"]).reshape(b, s, h, p_)
+    i_pre = proj(x, p["wi"]).float()  # (B, S, H)
+    f_pre = proj(x, p["wf"]).float() + p["bf"].float()
+
+    # stabilized exponential gating: the input gate folded into B, log f
+    # the decay
+    ld = F.logsigmoid(f_pre)  # (B, S, H)
+    i_gate = torch.exp(torch.minimum(i_pre, _f32_scalar(10.0, x)))
+    Bk = (k.float() * i_gate[..., None]).to(x.dtype)  # i_t * k_t
+
+    ones = torch.ones((b, s, h, 1), dtype=x.dtype, device=x.device)
+    if mode == "decode":
+        if state is None or s != 1:
+            raise ValueError("decode takes one token and a state")
+        yc, new_c = ssm_step_ref(state["C"], v[:, 0], ld[:, 0], Bk[:, 0], q[:, 0])
+        yn, new_n = ssm_step_ref(state["n"], ones[:, 0], ld[:, 0], Bk[:, 0], q[:, 0])
+        yc, yn = yc[:, None], yn[:, None]
+    elif mode in ("prefill", "train"):
+        yc, new_c = ssm_scan(v, ld, Bk, q)  # (B, S, H, P)
+        yn, new_n = ssm_scan(ones, ld, Bk, q)  # (B, S, H, 1)
+    else:
+        raise ValueError(f"mlstm_block: unknown mode {mode!r}")
+
+    denom = torch.maximum(yn.float().abs(), _f32_scalar(1.0, x))
+    y = (yc.float() / denom).reshape(b, s, h * p_)
+    y = rmsnorm(y.to(x.dtype), p["norm"], cfg.norm_eps)
+    o_gate = torch.sigmoid(proj(x, p["wo_gate"]).float())
+    y = (y.float() * o_gate).to(x.dtype)
+    return proj(y, p["wo"]), {"C": new_c, "n": new_n}
+
+
+# --- sLSTM --------------------------------------------------------------------
+
+
+def slstm_defs(cfg):
+    e = cfg.d_model
+    h = cfg.n_heads
+    d_h = e // h
+    # recurrent weights are per-head block-diagonal (xLSTM's heads)
+    return {
+        "wz": ParamDef((e, e), ("embed", "heads_flat"), contract=0, out=1),
+        "wi": ParamDef((e, h), ("embed", "ssm_heads"), contract=0, out=1),
+        "wf": ParamDef((e, h), ("embed", "ssm_heads"), contract=0, out=1),
+        "wo_gate": ParamDef((e, e), ("embed", "heads_flat"), contract=0, out=1),
+        "bf": ParamDef((h,), ("ssm_heads",), init="ones"),
+        "r": ParamDef((h, d_h, d_h), ("heads", "head_dim", "head_dim"), scale=0.1),
+        "norm": ParamDef((e,), ("embed",), init="ones"),
+        "wo": ParamDef((e, e), ("heads_flat", "embed"), contract=0, out=1),
+    }
+
+
+def slstm_init_state(cfg, batch, device=None):
+    e, h = cfg.d_model, cfg.n_heads
+    return {
+        "c": torch.zeros((batch, e), dtype=torch.float32, device=device),
+        "n": torch.zeros((batch, h), dtype=torch.float32, device=device),
+        "h": torch.zeros((batch, e), dtype=torch.float32, device=device),
+    }
+
+
+def slstm_block(p, x, cfg, *, mode: str, state=None):
+    """Scalar-memory LSTM with a recurrent (previous-output) term, walked
+    over time by ``slstm_scan``. Returns (y, new_state); ``state`` (the
+    cache in decode) or zeros is the initial state."""
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"slstm_block: unknown mode {mode!r}")
+    b = x.shape[0]
+    z_in = proj(x, p["wz"]).float()
+    i_in = proj(x, p["wi"]).float()
+    f_in = proj(x, p["wf"]).float() + p["bf"].float()
+    o_in = proj(x, p["wo_gate"]).float()
+    if state is None:
+        if mode == "decode":
+            raise ValueError("decode takes one token and a state")
+        state = slstm_init_state(cfg, b, x.device)
+    ys, c, n, h_last = slstm_scan(z_in, i_in, f_in, o_in, p["r"].float(), state["c"],
+                                  state["n"], state["h"])
+    y = rmsnorm(ys.to(x.dtype), p["norm"], cfg.norm_eps)
+    return proj(y, p["wo"]), {"c": c, "n": n, "h": h_last}

@@ -1,4 +1,5 @@
 """Model facade: one ``Model`` per architecture config, bound to a device.
+The dense, hybrid and SSM (xLSTM) families are ported; the others raise.
 
     model = build(cfg)                      # cuda unless device="cpu"
     master = model.init(torch.Generator().manual_seed(0))   # param_dtype (f32)
@@ -48,8 +49,9 @@ class Model:
         """The parameter tree with every GEMM weight, bias, Mamba2's
         ``conv_w`` and ``D`` and the embedding table cast once to the
         compute dtype; the leaves the reference reads in f32 (norm
-        scales, Mamba2's ``A`` and ``dt_bias``) stay as they are. The
-        reference casts the same weights to the same values on every
+        scales, Mamba2's ``A`` and ``dt_bias``, the xLSTM's forget-gate
+        biases ``bf`` and sLSTM recurrent weights ``r``) stay as they
+        are. The reference casts the same weights to the same values on every
         call."""
         return compute_cast(params, getattr(torch, self.cfg.compute_dtype))
 

@@ -1,4 +1,4 @@
-"""AdamW with global-norm clipping, on the parameter dict tree.
+"""AdamW with global-norm clipping, on the parameter tree (dicts and lists).
 
 Plain functions with the JAX package's formulas, in the order of its
 operations, so that one step from the same numpy params, grads and state
@@ -28,7 +28,7 @@ import math
 
 import torch
 
-from ..models.params import map_tree
+from ..models.params import leaves, map_tree
 
 __all__ = ["OptConfig", "schedule", "init_opt_state", "global_norm", "adamw_update"]
 
@@ -67,12 +67,8 @@ def init_opt_state(params):
 
 
 def _leaves(tree):
-    """Leaves in the reference's order (sorted keys)."""
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _leaves(tree[k])
-    else:
-        yield tree
+    """Leaves in the reference's order (sorted keys, list indices)."""
+    return (leaf for _, leaf in leaves(tree))
 
 
 def global_norm(tree):

@@ -21,6 +21,11 @@ entry (2**-8) plus 1e-3 of the gradient's max|ref| (the states it reads
 come from the bf16 forward, which holds 1e-4 of the state's scale; dy is
 bf16). Both of its variants are held to it: the one ``plan`` picks (``mma``
 for bf16 with 16-byte rows) and ``fma`` forced on the same inputs.
+The sLSTM recurrence (``slstm_scan``, f32) against its plain loop on the
+same card: 1e-4 of max|ref| for ys and the final state (the matvec's f32
+sums in another order, carried through the steps); its backward
+(``slstm_scan_bwd`` with ``slstm_dr``) against autograd of the loop:
+1e-4 of each gradient's max|ref|.
 """
 
 import pytest
@@ -281,6 +286,8 @@ def _ssm_inputs(gen, bt, s, h, p, n, dtype, shared_bc):
     (2, 40, 16, 16, 16, False),   # the reduced configs' N = P = 16
     (1, 100, 2, 192, 96, False),  # P over several tiles, N 96
     (1, 33, 2, 1, 96, False),     # P = 1, N 96: mLSTM's normaliser
+    (8, 512, 4, 192, 96, False),  # xlstm-125m's mLSTM memory at its training shape
+    (8, 512, 4, 1, 96, False),    # and its normaliser
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("chunk", CHUNKS)
@@ -356,6 +363,8 @@ _SSM_BWD_CASES = [
     (2, 40, 3, 40, 32, True),     # a ragged P tile, N 32
     (1, 100, 2, 192, 96, False),  # P over several tiles, N 96
     (1, 33, 2, 1, 96, False),     # P = 1, N 96: mLSTM's normaliser
+    (8, 512, 4, 192, 96, False),  # xlstm-125m's mLSTM memory at its training shape
+    (8, 512, 4, 1, 96, False),    # and its normaliser
 ]
 
 
@@ -738,3 +747,113 @@ def test_dos_matmul_function_gradients(gen, m, k, n, tied):
         tol = 2.0**-8 * ex.abs() + 1e-5 * max(1.0, depth / 8192) * ex.abs().max()
         assert bool(((got.float() - ex).abs() <= tol).all())
         assert bool(((want.float() - ex).abs() <= tol).all())
+
+
+# B, S, H, d, a non-zero initial state (decode's cache)
+_SLSTM_CASES = [
+    (8, 512, 4, 192, False),  # xlstm-125m's training shape
+    (4, 128, 4, 192, False),  # its serving prefill
+    (4, 1, 4, 192, True),     # a decode step
+    (2, 77, 4, 32, True),     # the reduced width, a ragged S
+    (3, 20, 3, 40, True),     # a width off 32
+]
+SLSTM_TOL = 1e-4
+
+
+def _slstm_inputs(gen, b, s, h, d, with_state):
+    e = h * d
+
+    def rn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale
+
+    ins = [rn(b, s, e), rn(b, s, h, scale=2.0), rn(b, s, h, scale=2.0) + 1.0, rn(b, s, e),
+           rn(h, d, d, scale=0.1)]
+    if with_state:
+        ins += [rn(b, e), rn(b, h).abs() + 0.5, rn(b, e, scale=0.5)]
+    else:
+        ins += [torch.zeros(b, e, device="cuda"), torch.zeros(b, h, device="cuda"),
+                torch.zeros(b, e, device="cuda")]
+    return ins
+
+
+def _close_rel(got, want, tol):
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert (got - want).abs().max().item() <= tol * max(want.abs().max().item(), 1e-30)
+
+
+@pytest.mark.parametrize("case", _SLSTM_CASES)
+def test_slstm_scan_kernel(gen, case):
+    from repro_torch.kernels import slstm_scan
+    from repro_torch.kernels.slstm import slstm_scan_ref
+
+    ins = _slstm_inputs(gen, *case)
+    before = slstm_scan.launches
+    got = slstm_scan(*ins)
+    assert slstm_scan.launches == before + 1
+    for g, w in zip(got, slstm_scan_ref(*ins)):
+        _close_rel(g, w, SLSTM_TOL)
+    again = slstm_scan(*ins)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.parametrize("case", _SLSTM_CASES)
+@pytest.mark.parametrize("with_final", [False, True])
+def test_slstm_scan_bwd_kernel(gen, case, with_final):
+    """The Function's forward (the kernel, storing c, n, z) and backward
+    (the backward kernel, dr by slstm_dr) against autograd of the loop."""
+    from repro_torch.kernels import slstm_scan, slstm_scan_bwd
+    from repro_torch.kernels.slstm import slstm_scan_ref
+
+    ins = _slstm_inputs(gen, *case)
+    b, s, h, d, _ = case
+    dys = torch.randn(b, s, h * d, generator=gen, device="cuda")
+    d_final = ([torch.randn(b, h * d, generator=gen, device="cuda"),
+                torch.randn(b, h, generator=gen, device="cuda"),
+                torch.randn(b, h * d, generator=gen, device="cuda")] if with_final else [])
+
+    def grads(fn):
+        leaves = [t.clone().requires_grad_() for t in ins]
+        outs = fn(*leaves)
+        torch.autograd.backward(list(outs[:1 + len(d_final)]), [dys] + d_final)
+        return [t.grad for t in leaves]
+
+    before = (slstm_scan.launches, slstm_scan_bwd.launches)
+    got = grads(slstm_scan)
+    assert (slstm_scan.launches, slstm_scan_bwd.launches) == (before[0] + 1, before[1] + 1)
+    for g, w in zip(got, grads(slstm_scan_ref)):
+        _close_rel(g, w, SLSTM_TOL)
+    again = grads(slstm_scan)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+def test_kernels_launch_from_a_fresh_thread_after_the_main_thread(gen):
+    """A launch that is the first CUDA call of its host thread (autograd's
+    backward thread, say) after another thread has launched the same
+    kernel: each launcher raises its shared-memory cap once per thread."""
+    import threading
+
+    a = torch.randn(512, 2560, generator=gen, device="cuda").to(torch.bfloat16)
+    w = torch.randn(5120, 2560, generator=gen, device="cuda").to(torch.bfloat16)
+    q, k, v = (torch.randn(2, 128, 4, 64, generator=gen, device="cuda").to(torch.bfloat16)
+               for _ in range(3))
+    u, ld, B, C = _ssm_inputs(gen, 2, 128, 8, 64, 64, torch.bfloat16, True)
+    calls = {"dos_matmul": lambda: dos_matmul(a, w.T),
+             "flash_attention": lambda: flash_attention(q, k, v),
+             "ssm_scan": lambda: ssm_scan(u, ld, B, C)[0]}
+    want = {name: fn() for name, fn in calls.items()}
+    got, errors = {}, {}
+
+    def run():
+        for name, fn in calls.items():
+            try:
+                got[name] = fn()
+            except RuntimeError as e:
+                errors[name] = str(e)
+        torch.cuda.synchronize()
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join()
+    assert not errors
+    for name in calls:
+        assert torch.equal(got[name], want[name]), name

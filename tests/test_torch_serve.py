@@ -29,7 +29,7 @@ from repro_torch.models.decoder import decoder_defs
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # every registered kernel, none launched (the CPU runs the plain versions)
 NO_LAUNCHES = {"dos_matmul": 0, "flash_attention": 0, "flash_attention_bwd": 0, "ssm_scan": 0,
-               "ssm_scan_bwd": 0}
+               "ssm_scan_bwd": 0, "slstm_scan": 0, "slstm_scan_bwd": 0}
 JSON_KEYS = {"arch", "batch", "prompt_len", "gen_tokens", "prefill_s", "decode_tok_s",
              "step_p50_s", "step_p99_s"}
 
@@ -111,7 +111,7 @@ def test_unported_families_raise():
         build(get_config("deepseek-moe-16b"), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         decoder_defs(get_config("deepseek-moe-16b"))
-    for family in ("moe", "vlm", "ssm", "encdec"):
+    for family in ("moe", "vlm", "encdec"):
         cfg = dataclasses.replace(get_config("smollm-135m"), family=family)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             decoder_defs(cfg)
