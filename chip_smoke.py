@@ -149,15 +149,17 @@ if it fails:
     (``dos_matmul`` ``wgmma`` and, for the (768, 4) ``wi``/``wf``
     projections only, ``general`` in prefill, ``skinny`` in decode;
     ``ssm_scan`` 10 ``mma`` + 10 ``fma`` per prefill; ``slstm_scan`` 2
-    per prefill and per decode step), profiled like phase 6; and
+    ``reg`` per prefill and per decode step), profiled like phase 6; and
     ``train_loop`` (bf16 on f32 masters, 8 x 512, seed 0, 30 steps):
     every loss finite and falling, the launches per step exact by kernel
-    and variant, its gradient norm and one profiled step. After phase
-    13's checks: ``slstm_scan`` against its plain loop at the serving and
-    training shapes, a decode step with a state, a ragged S and the
-    reduced width, ``slstm_scan_bwd`` (with dr) against autograd of the
-    loop, two calls of each bit-identical, each timed beside the plain
-    loop and its bound; the mLSTM's scans and their backwards (memory N
+    and variant (``slstm_scan`` and ``slstm_scan_bwd`` 2 ``reg`` each),
+    its gradient norm and one profiled step. After phase 13's checks:
+    ``slstm_scan`` against its plain loop at the serving and training
+    shapes, a decode step with a state, a ragged S and the reduced width,
+    ``slstm_scan_bwd`` (with dr) against autograd of the loop, each in
+    both variants (``reg`` as planned, ``fma`` forced on the same
+    inputs), two calls of each bit-identical, ``reg`` timed beside
+    ``fma``, the plain loop and its bound; the mLSTM's scans and their backwards (memory N
     96, P 192 ``mma``; normaliser P 1 ``fma``) and the path's GEMMs
     (``wi``/``wf`` ``general`` forward, dA and dB) timed; card against
     CPU: one mLSTM and one sLSTM block at full width in bf16 (output and
@@ -357,7 +359,8 @@ _VARIANT_OF = {"dos_matmul_skinny": "skinny", "dos_matmul_wgmma": "wgmma",
                "dos_matmul_wmma": "general", "dos_matmul_fma": "f32",
                "flash_mma": "mma", "flash_fwd": "fma", "flash_bwd_mma": "mma", "flash_bwd": "fma",
                "ssd_mma": "mma", "ssd_fwd": "fma", "ssd_bwd_mma": "mma", "ssd_bwd": "fma",
-               "slstm_fwd": "fma", "slstm_bwd": "fma"}
+               "slstm_fwd_reg": "reg", "slstm_fwd": "fma", "slstm_bwd_reg": "reg",
+               "slstm_bwd": "fma"}
 
 
 def _variant_tag(name: str) -> str:
@@ -433,14 +436,14 @@ def expected_serve_variants(cfg, gen_tokens: int = GEN) -> dict:
     ``skinny`` (M = batch <= 16; neither prefill variant takes M <= 16,
     nor ``skinny`` M > 16, so the counts pin each phase's variants), the
     mLSTM's memory scan ``mma`` and its P = 1 normaliser ``fma``, the
-    recurrence ``fma``."""
+    recurrence ``reg``."""
     n_m, n_s = xlstm_block_counts(cfg)
     gemms, gates = xlstm_gemms(cfg)
     out = {k: dict.fromkeys(fn.variants, 0) for k, fn in KERNELS.items()}
     out["dos_matmul"].update(wgmma=gemms - gates, general=gates,
                              skinny=gemms * (gen_tokens - 1))
     out["ssm_scan"].update(mma=n_m, fma=n_m)
-    out["slstm_scan"].update(fma=n_s * gen_tokens)
+    out["slstm_scan"].update(reg=n_s * gen_tokens)
     return out
 
 
@@ -1894,14 +1897,15 @@ def expected_train_variants(cfg) -> dict:
     """An xLSTM train step's launches by kernel and variant: the wi and wf
     GEMMs, their dA (K = 4) and their dB (N = 4) ``general``, every other
     GEMM ``wgmma``; each mLSTM block's memory scan and its backward
-    ``mma``, its P = 1 normaliser's ``fma``; the recurrence ``fma``."""
+    ``mma``, its P = 1 normaliser's ``fma``; the recurrence and its
+    backward ``reg``."""
     n_m, n_s = xlstm_block_counts(cfg)
     gemms, gates = xlstm_gemms(cfg)
     out = {k: dict.fromkeys(fn.variants, 0) for k, fn in KERNELS.items()}
     out["dos_matmul"].update(wgmma=3 * (gemms - gates), general=3 * gates)
     for k in ("ssm_scan", "ssm_scan_bwd"):
         out[k].update(mma=n_m, fma=n_m)
-    out["slstm_scan"]["fma"] = out["slstm_scan_bwd"]["fma"] = n_s
+    out["slstm_scan"]["reg"] = out["slstm_scan_bwd"]["reg"] = n_s
     return out
 
 
@@ -2908,10 +2912,11 @@ def phase_train_hybrid_gemms():
 # ---------------------------------------------------------------------------
 
 # the sLSTM recurrence against its plain loop on the same card, as a
-# fraction of each output's max|ref|: the kernel sums each column's d
-# products as 4 partial sums (the loop's einsum in another order) and its
-# tanh, exp and divides round in other ways; the forget gate damps what
-# the recurrence carries. 1e-4 is the f32 scan's gate (phase 4).
+# fraction of each output's max|ref|: both variants sum each column's d
+# products as 4 partial sums (reg: each as two chains that meet; the
+# loop's einsum in another order) and their tanh, exp and divides round
+# in other ways; the forget gate damps what the recurrence carries. 1e-4
+# is the f32 scan's gate (phase 4).
 SLSTM_TOL = 1e-4
 # its backward (and dr) against autograd of the loop: 1e-4 of each
 # gradient's max|ref|, the same f32 math summed in other orders
@@ -2977,29 +2982,47 @@ def _host_ms(fn, reps=3):
 
 
 def check_slstm(gen, b, s, h, d, with_state=False, time_it=False, store=False):
-    """``slstm_scan`` against ``slstm_scan_ref`` (the loop, on the same
-    card) within SLSTM_TOL of each output's max|ref| (ys, c, n, h); two
-    calls bit-identical. Timed: the kernel (with ``store``: as training
-    calls it, keeping c, n, z), the loop replayed from a CUDA graph and
-    launched from the host, and the bound."""
+    """``slstm_scan`` (the variant ``plan`` picks) against ``slstm_scan_ref``
+    (the loop, on the same card) within SLSTM_TOL of each output's
+    max|ref| (ys, c, n, h); where it picks ``reg``, ``fma`` forced on the
+    same inputs too; two calls of each bit-identical. Timed: the kernel
+    (with ``store``: as training calls it, keeping c, n, z), ``fma``
+    beside it, the loop replayed from a CUDA graph and launched from the
+    host, and the bound."""
     n_bytes, n_ops = slstm_work(b, s, h, d, store)
     n_sets = max(1, math.ceil(COLD_BYTES / n_bytes)) if time_it else 1
     sets = [_slstm_set(gen, b, s, h, d, with_state) for _ in range(n_sets)]
     ins = sets[0]
-    got = _count_variant(slstm_scan, "fma", lambda: slstm_scan(*ins))
+    variant = slstm_ops.plan(d)
+    got = _count_variant(slstm_scan, variant, lambda: slstm_scan(*ins))
     again = slstm_scan(*ins)
     plain = slstm_scan_ref(*ins)
     torch.cuda.synchronize()
     rel = _rel_errs(got, plain)
     same = all(torch.equal(x, y) for x, y in zip(got, again))
-    tag = f"B{b} S{s} H{h} d{d}{' state in' if with_state else ''}{' store' if store else ''}"
-    row = {"case": tag, "max_abs_err": max((g - w).abs().max().item() for g, w in zip(got, plain)),
+    tag = (f"B{b} S{s} H{h} d{d}{' state in' if with_state else ''}{' store' if store else ''} "
+           f"[{variant}]")
+    row = {"case": tag, "variant": variant,
+           "max_abs_err": max((g - w).abs().max().item() for g, w in zip(got, plain)),
            "rel_err_by_output": rel, "bit_identical": same,
            "ok": max(rel) <= SLSTM_TOL and same}
+    if variant != "fma":  # the fma kernel on the same inputs
+        fma = _count_variant(slstm_scan, "fma",
+                             lambda: slstm_ops._forward(*ins, force_fma=True)[:4])
+        fma_rel = _rel_errs(fma, plain)
+        fma_same = all(torch.equal(x, y) for x, y in
+                       zip(fma, slstm_ops._forward(*ins, force_fma=True)[:4]))
+        row.update(fma_rel_err_by_output=fma_rel, fma_bit_identical=fma_same,
+                   fma_max_abs_err=max((g - w).abs().max().item() for g, w in zip(fma, plain)))
+        row["ok"] = row["ok"] and max(fma_rel) <= SLSTM_TOL and fma_same
     if time_it:
         row["bytes"], row["ops"] = n_bytes, n_ops
         row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, n_ops, torch.float32)
         row["ms"] = cuda_ms(lambda i: slstm_ops._forward(*sets[i], store=store), n_sets)
+        if variant != "fma":
+            row["fma_ms"] = cuda_ms(lambda i: slstm_ops._forward(*sets[i], store=store,
+                                                                 force_fma=True), n_sets)
+        row["us_per_step"] = row["ms"] * 1e3 / s
         row["plain_ms"] = cuda_ms(lambda i: slstm_scan_ref(*sets[i], store=store), n_sets,
                                   iters=None if s == 1 else 3)
         row["plain_host_ms"] = _host_ms(lambda: slstm_scan_ref(*ins, store=store))
@@ -3007,28 +3030,37 @@ def check_slstm(gen, b, s, h, d, with_state=False, time_it=False, store=False):
     print(f"[xlstm] slstm_scan {tag}: max|err| / max|ref| ys/c/n/h "
           f"{'/'.join(f'{r:.2g}' for r in rel)} (gate {SLSTM_TOL}); two calls bit-identical "
           f"{same}"
-          + (f"; kernel {row['ms']*1e3:.1f} us, plain loop {row['plain_ms']*1e3:.1f} us (graph "
+          + (f"; fma on the same inputs "
+             f"{'/'.join(f'{r:.2g}' for r in row['fma_rel_err_by_output'])}, bit-identical "
+             f"{row['fma_bit_identical']}" if variant != "fma" else "")
+          + (f"; kernel {row['ms']*1e3:.1f} us ({row['us_per_step']:.3f} us a step)"
+             + (f", fma {row['fma_ms']*1e3:.1f} us" if "fma_ms" in row else "")
+             + f", plain loop {row['plain_ms']*1e3:.1f} us (graph "
              f"replay; {row['plain_host_ms']*1e3:.1f} us launched from the host), bound "
              f"{row['bound_ms']*1e3:.2f} us ({row['bound_by']})" if time_it else "")
           + ("" if row["ok"] else "  FAIL"), flush=True)
     check(same, f"slstm_scan {tag}: two calls on the same inputs differ")
-    check(row["ok"], f"slstm_scan {tag} disagrees with slstm_scan_ref: {rel}")
+    check(row["ok"], f"slstm_scan {tag} (or fma beside it) disagrees with slstm_scan_ref: {rel}")
     return row
 
 
 def check_slstm_bwd(gen, b, s, h, d, with_state=False, with_final=False, time_it=False):
     """``slstm_scan`` through its autograd Function (the forward kernel
-    storing c, n, z; the backward kernel; dr by ``slstm_dr``) against
-    autograd of ``slstm_scan_ref`` on the same card, every input's
-    gradient within SLSTM_BWD_TOL of its max|ref|; two calls
-    bit-identical. Timed: the backward kernel alone, dr's product, the
-    closed-form loop ``slstm_scan_bwd_ref`` on the card, and the bound."""
+    storing c, n, z; the backward kernel; dr by ``slstm_dr``), both of
+    the variant ``plan`` picks, against autograd of ``slstm_scan_ref`` on
+    the same card, every input's gradient within SLSTM_BWD_TOL of its
+    max|ref|; where it picks ``reg``, both ``fma`` kernels forced on the
+    same inputs too; two calls of each bit-identical. Timed: the backward
+    kernel alone, ``fma``'s beside it on the same stored c, n, z, dr's
+    product, the closed-form loop ``slstm_scan_bwd_ref`` on the card, and
+    the bound."""
     ins = _slstm_set(gen, b, s, h, d, with_state)
     e = h * d
     dys = torch.randn(b, s, e, generator=gen, device="cuda")
     d_final = ([torch.randn(b, e, generator=gen, device="cuda"),
                 torch.randn(b, h, generator=gen, device="cuda"),
                 torch.randn(b, e, generator=gen, device="cuda")] if with_final else [])
+    variant = slstm_ops.plan(d)
 
     def grads(fn):
         leaves_in = [t.clone().requires_grad_() for t in ins]
@@ -3036,8 +3068,16 @@ def check_slstm_bwd(gen, b, s, h, d, with_state=False, with_final=False, time_it
         torch.autograd.backward(list(outs[:1 + len(d_final)]), [dys] + d_final)
         return [t.grad for t in leaves_in]
 
+    def grads_fma():  # both fma kernels, forced, and the same dr
+        z_in, i_in, f_in, o_in, r, c0, n0, h0 = ins
+        ys, _, _, _, saved = slstm_ops._forward(*ins, store=True, force_fma=True)
+        dz, di, df, do, dc0, dn0, dh0 = slstm_ops._backward(
+            i_in, f_in, o_in, r, c0, n0, saved, dys, *(d_final or [None] * 3), force_fma=True)
+        return [dz, di, df, do, slstm_dr(h0, ys, dz, h), dc0, dn0, dh0]
+
     before = (slstm_scan.launches, slstm_scan_bwd.launches)
-    got = _count_variant(slstm_scan_bwd, "fma", lambda: grads(slstm_scan))
+    got = _count_variant(slstm_scan_bwd, variant,
+                         lambda: _count_variant(slstm_scan, variant, lambda: grads(slstm_scan)))
     check((slstm_scan.launches, slstm_scan_bwd.launches) == (before[0] + 1, before[1] + 1),
           "the sLSTM Function did not launch one forward and one backward")
     want = grads(slstm_scan_ref)
@@ -3047,10 +3087,18 @@ def check_slstm_bwd(gen, b, s, h, d, with_state=False, with_final=False, time_it
     same = all(torch.equal(x, y) for x, y in zip(got, again))
     names = ("z_in", "i_in", "f_in", "o_in", "r", "c0", "n0", "h0")
     tag = (f"B{b} S{s} H{h} d{d}{' state in' if with_state else ''}"
-           f"{' final-state gradient' if with_final else ''}")
-    row = {"case": tag, "max_abs_err": max((g - w).abs().max().item() for g, w in zip(got, want)),
+           f"{' final-state gradient' if with_final else ''} [{variant}]")
+    row = {"case": tag, "variant": variant,
+           "max_abs_err": max((g - w).abs().max().item() for g, w in zip(got, want)),
            "rel_err_by_input": dict(zip(names, rel)), "bit_identical": same,
            "ok": max(rel) <= SLSTM_BWD_TOL and same}
+    if variant != "fma":
+        fma = _count_variant(slstm_scan_bwd, "fma", grads_fma)
+        fma_rel = _rel_errs(fma, want)
+        fma_same = all(torch.equal(x, y) for x, y in zip(fma, grads_fma()))
+        row.update(fma_rel_err_by_input=dict(zip(names, fma_rel)), fma_bit_identical=fma_same,
+                   fma_max_abs_err=max((g - w).abs().max().item() for g, w in zip(fma, want)))
+        row["ok"] = row["ok"] and max(fma_rel) <= SLSTM_BWD_TOL and fma_same
     if time_it:
         z_in, i_in, f_in, o_in, r, c0, n0, h0 = ins
         ys, _, _, _, saved = slstm_ops._forward(*ins, store=True)
@@ -3058,6 +3106,10 @@ def check_slstm_bwd(gen, b, s, h, d, with_state=False, with_final=False, time_it
         row["bytes"], row["ops"] = n_bytes, n_ops
         row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, n_ops, torch.float32)
         row["ms"] = cuda_ms(lambda i: slstm_scan_bwd(i_in, f_in, o_in, r, c0, n0, saved, dys), 1)
+        if variant != "fma":
+            row["fma_ms"] = cuda_ms(lambda i: slstm_ops._backward(
+                i_in, f_in, o_in, r, c0, n0, saved, dys, force_fma=True), 1)
+        row["us_per_step"] = row["ms"] * 1e3 / s
         dz = slstm_scan_bwd(i_in, f_in, o_in, r, c0, n0, saved, dys)[0]
         row["dr_ms"] = cuda_ms(lambda i: slstm_dr(h0, ys, dz, h), 1)
         row["plain_ms"] = cuda_ms(lambda i: slstm_scan_bwd_ref(i_in, f_in, o_in, r, c0, n0, saved,
@@ -3067,13 +3119,18 @@ def check_slstm_bwd(gen, b, s, h, d, with_state=False, with_final=False, time_it
     print(f"[xlstm] slstm_scan_bwd {tag}: max|err| / max|ref| "
           + ", ".join(f"{n} {r:.2g}" for n, r in zip(names, rel))
           + f" (gate {SLSTM_BWD_TOL}); two calls bit-identical {same}"
-          + (f"; kernel {row['ms']*1e3:.1f} us (+ dr {row['dr_ms']*1e3:.1f} us), plain "
+          + (f"; fma on the same inputs worst {max(row['fma_rel_err_by_input'].values()):.2g}, "
+             f"bit-identical {row['fma_bit_identical']}" if variant != "fma" else "")
+          + (f"; kernel {row['ms']*1e3:.1f} us ({row['us_per_step']:.3f} us a step)"
+             + (f", fma {row['fma_ms']*1e3:.1f} us" if "fma_ms" in row else "")
+             + f" (+ dr {row['dr_ms']*1e3:.1f} us), plain "
              f"closed form {row['plain_ms']*1e3:.1f} us, bound {row['bound_ms']*1e3:.2f} us "
              f"({row['bound_by']}); the forward storing c, n, z "
              f"{row['forward_with_store_ms']*1e3:.1f} us" if time_it else "")
           + ("" if row["ok"] else "  FAIL"), flush=True)
     check(same, f"slstm_scan_bwd {tag}: two calls on the same inputs differ")
-    check(row["ok"], f"slstm_scan_bwd {tag} disagrees with autograd of the loop: {rel}")
+    check(row["ok"], f"slstm_scan_bwd {tag} (or fma beside it) disagrees with autograd of the "
+          f"loop: {rel}")
     return row
 
 

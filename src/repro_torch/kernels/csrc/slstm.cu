@@ -11,21 +11,41 @@
 //   c_j   = f c_j + i z_j,         n = f n + i
 //   h_tj  = sigmoid(o_in_tj) (c_j / max(n, 1))
 //
-// One block per (b, h) walks the steps in series; r[h] (D x D f32: 144 KiB
-// at xlstm-125m's D = 192) stays in shared memory for the whole walk and
-// h_{t-1} beside it. The block runs KS groups of DP = D rounded up to 32
-// threads: thread (g, j) sums the matvec's column j over the g-th KS-th of
-// k (r read along its rows: consecutive j, no bank conflicts), the
-// partial sums meet in shared memory, and group 0 (thread j owning c_j)
-// applies the gates. Two block barriers a step. Nothing else is on chip:
-// each step reads z_in, o_in (D floats) and i_in, f_in (one each) from
-// device memory and writes h.
-//
 // What bounds it on an H100: at xlstm-125m's training shape (B 8, S 512,
 // H 4) a call moves ~38 MB (~11 us at 3.35 TB/s) and does ~1.2 GFLOP of
 // f32 matvec (~18 us at 67 TFLOP/s), but its 512 steps are a dependent
-// chain on 32 blocks: the latency of one step (a 48-long FMA chain, two
-// barriers, the gates' exp, tanh and divides) sets the time.
+// chain on 32 blocks (one per (b, h)): what one step costs inside one SM
+// sets the time. Two variants, both one block per (b, h):
+//
+// reg (slstm_fwd_reg, D a multiple of 16 up to REG_MAX_D). r[h] is read
+// from device memory once and held in registers for the whole walk: a
+// thread holds CPT columns of r over one of KS slices of k (96 floats a
+// thread at D = 192, 384 threads). Lane = LG g + jj of a warp: the KS
+// slices g of one column group jj share a warp, so the slices' partial
+// sums meet by shuffles (a butterfly: every lane of the group ends with
+// the same bits) and every lane applies the gates of one of its columns.
+// Shared memory carries only h (double-buffered, each slice's float4
+// reads broadcast to its 8 lanes, the slices on distinct banks) and a
+// ring of NSTAGE steps' inputs (z_in, o_in, i_in, f_in), copied with
+// cp.async NSTAGE - 1 steps ahead, so no step waits on device memory;
+// each thread makes at most one copy a step, the copies spread over all
+// the warps, so that no warp reaches the barrier late.
+// One block barrier a step: the one that publishes h_t. The gates that
+// do not wait on the matvec (i, f, sigmoid(o), n) run beside it, with
+// __expf and __fdividef (tools/slstm_variants.py: 15 % of the step, ~1e-6
+// of the outputs' scale); tanh(z_in + rec) and c / max(n, 1), on the
+// chain, stay precise (tanhf, a divide). FWD_CLUSTER > 1 splits a head's
+// columns over a thread-block cluster of that many blocks, each holding
+// r[:, its columns], computing n itself and writing its h_t slice into
+// every block's h buffer (distributed shared memory), with one cluster
+// barrier a step; tools/slstm_variants.py times it against one block.
+//
+// fma (slstm_fwd, any D up to 1024): r[h] (D x D f32: 144 KiB at D = 192)
+// stays in shared memory and h_{t-1} beside it. The block runs KS_MAX
+// groups of DP = D rounded up to 32 threads: thread (g, j) sums the
+// matvec's column j over the g-th KS-th of k, the partial sums meet in
+// shared memory, and group 0 (thread j owning c_j) applies the gates. Two
+// block barriers a step; each step reads its inputs from device memory.
 //
 // Training passes c_all, n_all and z_all, (B, S, E), (B, S, H), (B, S, E)
 // f32, and the kernel stores each step's c, n and z there: what the
@@ -33,6 +53,8 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "mma_util.cuh"
 
 namespace {
 
@@ -127,14 +149,256 @@ __global__ void slstm_fwd(const float* __restrict__ z_in, const float* __restric
   }
 }
 
+// ---------------------------------------------------------------------------
+// reg: r in registers, one barrier a step, the inputs loaded ahead
+// ---------------------------------------------------------------------------
+
+constexpr int KS = 4;           // slices of the matvec's k; lane = LG g + jj
+constexpr int CPT = 2;          // columns of r a thread holds
+constexpr int LG = 32 / KS;     // column groups of a warp
+constexpr int NSTAGE = 8;       // steps of inputs in the ring (NSTAGE - 1 in flight)
+constexpr int FWD_CLUSTER = 1;  // blocks that split a head's columns
+constexpr int REG_MAX_D = 192;  // registers: CPT * D / KS floats of r a thread
+
+template <int D>
+struct Reg {
+  static constexpr int KPT = D / KS;                         // k of a slice
+  static constexpr int STR = (KPT / 4) % 2 ? KPT : KPT + 4;  // slice g starts at g STR:
+  static constexpr int HS = KS * STR;                        // 4 g STR / 16 distinct mod 8
+  static_assert(D % 16 == 0 && D <= REG_MAX_D, "reg takes D a multiple of 16 up to REG_MAX_D");
+  static __device__ __forceinline__ int pos(int j) { return j / KPT * STR + j % KPT; }
+};
+
+template <int D, int CL>
+__host__ __device__ constexpr int fwd_threads() { return D / CL / CPT * KS; }
+template <int D, int CL>
+__host__ __device__ constexpr int fwd_smem_floats() {
+  return 2 * Reg<D>::HS + NSTAGE * (2 * (D / CL) + 4);
+}
+
+// the reg variants' gates: exp and the sigmoid's divide by the intrinsics
+// (__expf, __fdividef: ~1e-6 of each output's scale on the card, under the
+// 1e-4 gate); tanh and the divides by max(n, 1) stay precise
+__device__ __forceinline__ float sigmoid_fast(float x) {
+  return __fdividef(1.f, 1.f + __expf(-x));
+}
+
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ uint32_t cluster_addr(const void* local, unsigned rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(mma::smem_u32(local)),
+               "r"(rank));
+  return remote;
+}
+__device__ __forceinline__ void st_cluster(uint32_t addr, float v) {
+  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(v) : "memory");
+}
+template <int CL>
+__device__ __forceinline__ void step_sync() {
+  if constexpr (CL > 1) {
+    asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+    asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+  } else {
+    __syncthreads();
+  }
+}
+
+template <int D, int CL>
+__global__ void __launch_bounds__(fwd_threads<D, CL>(), 1)
+    slstm_fwd_reg(const float* __restrict__ z_in, const float* __restrict__ i_in,
+                  const float* __restrict__ f_in, const float* __restrict__ o_in,
+                  const float* __restrict__ r, const float* __restrict__ c0,
+                  const float* __restrict__ n0, const float* __restrict__ h0,
+                  float* __restrict__ ys, float* __restrict__ c_out, float* __restrict__ n_out,
+                  float* __restrict__ h_out, float* __restrict__ c_all,
+                  float* __restrict__ n_all, float* __restrict__ z_all, int S, int H) {
+  using G = Reg<D>;
+  constexpr int DC = D / CL;  // this block's columns
+  constexpr int NT = fwd_threads<D, CL>(), KPT = G::KPT, STAGE = 2 * DC + 4;
+  static_assert(DC % (CPT * LG) == 0, "a warp's column groups cover the block's columns");
+  extern __shared__ __align__(16) float sm[];
+  float* h_s = sm;               // h_{t-1} and h_t, 2 x HS, at pos(k)
+  float* ring = sm + 2 * G::HS;  // NSTAGE x (z_in, o_in of the columns; i_in, f_in)
+
+  const int rank = CL > 1 ? (int)cluster_rank() : 0;
+  const int bh = blockIdx.x / CL, b = bh / H, hh = bh % H, E = H * D;
+  const int tid = threadIdx.x, lane = tid & 31, g = lane / LG;
+  const int col0 = rank * DC + ((tid >> 5) * LG + lane % LG) * CPT;  // this thread's columns
+  const int j = col0 + g % CPT, jl = j - rank * DC;  // the column whose gates it applies
+  const bool own = g < CPT;                          // and writes
+  const size_t st_e = (size_t)b * E + (size_t)hh * D;        // (b, h*D) of a state (B, E)
+  const size_t base_e = (size_t)b * S * E + (size_t)hh * D;  // (b, 0, h*D) of (B, S, E)
+  const size_t base_h = (size_t)b * S * H + hh;              // (b, 0, h) of (B, S, H)
+
+  // A step's inputs are DC / 2 copies of 16 bytes (z_in, then o_in, at 4 cq
+  // in the stage) and two of 4 (i_in, f_in). Copy cq = (tid % 4) NT / 4 +
+  // tid / 4 is this thread's in every step, so the copies spread over all
+  // the warps; its source moves on by a step (E or H floats) a copy.
+  static_assert(NT >= DC / 2 + 2, "a copy a thread");
+  const int cq = (tid % 4) * (NT / 4) + tid / 4;
+  const bool wide = cq < DC / 2, copies = cq < DC / 2 + 2;
+  const float* src = cq < DC / 4 ? z_in + base_e + rank * DC + 4 * cq
+                     : wide      ? o_in + base_e + rank * DC + (4 * cq - DC)
+                                 : (cq == DC / 2 ? i_in : f_in) + base_h;
+  const int src_step = wide ? E : H, dst = wide ? 4 * cq : 2 * DC + cq - DC / 2;
+  auto issue = [&](int t) {  // step t's inputs into its stage of the ring; t rises by one a call
+    if (copies) {
+      float* d = ring + (t % NSTAGE) * STAGE + dst;
+      if (wide)
+        mma::cp_async16(d, src, 16);
+      else
+        mma::cp_async4(d, src, 4);
+      src += src_step;
+    }
+  };
+  for (int t = 0; t < NSTAGE - 1; ++t) {
+    if (t < S) issue(t);
+    mma::cp_async_commit();
+  }
+
+  float rr[KPT][CPT];  // r[h]_{k, col0 + c}, k = g KPT + i
+  const float* rg = r + (size_t)hh * D * D + (size_t)g * KPT * D + col0;
+#pragma unroll
+  for (int i = 0; i < KPT; ++i)
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) rr[i][c] = rg[(size_t)i * D + c];
+  for (int q = tid; q < D; q += NT) h_s[G::pos(q)] = h0[st_e + q];
+  float c = c0[st_e + j], n = n0[(size_t)b * H + hh], hv = h0[st_e + j];
+  float* y_t = ys + base_e + j;  // this column's h_t (c_t, z_t) in ys (c_all, z_all): E a step
+  const bool keep = c_all != nullptr;
+  float* c_t = keep ? c_all + base_e + j : nullptr;
+  float* z_t = keep ? z_all + base_e + j : nullptr;
+  float* n_t = keep ? n_all + base_h : nullptr;
+  uint32_t peer[CL > 1 ? CL - 1 : 1];  // h_s in the cluster's other blocks
+  if constexpr (CL > 1) {
+#pragma unroll
+    for (int q = 1; q < CL; ++q) peer[q - 1] = cluster_addr(h_s, (unsigned)((rank + q) % CL));
+  }
+  mma::cp_async_wait<NSTAGE - 2>();  // step 0's inputs
+  step_sync<CL>();
+
+  for (int t = 0; t < S; ++t) {
+    const float* hc = h_s + (t & 1) * G::HS;
+    if (t + NSTAGE - 1 < S) issue(t + NSTAGE - 1);  // into the stage step t - 1 read
+    mma::cp_async_commit();
+    const float* st = ring + (t % NSTAGE) * STAGE;
+    const float zt = st[jl], ot = st[DC + jl], it = st[2 * DC], ft = st[2 * DC + 1];
+    // the gates that do not wait on the matvec
+    const float ig = __expf(fminf(it, 10.f));
+    const float fg = sigmoid_fast(ft);
+    const float og = sigmoid_fast(ot);
+    n = fg * n + ig;
+    const float m = fmaxf(n, 1.f);
+    float acc[CPT][2];
+#pragma unroll
+    for (int cc = 0; cc < CPT; ++cc) acc[cc][0] = acc[cc][1] = 0.f;
+#pragma unroll
+    for (int i = 0; i < KPT / 4; ++i) {
+      const float4 hk = *reinterpret_cast<const float4*>(hc + g * G::STR + 4 * i);
+#pragma unroll
+      for (int cc = 0; cc < CPT; ++cc) {
+        float& a = acc[cc][i & 1];
+        a = fmaf(hk.x, rr[4 * i][cc], a);
+        a = fmaf(hk.y, rr[4 * i + 1][cc], a);
+        a = fmaf(hk.z, rr[4 * i + 2][cc], a);
+        a = fmaf(hk.w, rr[4 * i + 3][cc], a);
+      }
+    }
+    float rec = 0.f;
+#pragma unroll
+    for (int cc = 0; cc < CPT; ++cc) {
+      float p = acc[cc][0] + acc[cc][1];
+#pragma unroll
+      for (int o = LG; o < 32; o <<= 1) p += __shfl_xor_sync(0xffffffffu, p, o);
+      if (g % CPT == cc) rec = p;
+    }
+    const float z = tanhf(zt + rec);
+    c = fg * c + ig * z;
+    hv = og * (c / m);
+    if (own) {
+      const int at = ((t + 1) & 1) * G::HS + G::pos(j);
+      h_s[at] = hv;
+      if constexpr (CL > 1) {
+#pragma unroll
+        for (int q = 0; q < CL - 1; ++q) st_cluster(peer[q] + 4u * at, hv);
+      }
+      *y_t = hv;
+      if (keep) {
+        *c_t = c;
+        *z_t = z;
+      }
+    }
+    if (keep && tid == 0 && rank == 0) *n_t = n;
+    y_t += E;
+    if (keep) {
+      c_t += E;
+      z_t += E;
+      n_t += H;
+    }
+    mma::cp_async_wait<NSTAGE - 2>();  // this thread's copies of step t + 1
+    step_sync<CL>();                   // h_t and step t + 1's inputs are in
+  }
+  if (own) {
+    c_out[st_e + j] = c;
+    h_out[st_e + j] = hv;
+  }
+  if (tid == 0 && rank == 0) n_out[(size_t)b * H + hh] = n;
+}
+
+template <int D, int CL>
+int launch_reg_cl(const float* z_in, const float* i_in, const float* f_in, const float* o_in,
+                  const float* r, const float* c0, const float* n0, const float* h0, float* ys,
+                  float* c_out, float* n_out, float* h_out, float* c_all, float* n_all,
+                  float* z_all, int B, int S, int H, cudaStream_t s) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(B * H * CL));
+  cfg.blockDim = dim3(fwd_threads<D, CL>());
+  cfg.dynamicSmemBytes = sizeof(float) * fwd_smem_floats<D, CL>();
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)CL;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = CL > 1 ? 1 : 0;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, slstm_fwd_reg<D, CL>, z_in, i_in, f_in, o_in, r, c0,
+                                     n0, h0, ys, c_out, n_out, h_out, c_all, n_all, z_all, S, H);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// FWD_CLUSTER blocks a head where they split its columns into whole warps
+template <int D>
+__host__ __device__ constexpr int fwd_cluster() {
+  return (D / FWD_CLUSTER) % (CPT * LG) == 0 ? FWD_CLUSTER : 1;
+}
+
+template <int D>
+int launch_reg(const float* z_in, const float* i_in, const float* f_in, const float* o_in,
+               const float* r, const float* c0, const float* n0, const float* h0, float* ys,
+               float* c_out, float* n_out, float* h_out, float* c_all, float* n_all, float* z_all,
+               int B, int S, int H, cudaStream_t s) {
+  if constexpr (D % (CPT * LG) != 0) {  // no whole warps at this layout
+    return (int)cudaErrorInvalidValue;
+  } else {
+    return launch_reg_cl<D, fwd_cluster<D>()>(z_in, i_in, f_in, o_in, r, c0, n0, h0, ys, c_out,
+                                              n_out, h_out, c_all, n_all, z_all, B, S, H, s);
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
 const char* kernel_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// The shared memory a block of head width D takes, in bytes (the wrapper
-// refuses a D whose block does not fit).
+// The shared memory a block of the fma variant at head width D takes, in
+// bytes (the wrapper refuses a D whose block does not fit).
 int slstm_smem_bytes(int D) {
   const Geometry g = geometry(D);
   return (int)(sizeof(float) * ((size_t)D * D + g.dp + (size_t)g.ks * g.dp));
@@ -144,15 +408,42 @@ int slstm_smem_bytes(int D) {
 // (B, S, H), r (H, D, D), the initial state c0, h0 (B, E), n0 (B, H) and
 // the final one c_out, h_out, n_out in the same shapes, E = H * D.
 // c_all, n_all, z_all: null (serving), or (B, S, E), (B, S, H), (B, S, E)
-// buffers that receive each step's c, n and z (training).
+// buffers that receive each step's c, n and z (training). variant 0:
+// fma; 1: reg (D a multiple of 16 up to REG_MAX_D; z_in and o_in 16-byte
+// aligned).
 int slstm_scan_launch(const void* z_in, const void* i_in, const void* f_in, const void* o_in,
                       const void* r, const void* c0, const void* n0, const void* h0, void* ys,
                       void* c_out, void* n_out, void* h_out, void* c_all, void* n_all,
-                      void* z_all, int B, int S, int H, int D, void* stream) {
+                      void* z_all, int B, int S, int H, int D, int variant, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0 || D <= 0 || D > 1024 || (long long)B * H > 2147483647LL)
     return (int)cudaErrorInvalidValue;
   if ((c_all == nullptr) != (n_all == nullptr) || (c_all == nullptr) != (z_all == nullptr))
     return (int)cudaErrorInvalidValue;
+  if (variant == 1) {
+    if ((long long)B * H * FWD_CLUSTER > 2147483647LL) return (int)cudaErrorInvalidValue;
+#define SLSTM_REG_ARGS                                                                           \
+  (const float*)z_in, (const float*)i_in, (const float*)f_in, (const float*)o_in, (const float*)r, \
+      (const float*)c0, (const float*)n0, (const float*)h0, (float*)ys, (float*)c_out,            \
+      (float*)n_out, (float*)h_out, (float*)c_all, (float*)n_all, (float*)z_all, B, S, H,         \
+      (cudaStream_t)stream
+    switch (D) {
+      case 16: return launch_reg<16>(SLSTM_REG_ARGS);
+      case 32: return launch_reg<32>(SLSTM_REG_ARGS);
+      case 48: return launch_reg<48>(SLSTM_REG_ARGS);
+      case 64: return launch_reg<64>(SLSTM_REG_ARGS);
+      case 80: return launch_reg<80>(SLSTM_REG_ARGS);
+      case 96: return launch_reg<96>(SLSTM_REG_ARGS);
+      case 112: return launch_reg<112>(SLSTM_REG_ARGS);
+      case 128: return launch_reg<128>(SLSTM_REG_ARGS);
+      case 144: return launch_reg<144>(SLSTM_REG_ARGS);
+      case 160: return launch_reg<160>(SLSTM_REG_ARGS);
+      case 176: return launch_reg<176>(SLSTM_REG_ARGS);
+      case 192: return launch_reg<192>(SLSTM_REG_ARGS);
+      default: return (int)cudaErrorInvalidValue;
+    }
+#undef SLSTM_REG_ARGS
+  }
+  if (variant != 0) return (int)cudaErrorInvalidValue;
   const Geometry g = geometry(D);
   const int smem = slstm_smem_bytes(D);
   cudaError_t e = cudaFuncSetAttribute(slstm_fwd, cudaFuncAttributeMaxDynamicSharedMemorySize,

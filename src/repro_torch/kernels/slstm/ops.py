@@ -8,20 +8,25 @@ d) with d = E / H, and the initial state c0, h0 (B, E), n0 (B, H):
 zeros for prefill and training, the cache for decode.
 
 For CPU tensors the op runs its plain version, ``slstm_scan_ref``. For
-CUDA tensors it launches the hand-written kernel of ``csrc/slstm.cu``
-(built on first use; one block per (batch, head) with r[h] in shared
-memory, f32 on the CUDA cores), or raises: nothing falls back.
-``slstm_scan.launches`` counts its launches and ``slstm_scan.variants``
-counts them by variant (one: ``fma``).
+CUDA tensors it launches a hand-written kernel of ``csrc/slstm.cu``
+(built on first use; one block per (batch, head), f32 on the CUDA
+cores), or raises: nothing falls back. ``plan(d)`` picks the variant:
+``reg`` (r[h] held in registers for the whole walk, one block barrier a
+step, each step's inputs copied into a shared-memory ring ahead) where
+its registers fit, d a multiple of 16 up to ``REG_MAX_D``, and ``fma``
+(r[h] in shared memory) for every other d. ``slstm_scan.launches``
+counts its launches and ``slstm_scan.variants`` counts them by variant.
 
 Training: when an input requires grad, the op runs through an autograd
 ``Function``. Its forward also keeps each step's c, n and z (on the card
 the kernel stores them: 2 B S E + B S H floats, 25.2 MB per sLSTM layer
 at xlstm-125m's 8 x 512); its backward calls ``slstm_scan_bwd``, which
 launches ``csrc/slstm_bwd.cu`` on the card (``slstm_scan_bwd.launches``,
-``.variants``) and runs ``slstm_scan_bwd_ref`` on the CPU, and forms
-the gradient of r outside the kernel with one ``torch.matmul`` per head
-(``slstm_dr``).
+``.variants``; the same ``plan``) and runs ``slstm_scan_bwd_ref`` on the
+CPU, and forms the gradient of r outside the kernel with one
+``torch.matmul`` per head (``slstm_dr``). ``_forward`` and ``_backward``
+take a private ``force_fma`` that launches ``fma`` whatever ``plan``
+says, so that a measurement can time both variants on the same inputs.
 """
 
 from __future__ import annotations
@@ -33,9 +38,16 @@ import torch
 from .. import _build
 from .ref import slstm_dr, slstm_scan_bwd_ref, slstm_scan_ref
 
-__all__ = ["VARIANTS", "slstm_scan", "slstm_scan_bwd"]
+__all__ = ["CPT", "KS", "NSTAGE", "REG_MAX_D", "VARIANTS", "plan", "reg_geometry", "slstm_scan",
+           "slstm_scan_bwd"]
 
-VARIANTS = ("fma",)
+VARIANTS = ("reg", "fma")
+_CODES = {"fma": 0, "reg": 1}
+# the reg variants' layout, as csrc/slstm.cu and csrc/slstm_bwd.cu state it
+KS = 4  # slices of the matvec's reduction index, in one warp
+CPT = 2  # columns (rows, in the backward) of r a thread holds
+NSTAGE = 8  # steps of inputs in the shared-memory ring
+REG_MAX_D = 192  # r's CPT * d / KS floats a thread: 96 at d 192, under 384 threads' cap of 168
 _LIB = None
 _BWD_LIB = None
 
@@ -44,7 +56,7 @@ def _lib() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
         lib = _build.load("slstm")
-        lib.slstm_scan_launch.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 4 + [
+        lib.slstm_scan_launch.argtypes = [ctypes.c_void_p] * 15 + [ctypes.c_int] * 5 + [
             ctypes.c_void_p]
         lib.slstm_scan_launch.restype = ctypes.c_int
         _LIB = lib
@@ -55,15 +67,47 @@ def _bwd_lib() -> ctypes.CDLL:
     global _BWD_LIB
     if _BWD_LIB is None:
         lib = _build.load("slstm_bwd")
-        lib.slstm_scan_bwd_launch.argtypes = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 4 + [
+        lib.slstm_scan_bwd_launch.argtypes = [ctypes.c_void_p] * 21 + [ctypes.c_int] * 5 + [
             ctypes.c_void_p]
         lib.slstm_scan_bwd_launch.restype = ctypes.c_int
+        lib.slstm_bwd_part_floats.argtypes = [ctypes.c_int]
+        lib.slstm_bwd_part_floats.restype = ctypes.c_int
         _BWD_LIB = lib
     return _BWD_LIB
 
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
+
+
+def plan(d: int) -> str:
+    """The variant for head width ``d``: ``reg`` where r's share of a
+    thread fits in registers (d a multiple of 16, 16 <= d <= REG_MAX_D),
+    else ``fma`` (any d up to 1024)."""
+    return "reg" if d % 16 == 0 and 16 <= d <= REG_MAX_D else "fma"
+
+
+def reg_geometry(d: int) -> dict:
+    """The reg variants' block at head width ``d`` (one block per (b,
+    h)): threads, warps, k (or j) per slice, floats of r a thread holds,
+    the h (or dz) buffer's slice stride (slices on distinct banks), and
+    each kernel's shared memory in bytes."""
+    if plan(d) != "reg":
+        raise ValueError(f"reg takes d a multiple of 16 up to {REG_MAX_D}; got {d}")
+    kpt = d // KS
+    stride = kpt if (kpt // 4) % 2 else kpt + 4
+    threads = d // CPT * KS
+    return {"threads": threads, "warps": threads // 32, "k_per_slice": kpt,
+            "r_floats_per_thread": CPT * kpt, "slice_stride": stride,
+            "fwd_smem_bytes": 4 * (2 * KS * stride + NSTAGE * (2 * d + 4)),
+            "bwd_smem_bytes": 4 * (2 * KS * stride + NSTAGE * (4 * d + 4)),
+            "bwd_part_floats": 3 * threads // 32}
+
+
+def _aligned(t):
+    """``t``, or a copy of it whose base is 16-byte aligned (the reg
+    variants copy rows of it with 16-byte cp.async)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _shapes(z_in, i_in, r):
@@ -83,12 +127,16 @@ def _on_card(what, *ts):
     return [None if t is None else t.float().contiguous() for t in ts]
 
 
-def _forward(z_in, i_in, f_in, o_in, r, c0, n0, h0, store=False):
+def _forward(z_in, i_in, f_in, o_in, r, c0, n0, h0, store=False, force_fma=False):
     """The forward kernel on CUDA tensors: ``(ys, c, n, h, saved)``,
-    saved ``(c_all, n_all, z_all)`` or None unless ``store``."""
+    saved ``(c_all, n_all, z_all)`` or None unless ``store``.
+    ``force_fma`` launches ``fma`` whatever ``plan`` says."""
     b, s, h, d = _shapes(z_in, i_in, r)
     z_in, i_in, f_in, o_in, r, c0, n0, h0 = _on_card("slstm_scan", z_in, i_in, f_in, o_in, r,
                                                      c0, n0, h0)
+    variant = "fma" if force_fma else plan(d)
+    if variant == "reg":
+        z_in, o_in = _aligned(z_in), _aligned(o_in)
     e = h * d
     dev = z_in.device
     ys = torch.empty((b, s, e), dtype=torch.float32, device=dev)
@@ -102,10 +150,10 @@ def _forward(z_in, i_in, f_in, o_in, r, c0, n0, h0, store=False):
     err = lib.slstm_scan_launch(
         _ptr(z_in), _ptr(i_in), _ptr(f_in), _ptr(o_in), _ptr(r), _ptr(c0), _ptr(n0), _ptr(h0),
         _ptr(ys), _ptr(c), _ptr(n), _ptr(hl), *(_ptr(t) for t in (saved or (None,) * 3)),
-        b, s, h, d, torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(lib, err, "slstm_scan")
+        b, s, h, d, _CODES[variant], torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(lib, err, f"slstm_scan ({variant})")
     slstm_scan.launches += 1
-    slstm_scan.variants["fma"] += 1
+    slstm_scan.variants[variant] += 1
     return ys, c, n, hl, saved
 
 
@@ -156,11 +204,20 @@ def slstm_scan_bwd(i_in, f_in, o_in, r, c0, n0, saved, dys, dc=None, dn=None, dh
     given the forward's ``saved = (c_all, n_all, z_all)``, the gradient
     of ys (``dys``) and those of the final state (``dc``, ``dn``, ``dh``;
     None where the caller dropped it), all f32. CPU tensors take
-    ``slstm_scan_bwd_ref``; CUDA tensors launch the backward kernel, or
-    raise. ``slstm_scan_bwd.launches`` counts the launches of this
-    process."""
+    ``slstm_scan_bwd_ref``; CUDA tensors launch the backward kernel of
+    ``plan``'s variant, or raise. ``slstm_scan_bwd.launches`` counts the
+    launches of this process, ``.variants`` by variant."""
     if dys.device.type == "cpu":
         return slstm_scan_bwd_ref(i_in, f_in, o_in, r, c0, n0, saved, dys, dc, dn, dh)
+    return _backward(i_in, f_in, o_in, r, c0, n0, saved, dys, dc, dn, dh)
+
+
+def _backward(i_in, f_in, o_in, r, c0, n0, saved, dys, dc=None, dn=None, dh=None,
+              force_fma=False):
+    """The backward kernel on CUDA tensors; ``force_fma`` launches
+    ``fma`` whatever ``plan`` says. The reg variant stores each step's
+    per-warp sums in a scratch of B H S ``slstm_bwd_part_floats(d)``
+    floats and finishes di_in, df_in and dn from it after its walk."""
     b, s, e = dys.shape
     _, _, h, d = _shapes(dys, i_in, r)
     c_all, n_all, z_all = saved
@@ -169,17 +226,23 @@ def slstm_scan_bwd(i_in, f_in, o_in, r, c0, n0, saved, dys, dc=None, dn=None, dh
         raise ValueError(f"slstm_scan_bwd: saved {[tuple(t.shape) for t in saved]}")
     (i_in, f_in, o_in, r, c0, n0, c_all, n_all, z_all, dys, dc, dn, dh) = _on_card(
         "slstm_scan_bwd", i_in, f_in, o_in, r, c0, n0, c_all, n_all, z_all, dys, dc, dn, dh)
+    variant = "fma" if force_fma else plan(d)
     dz_in, do_in = torch.empty_like(dys), torch.empty_like(dys)
     di_in, df_in = torch.empty_like(i_in), torch.empty_like(f_in)
     dc0, dn0, dh0 = torch.empty_like(c0), torch.empty_like(n0), torch.empty_like(c0)
     lib = _bwd_lib()
+    part = None
+    if variant == "reg":
+        c_all, z_all, o_in, dys = (_aligned(t) for t in (c_all, z_all, o_in, dys))
+        part = torch.empty(b * h * s * lib.slstm_bwd_part_floats(d), dtype=torch.float32,
+                           device=dys.device)
     err = lib.slstm_scan_bwd_launch(
         *(_ptr(t) for t in (i_in, f_in, o_in, r, c0, n0, c_all, n_all, z_all, dys, dc, dn, dh,
-                            dz_in, di_in, df_in, do_in, dc0, dn0, dh0)),
-        b, s, h, d, torch.cuda.current_stream(dys.device).cuda_stream)
-    _build.check(lib, err, "slstm_scan_bwd")
+                            dz_in, di_in, df_in, do_in, dc0, dn0, dh0, part)),
+        b, s, h, d, _CODES[variant], torch.cuda.current_stream(dys.device).cuda_stream)
+    _build.check(lib, err, f"slstm_scan_bwd ({variant})")
     slstm_scan_bwd.launches += 1
-    slstm_scan_bwd.variants["fma"] += 1
+    slstm_scan_bwd.variants[variant] += 1
     return dz_in, di_in, df_in, do_in, dc0, dn0, dh0
 
 

@@ -25,7 +25,9 @@ The sLSTM recurrence (``slstm_scan``, f32) against its plain loop on the
 same card: 1e-4 of max|ref| for ys and the final state (the matvec's f32
 sums in another order, carried through the steps); its backward
 (``slstm_scan_bwd`` with ``slstm_dr``) against autograd of the loop:
-1e-4 of each gradient's max|ref|.
+1e-4 of each gradient's max|ref|. Both of their variants are held to it:
+the one ``plan`` picks (``reg`` for d a multiple of 16 up to 192) and
+``fma`` forced on the same inputs.
 """
 
 import pytest
@@ -782,27 +784,39 @@ def _close_rel(got, want, tol):
 
 
 @pytest.mark.parametrize("case", _SLSTM_CASES)
-def test_slstm_scan_kernel(gen, case):
+@pytest.mark.parametrize("variant", ["planned", "fma"])
+def test_slstm_scan_kernel(gen, case, variant):
+    """The variant ``plan`` picks (``reg`` at d 192 and 32, ``fma`` at d
+    40) through the op, and ``fma`` forced on the same inputs."""
     from repro_torch.kernels import slstm_scan
-    from repro_torch.kernels.slstm import slstm_scan_ref
+    from repro_torch.kernels.slstm import ops, slstm_scan_ref
 
     ins = _slstm_inputs(gen, *case)
-    before = slstm_scan.launches
-    got = slstm_scan(*ins)
-    assert slstm_scan.launches == before + 1
+    want = ops.plan(case[3]) if variant == "planned" else "fma"
+
+    def call():
+        if variant == "planned":
+            return slstm_scan(*ins)
+        return ops._forward(*ins, force_fma=True)[:4]
+
+    before = dict(slstm_scan.variants)
+    got = call()
+    assert slstm_scan.variants == dict(before, **{want: before[want] + 1})
     for g, w in zip(got, slstm_scan_ref(*ins)):
         _close_rel(g, w, SLSTM_TOL)
-    again = slstm_scan(*ins)
+    again = call()
     assert all(torch.equal(x, y) for x, y in zip(got, again))
 
 
 @pytest.mark.parametrize("case", _SLSTM_CASES)
 @pytest.mark.parametrize("with_final", [False, True])
-def test_slstm_scan_bwd_kernel(gen, case, with_final):
+@pytest.mark.parametrize("variant", ["planned", "fma"])
+def test_slstm_scan_bwd_kernel(gen, case, with_final, variant):
     """The Function's forward (the kernel, storing c, n, z) and backward
-    (the backward kernel, dr by slstm_dr) against autograd of the loop."""
+    (the backward kernel, dr by slstm_dr) against autograd of the loop;
+    ``fma`` forced on both kernels, with the same dr, beside it."""
     from repro_torch.kernels import slstm_scan, slstm_scan_bwd
-    from repro_torch.kernels.slstm import slstm_scan_ref
+    from repro_torch.kernels.slstm import ops, slstm_dr, slstm_scan_ref
 
     ins = _slstm_inputs(gen, *case)
     b, s, h, d, _ = case
@@ -810,6 +824,7 @@ def test_slstm_scan_bwd_kernel(gen, case, with_final):
     d_final = ([torch.randn(b, h * d, generator=gen, device="cuda"),
                 torch.randn(b, h, generator=gen, device="cuda"),
                 torch.randn(b, h * d, generator=gen, device="cuda")] if with_final else [])
+    want = ops.plan(d) if variant == "planned" else "fma"
 
     def grads(fn):
         leaves = [t.clone().requires_grad_() for t in ins]
@@ -817,12 +832,22 @@ def test_slstm_scan_bwd_kernel(gen, case, with_final):
         torch.autograd.backward(list(outs[:1 + len(d_final)]), [dys] + d_final)
         return [t.grad for t in leaves]
 
-    before = (slstm_scan.launches, slstm_scan_bwd.launches)
-    got = grads(slstm_scan)
-    assert (slstm_scan.launches, slstm_scan_bwd.launches) == (before[0] + 1, before[1] + 1)
+    def kernels():
+        if variant == "planned":
+            return grads(slstm_scan)
+        i_in, f_in, o_in, r, c0, n0, h0 = ins[1:]
+        ys, _, _, _, saved = ops._forward(*ins, store=True, force_fma=True)
+        dz, di, df, do, dc0, dn0, dh0 = ops._backward(i_in, f_in, o_in, r, c0, n0, saved, dys,
+                                                      *(d_final or [None] * 3), force_fma=True)
+        return [dz, di, df, do, slstm_dr(h0, ys, dz, h), dc0, dn0, dh0]
+
+    before = (dict(slstm_scan.variants), dict(slstm_scan_bwd.variants))
+    got = kernels()
+    assert slstm_scan.variants == dict(before[0], **{want: before[0][want] + 1})
+    assert slstm_scan_bwd.variants == dict(before[1], **{want: before[1][want] + 1})
     for g, w in zip(got, grads(slstm_scan_ref)):
         _close_rel(g, w, SLSTM_TOL)
-    again = grads(slstm_scan)
+    again = kernels()
     assert all(torch.equal(x, y) for x, y in zip(got, again))
 
 
