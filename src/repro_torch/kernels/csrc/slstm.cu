@@ -17,11 +17,10 @@
 // chain on 32 blocks (one per (b, h)): what one step costs inside one SM
 // sets the time. Two variants, both one block per (b, h):
 //
-// reg (slstm_fwd_reg, D a multiple of 16 up to REG_MAX_D). r[h] is read
-// from device memory once and held in registers for the whole walk: a
-// thread holds CPT columns of r over one of KS slices of k (96 floats a
-// thread at D = 192, 384 threads). Lane = LG g + jj of a warp: the KS
-// slices g of one column group jj share a warp, so the slices' partial
+// reg (slstm_fwd_reg, D a multiple of 16 up to REG_MAX_D), in the layout
+// of slstm_reg.cuh. r[h] is read from device memory once and held in
+// registers for the whole walk (96 floats a thread at D = 192, 384
+// threads). The KS slices of k of a column share a warp, so their partial
 // sums meet by shuffles (a butterfly: every lane of the group ends with
 // the same bits) and every lane applies the gates of one of its columns.
 // Shared memory carries only h (double-buffered, each slice's float4
@@ -34,11 +33,7 @@
 // do not wait on the matvec (i, f, sigmoid(o), n) run beside it, with
 // __expf and __fdividef (tools/slstm_variants.py: 15 % of the step, ~1e-6
 // of the outputs' scale); tanh(z_in + rec) and c / max(n, 1), on the
-// chain, stay precise (tanhf, a divide). FWD_CLUSTER > 1 splits a head's
-// columns over a thread-block cluster of that many blocks, each holding
-// r[:, its columns], computing n itself and writing its h_t slice into
-// every block's h buffer (distributed shared memory), with one cluster
-// barrier a step; tools/slstm_variants.py times it against one block.
+// chain, stay precise (tanhf, a divide).
 //
 // fma (slstm_fwd, any D up to 1024): r[h] (D x D f32: 144 KiB at D = 192)
 // stays in shared memory and h_{t-1} beside it. The block runs KS_MAX
@@ -55,6 +50,7 @@
 #include <math.h>
 
 #include "mma_util.cuh"
+#include "slstm_reg.cuh"
 
 namespace {
 
@@ -153,62 +149,14 @@ __global__ void slstm_fwd(const float* __restrict__ z_in, const float* __restric
 // reg: r in registers, one barrier a step, the inputs loaded ahead
 // ---------------------------------------------------------------------------
 
-constexpr int KS = 4;           // slices of the matvec's k; lane = LG g + jj
-constexpr int CPT = 2;          // columns of r a thread holds
-constexpr int LG = 32 / KS;     // column groups of a warp
-constexpr int NSTAGE = 8;       // steps of inputs in the ring (NSTAGE - 1 in flight)
-constexpr int FWD_CLUSTER = 1;  // blocks that split a head's columns
-constexpr int REG_MAX_D = 192;  // registers: CPT * D / KS floats of r a thread
-
 template <int D>
-struct Reg {
-  static constexpr int KPT = D / KS;                         // k of a slice
-  static constexpr int STR = (KPT / 4) % 2 ? KPT : KPT + 4;  // slice g starts at g STR:
-  static constexpr int HS = KS * STR;                        // 4 g STR / 16 distinct mod 8
-  static_assert(D % 16 == 0 && D <= REG_MAX_D, "reg takes D a multiple of 16 up to REG_MAX_D");
-  static __device__ __forceinline__ int pos(int j) { return j / KPT * STR + j % KPT; }
+struct Fwd {
+  static constexpr int STAGE = 2 * D + 4;                       // z_in, o_in; i_in, f_in
+  static constexpr int SMEM = 2 * Reg<D>::HS + NSTAGE * STAGE;  // floats
 };
 
-template <int D, int CL>
-__host__ __device__ constexpr int fwd_threads() { return D / CL / CPT * KS; }
-template <int D, int CL>
-__host__ __device__ constexpr int fwd_smem_floats() {
-  return 2 * Reg<D>::HS + NSTAGE * (2 * (D / CL) + 4);
-}
-
-// the reg variants' gates: exp and the sigmoid's divide by the intrinsics
-// (__expf, __fdividef: ~1e-6 of each output's scale on the card, under the
-// 1e-4 gate); tanh and the divides by max(n, 1) stay precise
-__device__ __forceinline__ float sigmoid_fast(float x) {
-  return __fdividef(1.f, 1.f + __expf(-x));
-}
-
-__device__ __forceinline__ unsigned cluster_rank() {
-  unsigned r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-__device__ __forceinline__ uint32_t cluster_addr(const void* local, unsigned rank) {
-  uint32_t remote;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(mma::smem_u32(local)),
-               "r"(rank));
-  return remote;
-}
-__device__ __forceinline__ void st_cluster(uint32_t addr, float v) {
-  asm volatile("st.shared::cluster.f32 [%0], %1;\n" ::"r"(addr), "f"(v) : "memory");
-}
-template <int CL>
-__device__ __forceinline__ void step_sync() {
-  if constexpr (CL > 1) {
-    asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-    asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-  } else {
-    __syncthreads();
-  }
-}
-
-template <int D, int CL>
-__global__ void __launch_bounds__(fwd_threads<D, CL>(), 1)
+template <int D>
+__global__ void __launch_bounds__(Reg<D>::NT, 1)
     slstm_fwd_reg(const float* __restrict__ z_in, const float* __restrict__ i_in,
                   const float* __restrict__ f_in, const float* __restrict__ o_in,
                   const float* __restrict__ r, const float* __restrict__ c0,
@@ -217,34 +165,31 @@ __global__ void __launch_bounds__(fwd_threads<D, CL>(), 1)
                   float* __restrict__ h_out, float* __restrict__ c_all,
                   float* __restrict__ n_all, float* __restrict__ z_all, int S, int H) {
   using G = Reg<D>;
-  constexpr int DC = D / CL;  // this block's columns
-  constexpr int NT = fwd_threads<D, CL>(), KPT = G::KPT, STAGE = 2 * DC + 4;
-  static_assert(DC % (CPT * LG) == 0, "a warp's column groups cover the block's columns");
+  constexpr int NT = G::NT, KPT = G::KPT, STAGE = Fwd<D>::STAGE;
   extern __shared__ __align__(16) float sm[];
   float* h_s = sm;               // h_{t-1} and h_t, 2 x HS, at pos(k)
-  float* ring = sm + 2 * G::HS;  // NSTAGE x (z_in, o_in of the columns; i_in, f_in)
+  float* ring = sm + 2 * G::HS;  // NSTAGE x (z_in, o_in; i_in, f_in)
 
-  const int rank = CL > 1 ? (int)cluster_rank() : 0;
-  const int bh = blockIdx.x / CL, b = bh / H, hh = bh % H, E = H * D;
+  const int b = blockIdx.x / H, hh = blockIdx.x % H, E = H * D;
   const int tid = threadIdx.x, lane = tid & 31, g = lane / LG;
-  const int col0 = rank * DC + ((tid >> 5) * LG + lane % LG) * CPT;  // this thread's columns
-  const int j = col0 + g % CPT, jl = j - rank * DC;  // the column whose gates it applies
-  const bool own = g < CPT;                          // and writes
+  const int col0 = ((tid >> 5) * LG + lane % LG) * CPT;  // this thread's columns
+  const int j = col0 + g % CPT;                          // the column whose gates it applies
+  const bool own = g < CPT;                              // and writes
   const size_t st_e = (size_t)b * E + (size_t)hh * D;        // (b, h*D) of a state (B, E)
   const size_t base_e = (size_t)b * S * E + (size_t)hh * D;  // (b, 0, h*D) of (B, S, E)
   const size_t base_h = (size_t)b * S * H + hh;              // (b, 0, h) of (B, S, H)
 
-  // A step's inputs are DC / 2 copies of 16 bytes (z_in, then o_in, at 4 cq
+  // A step's inputs are D / 2 copies of 16 bytes (z_in, then o_in, at 4 cq
   // in the stage) and two of 4 (i_in, f_in). Copy cq = (tid % 4) NT / 4 +
   // tid / 4 is this thread's in every step, so the copies spread over all
   // the warps; its source moves on by a step (E or H floats) a copy.
-  static_assert(NT >= DC / 2 + 2, "a copy a thread");
+  static_assert(NT >= D / 2 + 2, "a copy a thread");
   const int cq = (tid % 4) * (NT / 4) + tid / 4;
-  const bool wide = cq < DC / 2, copies = cq < DC / 2 + 2;
-  const float* src = cq < DC / 4 ? z_in + base_e + rank * DC + 4 * cq
-                     : wide      ? o_in + base_e + rank * DC + (4 * cq - DC)
-                                 : (cq == DC / 2 ? i_in : f_in) + base_h;
-  const int src_step = wide ? E : H, dst = wide ? 4 * cq : 2 * DC + cq - DC / 2;
+  const bool wide = cq < D / 2, copies = cq < D / 2 + 2;
+  const float* src = cq < D / 4 ? z_in + base_e + 4 * cq
+                     : wide     ? o_in + base_e + (4 * cq - D)
+                                : (cq == D / 2 ? i_in : f_in) + base_h;
+  const int src_step = wide ? E : H, dst = wide ? 4 * cq : 2 * D + cq - D / 2;
   auto issue = [&](int t) {  // step t's inputs into its stage of the ring; t rises by one a call
     if (copies) {
       float* d = ring + (t % NSTAGE) * STAGE + dst;
@@ -273,20 +218,15 @@ __global__ void __launch_bounds__(fwd_threads<D, CL>(), 1)
   float* c_t = keep ? c_all + base_e + j : nullptr;
   float* z_t = keep ? z_all + base_e + j : nullptr;
   float* n_t = keep ? n_all + base_h : nullptr;
-  uint32_t peer[CL > 1 ? CL - 1 : 1];  // h_s in the cluster's other blocks
-  if constexpr (CL > 1) {
-#pragma unroll
-    for (int q = 1; q < CL; ++q) peer[q - 1] = cluster_addr(h_s, (unsigned)((rank + q) % CL));
-  }
   mma::cp_async_wait<NSTAGE - 2>();  // step 0's inputs
-  step_sync<CL>();
+  __syncthreads();
 
   for (int t = 0; t < S; ++t) {
     const float* hc = h_s + (t & 1) * G::HS;
     if (t + NSTAGE - 1 < S) issue(t + NSTAGE - 1);  // into the stage step t - 1 read
     mma::cp_async_commit();
     const float* st = ring + (t % NSTAGE) * STAGE;
-    const float zt = st[jl], ot = st[DC + jl], it = st[2 * DC], ft = st[2 * DC + 1];
+    const float zt = st[j], ot = st[D + j], it = st[2 * D], ft = st[2 * D + 1];
     // the gates that do not wait on the matvec
     const float ig = __expf(fminf(it, 10.f));
     const float fg = sigmoid_fast(ft);
@@ -320,19 +260,14 @@ __global__ void __launch_bounds__(fwd_threads<D, CL>(), 1)
     c = fg * c + ig * z;
     hv = og * (c / m);
     if (own) {
-      const int at = ((t + 1) & 1) * G::HS + G::pos(j);
-      h_s[at] = hv;
-      if constexpr (CL > 1) {
-#pragma unroll
-        for (int q = 0; q < CL - 1; ++q) st_cluster(peer[q] + 4u * at, hv);
-      }
+      h_s[((t + 1) & 1) * G::HS + G::pos(j)] = hv;
       *y_t = hv;
       if (keep) {
         *c_t = c;
         *z_t = z;
       }
     }
-    if (keep && tid == 0 && rank == 0) *n_t = n;
+    if (keep && tid == 0) *n_t = n;
     y_t += E;
     if (keep) {
       c_t += E;
@@ -340,42 +275,13 @@ __global__ void __launch_bounds__(fwd_threads<D, CL>(), 1)
       n_t += H;
     }
     mma::cp_async_wait<NSTAGE - 2>();  // this thread's copies of step t + 1
-    step_sync<CL>();                   // h_t and step t + 1's inputs are in
+    __syncthreads();                   // h_t and step t + 1's inputs are in
   }
   if (own) {
     c_out[st_e + j] = c;
     h_out[st_e + j] = hv;
   }
-  if (tid == 0 && rank == 0) n_out[(size_t)b * H + hh] = n;
-}
-
-template <int D, int CL>
-int launch_reg_cl(const float* z_in, const float* i_in, const float* f_in, const float* o_in,
-                  const float* r, const float* c0, const float* n0, const float* h0, float* ys,
-                  float* c_out, float* n_out, float* h_out, float* c_all, float* n_all,
-                  float* z_all, int B, int S, int H, cudaStream_t s) {
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)(B * H * CL));
-  cfg.blockDim = dim3(fwd_threads<D, CL>());
-  cfg.dynamicSmemBytes = sizeof(float) * fwd_smem_floats<D, CL>();
-  cfg.stream = s;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = (unsigned)CL;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = CL > 1 ? 1 : 0;
-  cudaError_t e = cudaLaunchKernelEx(&cfg, slstm_fwd_reg<D, CL>, z_in, i_in, f_in, o_in, r, c0,
-                                     n0, h0, ys, c_out, n_out, h_out, c_all, n_all, z_all, S, H);
-  if (e != cudaSuccess) return (int)e;
-  return (int)cudaGetLastError();
-}
-
-// FWD_CLUSTER blocks a head where they split its columns into whole warps
-template <int D>
-__host__ __device__ constexpr int fwd_cluster() {
-  return (D / FWD_CLUSTER) % (CPT * LG) == 0 ? FWD_CLUSTER : 1;
+  if (tid == 0) n_out[(size_t)b * H + hh] = n;
 }
 
 template <int D>
@@ -386,8 +292,12 @@ int launch_reg(const float* z_in, const float* i_in, const float* f_in, const fl
   if constexpr (D % (CPT * LG) != 0) {  // no whole warps at this layout
     return (int)cudaErrorInvalidValue;
   } else {
-    return launch_reg_cl<D, fwd_cluster<D>()>(z_in, i_in, f_in, o_in, r, c0, n0, h0, ys, c_out,
-                                              n_out, h_out, c_all, n_all, z_all, B, S, H, s);
+    constexpr int smem = (int)sizeof(float) * Fwd<D>::SMEM;
+    static_assert(smem <= 48 * 1024, "no opt-in to more shared memory");
+    slstm_fwd_reg<D><<<B * H, Reg<D>::NT, smem, s>>>(z_in, i_in, f_in, o_in, r, c0, n0, h0, ys,
+                                                     c_out, n_out, h_out, c_all, n_all, z_all, S,
+                                                     H);
+    return (int)cudaGetLastError();
   }
 }
 
@@ -420,7 +330,6 @@ int slstm_scan_launch(const void* z_in, const void* i_in, const void* f_in, cons
   if ((c_all == nullptr) != (n_all == nullptr) || (c_all == nullptr) != (z_all == nullptr))
     return (int)cudaErrorInvalidValue;
   if (variant == 1) {
-    if ((long long)B * H * FWD_CLUSTER > 2147483647LL) return (int)cudaErrorInvalidValue;
 #define SLSTM_REG_ARGS                                                                           \
   (const float*)z_in, (const float*)i_in, (const float*)f_in, (const float*)o_in, (const float*)r, \
       (const float*)c0, (const float*)n0, (const float*)h0, (float*)ys, (float*)c_out,            \

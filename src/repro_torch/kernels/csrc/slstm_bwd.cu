@@ -31,10 +31,9 @@
 // training drops the final state.
 //
 // reg (slstm_bwd_reg, D a multiple of 16 up to REG_MAX_D), the layout of
-// slstm.cu's reg variant with r transposed: a thread holds r[h]_kj for
-// CPT rows k over one of KS slices of j, in registers for the whole walk,
-// and the slices' partial sums of dh_k = sum_j r_kj dz_j meet by
-// shuffles. Only the dz chain is serial: from the carried dh and dc,
+// slstm_reg.cuh with r transposed: a thread holds r[h]_kj for CPT rows k
+// over one of KS slices of j, in registers for the whole walk, and the
+// slices' partial sums of dh_k = sum_j r_kj dz_j meet by shuffles. Only the dz chain is serial: from the carried dh and dc,
 // each lane takes its column through dh, dq, dc to dz_t, writes it into
 // a double-buffered dz_s, and one block barrier a step publishes it;
 // after the barrier the register matvec gives dh for step t - 1. The
@@ -62,6 +61,7 @@
 #include <math.h>
 
 #include "mma_util.cuh"
+#include "slstm_reg.cuh"
 
 namespace {
 
@@ -213,30 +213,11 @@ __global__ void slstm_bwd(const float* __restrict__ i_in, const float* __restric
 // reg: r^T in registers, the dz chain alone serial, the inputs loaded ahead
 // ---------------------------------------------------------------------------
 
-constexpr int KS = 4;           // slices of the matvec's j; lane = LG g + jj
-constexpr int CPT = 2;          // rows of r a thread holds
-constexpr int LG = 32 / KS;     // row groups of a warp
-constexpr int NSTAGE = 8;       // steps of inputs in the ring (NSTAGE - 1 in flight)
-constexpr int REG_MAX_D = 192;  // registers: CPT * D / KS floats of r a thread
-
-// the gates: exp and the sigmoid's divide by the intrinsics (__expf,
-// __fdividef: ~1e-6 of each gradient's scale on the card, under the 1e-4
-// gate); the divides by max(n, 1) stay precise
-__device__ __forceinline__ float sigmoid_fast(float x) {
-  return __fdividef(1.f, 1.f + __expf(-x));
-}
-
 template <int D>
-struct Reg {
-  static constexpr int KPT = D / KS;                         // j of a slice
-  static constexpr int STR = (KPT / 4) % 2 ? KPT : KPT + 4;  // slice g starts at g STR:
-  static constexpr int HS = KS * STR;                        // 4 g STR / 16 distinct mod 8
-  static constexpr int NT = D / CPT * KS, NW = NT / 32;      // threads, warps
-  static constexpr int STAGE = 4 * D + 4;                    // c, z, o_in, dy; n, i_in, f_in
-  static constexpr int SMEM = 2 * HS + NSTAGE * STAGE;       // floats
-  static_assert(D % 16 == 0 && D <= REG_MAX_D, "reg takes D a multiple of 16 up to REG_MAX_D");
-  static_assert(3 * NT <= NSTAGE * STAGE, "the tail's arrays fit in the ring");
-  static __device__ __forceinline__ int pos(int j) { return j / KPT * STR + j % KPT; }
+struct Bwd {
+  static constexpr int STAGE = 4 * D + 4;                       // c, z, o_in, dy; n, i_in, f_in
+  static constexpr int SMEM = 2 * Reg<D>::HS + NSTAGE * STAGE;  // floats
+  static_assert(3 * Reg<D>::NT <= NSTAGE * STAGE, "the tail's arrays fit in the ring");
 };
 
 template <int D>
@@ -252,7 +233,7 @@ __global__ void __launch_bounds__(Reg<D>::NT, 1)
                   float* __restrict__ do_in, float* __restrict__ dc0, float* __restrict__ dn0,
                   float* __restrict__ dh0, float* __restrict__ part, int S, int H) {
   using G = Reg<D>;
-  constexpr int NT = G::NT, NW = G::NW, KPT = G::KPT, STAGE = G::STAGE;
+  constexpr int NT = G::NT, NW = G::NW, KPT = G::KPT, STAGE = Bwd<D>::STAGE;
   extern __shared__ __align__(16) float sm[];
   float* dz_s = sm;              // dz_t and dz_{t-1}, 2 x HS, at pos(j)
   float* ring = sm + 2 * G::HS;  // NSTAGE x (c_t, z_t, o_in, dy_t; n_t, i_in, f_in)
@@ -434,7 +415,7 @@ int launch_reg(const float* i_in, const float* f_in, const float* o_in, const fl
   if constexpr (D % (CPT * LG) != 0) {  // no whole warps at this layout
     return (int)cudaErrorInvalidValue;
   } else {
-    constexpr int smem = (int)sizeof(float) * Reg<D>::SMEM;
+    constexpr int smem = (int)sizeof(float) * Bwd<D>::SMEM;
     static_assert(smem <= 48 * 1024, "no opt-in to more shared memory");
     slstm_bwd_reg<D><<<B * H, Reg<D>::NT, smem, s>>>(i_in, f_in, o_in, r, c0, n0, c_all, n_all,
                                                      z_all, dys, dc_T, dn_T, dh_T, dz_in, di_in,

@@ -38,16 +38,11 @@ import torch
 from .. import _build
 from .ref import slstm_dr, slstm_scan_bwd_ref, slstm_scan_ref
 
-__all__ = ["CPT", "KS", "NSTAGE", "REG_MAX_D", "VARIANTS", "plan", "reg_geometry", "slstm_scan",
-           "slstm_scan_bwd"]
+__all__ = ["REG_MAX_D", "VARIANTS", "plan", "slstm_scan", "slstm_scan_bwd"]
 
 VARIANTS = ("reg", "fma")
 _CODES = {"fma": 0, "reg": 1}
-# the reg variants' layout, as csrc/slstm.cu and csrc/slstm_bwd.cu state it
-KS = 4  # slices of the matvec's reduction index, in one warp
-CPT = 2  # columns (rows, in the backward) of r a thread holds
-NSTAGE = 8  # steps of inputs in the shared-memory ring
-REG_MAX_D = 192  # r's CPT * d / KS floats a thread: 96 at d 192, under 384 threads' cap of 168
+REG_MAX_D = 192  # the widest d whose share of r fits a thread's registers (csrc/slstm_reg.cuh)
 _LIB = None
 _BWD_LIB = None
 
@@ -85,23 +80,6 @@ def plan(d: int) -> str:
     thread fits in registers (d a multiple of 16, 16 <= d <= REG_MAX_D),
     else ``fma`` (any d up to 1024)."""
     return "reg" if d % 16 == 0 and 16 <= d <= REG_MAX_D else "fma"
-
-
-def reg_geometry(d: int) -> dict:
-    """The reg variants' block at head width ``d`` (one block per (b,
-    h)): threads, warps, k (or j) per slice, floats of r a thread holds,
-    the h (or dz) buffer's slice stride (slices on distinct banks), and
-    each kernel's shared memory in bytes."""
-    if plan(d) != "reg":
-        raise ValueError(f"reg takes d a multiple of 16 up to {REG_MAX_D}; got {d}")
-    kpt = d // KS
-    stride = kpt if (kpt // 4) % 2 else kpt + 4
-    threads = d // CPT * KS
-    return {"threads": threads, "warps": threads // 32, "k_per_slice": kpt,
-            "r_floats_per_thread": CPT * kpt, "slice_stride": stride,
-            "fwd_smem_bytes": 4 * (2 * KS * stride + NSTAGE * (2 * d + 4)),
-            "bwd_smem_bytes": 4 * (2 * KS * stride + NSTAGE * (4 * d + 4)),
-            "bwd_part_floats": 3 * threads // 32}
 
 
 def _aligned(t):

@@ -2,11 +2,11 @@
 
 - ``plan(d)``: ``reg`` for d a multiple of 16 from 16 to ``REG_MAX_D``
   (192, xlstm-125m's head width; 32, its reduced config's), ``fma``
-  elsewhere; ``reg_geometry`` gives the block (threads, floats of r a
-  thread, the slice stride that puts the four slices' float4 reads on
-  distinct banks, shared memory); the constants agree with
-  ``csrc/slstm.cu`` and ``csrc/slstm_bwd.cu``, whose launchers take
-  exactly the widths ``plan`` gives ``reg``.
+  elsewhere. The block ``reg`` runs at each width (threads, floats of r
+  a thread, the slice stride that puts the four slices' float4 reads on
+  distinct banks, shared memory) follows from the layout constants of
+  ``csrc/slstm_reg.cuh``, which both kernels include and neither
+  restates; the launchers take exactly the widths ``plan`` gives ``reg``.
 - An emulation of each ``reg`` kernel's f32 order of operations: the
   matvec's KS slices, each summed as two chains of fused multiply-adds
   (even and odd float4 chunks) that meet, then the slices' butterfly
@@ -33,6 +33,7 @@ from repro_torch.kernels.slstm import ops, slstm_dr, slstm_scan_bwd_ref, slstm_s
 
 TOL = 1e-5
 CSRC = os.path.join(os.path.dirname(ops.__file__), "..", "csrc")
+LAYOUT = ("KS", "CPT", "NSTAGE", "REG_MAX_D")
 
 
 def _source(name):
@@ -40,25 +41,51 @@ def _source(name):
         return f.read()
 
 
+def _constants():
+    """The reg layout's constants, as ``csrc/slstm_reg.cuh`` states them."""
+    src = _source("slstm_reg.cuh")
+    return {c: int(re.search(rf"constexpr int {c} = (\d+);", src).group(1)) for c in LAYOUT}
+
+
+C = _constants()
+KS = C["KS"]
+
+
+def _geometry(d):
+    """The reg block at head width d, from the header's constants and the
+    kernels' Reg<D>, Fwd<D> and Bwd<D>: threads, floats of r a thread, the
+    h (dz) buffer's slice stride, each kernel's shared memory in bytes."""
+    kpt = d // KS
+    stride = kpt if (kpt // 4) % 2 else kpt + 4
+    threads = d // C["CPT"] * KS
+    return {"threads": threads, "k_per_slice": kpt, "r_floats_per_thread": C["CPT"] * kpt,
+            "slice_stride": stride,
+            "fwd_smem_bytes": 4 * (2 * KS * stride + C["NSTAGE"] * (2 * d + 4)),
+            "bwd_smem_bytes": 4 * (2 * KS * stride + C["NSTAGE"] * (4 * d + 4))}
+
+
+def _reg_widths(name):
+    return sorted(int(x) for x in re.findall(r"case (\d+): return launch_reg<\1>", _source(name)))
+
+
 @pytest.mark.parametrize("d,threads,r_floats,stride", [(16, 32, 8, 4), (32, 64, 16, 12),
                                                        (48, 96, 24, 12), (192, 384, 96, 52)])
 def test_plan_takes_reg_where_r_fits_in_registers(d, threads, r_floats, stride):
     assert ops.plan(d) == "reg"
-    geo = ops.reg_geometry(d)
+    geo = _geometry(d)
     assert (geo["threads"], geo["r_floats_per_thread"], geo["slice_stride"]) == (
         threads, r_floats, stride)
-    assert geo["warps"] * 32 == threads and geo["k_per_slice"] * ops.KS == d
+    assert threads % 32 == 0 and geo["k_per_slice"] * KS == d
     # the four slices' float4 reads start on distinct 4-bank groups
-    assert len({(g * stride // 4) % 8 for g in range(ops.KS)}) == ops.KS
+    assert len({(g * stride // 4) % 8 for g in range(KS)}) == KS
     assert geo["fwd_smem_bytes"] < 48 * 1024 and geo["bwd_smem_bytes"] < 48 * 1024
-    assert geo["bwd_part_floats"] == 3 * geo["warps"]
+    assert d in _reg_widths("slstm.cu") and d in _reg_widths("slstm_bwd.cu")
 
 
 @pytest.mark.parametrize("d", [4, 8, 40, 100, 200, 208, 256, 1024])
 def test_plan_falls_back_to_fma_elsewhere(d):
     assert ops.plan(d) == "fma"
-    with pytest.raises(ValueError, match="multiple of 16"):
-        ops.reg_geometry(d)
+    assert d not in _reg_widths("slstm.cu") and d not in _reg_widths("slstm_bwd.cu")
 
 
 def test_xlstm_widths_plan_reg():
@@ -69,14 +96,13 @@ def test_xlstm_widths_plan_reg():
 @pytest.mark.parametrize("name", ["slstm.cu", "slstm_bwd.cu"])
 def test_constants_and_widths_match_the_kernels(name):
     src = _source(name)
-    for const, value in (("KS", ops.KS), ("CPT", ops.CPT), ("NSTAGE", ops.NSTAGE),
-                         ("REG_MAX_D", ops.REG_MAX_D)):
-        assert re.search(rf"constexpr int {const} = (\d+);", src).group(1) == str(value), const
-    widths = sorted(int(x) for x in re.findall(r"case (\d+): return launch_reg<\1>", src))
-    assert widths == [d for d in range(1, 1025) if ops.plan(d) == "reg"]
+    # the layout is the header's alone: the kernel includes it and restates none of it
+    assert '#include "slstm_reg.cuh"' in src
+    for const in LAYOUT:
+        assert not re.search(rf"constexpr int {const} =", src), const
+    assert C["REG_MAX_D"] == ops.REG_MAX_D
+    assert _reg_widths(name) == [d for d in range(1, 1025) if ops.plan(d) == "reg"]
     assert ops.VARIANTS == ("reg", "fma")
-    if name == "slstm.cu":  # the committed forward runs one block per head
-        assert re.search(r"constexpr int FWD_CLUSTER = (\d+);", src).group(1) == "1"
 
 
 # ---------------------------------------------------------------------------
@@ -95,10 +121,10 @@ def _matvec(v, m):
     (even chunks, odd chunks) that meet; the slices by a butterfly.
     v (B, H, D), m (H, D, D)."""
     b, h, d = v.shape
-    kpt = d // ops.KS
-    acc = torch.zeros(b, h, ops.KS, 2, d)
-    vs = v.reshape(b, h, ops.KS, kpt)
-    ms = m.reshape(h, ops.KS, kpt, d)
+    kpt = d // KS
+    acc = torch.zeros(b, h, KS, 2, d)
+    vs = v.reshape(b, h, KS, kpt)
+    ms = m.reshape(h, KS, kpt, d)
     for i in range(kpt // 4):
         for e in range(4):
             k = 4 * i + e

@@ -3,13 +3,15 @@
 
     python3 tools/slstm_variants.py [--json PATH] [--only NAME ...]
 
-Each variant is a list of text edits of ``csrc/slstm.cu`` and
-``csrc/slstm_bwd.cu`` as committed (``VARIANTS`` below), compiled with the
-port's nvcc flags (all at once, in parallel), loaded in place of the
-built libraries and called through the wrapper's ``_forward`` and
-``_backward`` at xlstm-125m's shapes (H 4, d 192): the forward at 8 x 512
-storing c, n, z (training), at 4 x 128 (the serving prefill) and one
-decode step (4 x 1, a state in); the backward at 8 x 512.
+Each variant is a list of text edits of ``csrc/slstm.cu``,
+``csrc/slstm_bwd.cu`` and the reg layout they share,
+``csrc/slstm_reg.cuh``, as committed (``VARIANTS`` below; a header edit
+may reach one kernel's copy alone), compiled with the port's nvcc flags
+(all at once, in parallel), loaded in place of the built libraries and
+called through the wrapper's ``_forward`` and ``_backward`` at
+xlstm-125m's shapes (H 4, d 192): the forward at 8 x 512 storing c, n,
+z (training), at 4 x 128 (the serving prefill) and one decode step (4 x
+1, a state in); the backward at 8 x 512.
 
 - The ``fma`` kernels in four forms, to split a step's time: as built;
   with the matvec's shared-memory reads cut (the FMA chain kept); with
@@ -17,15 +19,17 @@ decode step (4 x 1, a state in); the backward at 8 x 512.
   divides); with the step's input loads cut.
 - The ``reg`` kernels as built; with the gates' expf and divides precise
   (as built they use __expf and __fdividef); the forward's tanh from
-  __expf; 1 / max(n, 1) once a step; the forward's head split over a
-  cluster of 2 and of 4 blocks (``FWD_CLUSTER``); 768 threads holding 48
-  floats of r each (``CPT`` 1), or for the forward 192 holding 192
-  (``CPT`` 4), instead of 384 holding 96; the step's stores on the other
-  side of its barrier; the ring's refills after the matvec; a ring of 4
-  steps instead of 8; and, to split a step, without the gates, without
+  __expf; 1 / max(n, 1) once a step; 768 threads holding 48 floats of r
+  each (``CPT`` 1), or for the forward 192 holding 192 (``CPT`` 4),
+  instead of 384 holding 96; the step's stores on the other side of its
+  barrier; the ring's refills after the matvec; a ring of 4 steps
+  instead of 8; and, to split a step, without the gates, without
   the matvec's shared-memory reads, over half of k, without the step's
   barrier, without its stores to device memory and without the ring's
-  refills.
+  refills. (The forward's head split over a thread-block cluster of 2
+  or 4 blocks, exchanging h through distributed shared memory, was timed
+  with an earlier form of this tool and lost at both shapes; PERF.md
+  keeps the numbers.)
 
 Each row: the variant's outputs against the plain versions on the same
 card (``slstm_scan_ref`` and ``slstm_scan_bwd_ref``, max|err| / max|ref|
@@ -57,7 +61,9 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.slstm import ops as slstm_ops  # noqa: E402
 from repro_torch.kernels.slstm import slstm_scan_bwd_ref, slstm_scan_ref  # noqa: E402
 
-FWD, BWD = "slstm.cu", "slstm_bwd.cu"
+FWD, BWD, HDR = "slstm.cu", "slstm_bwd.cu", "slstm_reg.cuh"
+# an edit's target: FWD or BWD (that source), HDR (the header as both
+# kernels see it) or (FWD, HDR) / (BWD, HDR) (that kernel's copy of it)
 
 # the fma kernels' matvec without its shared-memory reads: the same FMA chain
 FMA_NO_LDS = [(FWD, "acc = fmaf(h_s[k], r_s[k * D + j], acc);", "acc = fmaf(acc, 0.999f, 1e-3f);"),
@@ -139,9 +145,9 @@ REG_NO_LDS = [(FWD, "const float4 hk = *reinterpret_cast<const float4*>(hc + g *
                "const float4 hk = make_float4(zt, ot, it, ft);"),
               (BWD, "const float4 zk = *reinterpret_cast<const float4*>(dzc + g * G::STR + 4 * i);",
                "const float4 zk = make_float4(c, z, oin, dy);")]
-REG_NO_BARRIER = [(FWD, "    step_sync<CL>();                   // h_t", "    // h_t"),
+REG_NO_BARRIER = [(FWD, "    __syncthreads();                   // h_t", "    // h_t"),
                   (BWD, "    __syncthreads();                   // dz_t", "    // dz_t")]
-_CPT4 = [(FWD, "constexpr int CPT = 2;", "constexpr int CPT = 4;")]  # forward only
+_CPT4 = [((FWD, HDR), "constexpr int CPT = 2;", "constexpr int CPT = 4;")]  # forward only
 # the reg kernels' per-step stores to device memory left out (ys, c, z; dz_in,
 # do_in and the per-warp sums), and the ring's refills left out (the steps
 # after the first NSTAGE - 1 read stale inputs)
@@ -152,11 +158,11 @@ REG_NO_STORES = [(FWD, _FWD_STORES, ""), (BWD, _BWD_STORES, ""),
 REG_NO_REFILLS = [(FWD, "    if (t + NSTAGE - 1 < S) issue(t + NSTAGE - 1);", ""),
                   (BWD, "    if (u + NSTAGE - 1 < S) issue(u + NSTAGE - 1);", "")]
 # the step's stores behind its barrier in the forward, before it in the backward
-_FWD_N = "    if (keep && tid == 0 && rank == 0) *n_t = n;\n"
+_FWD_N = "    if (keep && tid == 0) *n_t = n;\n"
 _FWD_NEXT = ("    y_t += E;\n    if (keep) {\n      c_t += E;\n      z_t += E;\n      n_t += H;\n"
              "    }\n")
 _FWD_SYNC = ("    mma::cp_async_wait<NSTAGE - 2>();  // this thread's copies of step t + 1\n"
-             "    step_sync<CL>();                   // h_t and step t + 1's inputs are in\n")
+             "    __syncthreads();                   // h_t and step t + 1's inputs are in\n")
 _BWD_NEXT = "    dz_t -= E;\n    do_t -= E;\n"
 _BWD_SYNC = "    __syncthreads();                   // dz_t and step u + 2's inputs are in\n"
 # (as built in the backward; the forward's before it)
@@ -194,15 +200,11 @@ VARIANTS = {  # name: (edits, the variant the wrapper launches)
     "reg, gates with expf and precise divides": (REG_PRECISE_GATES, "reg"),
     "reg, the forward's tanh from __expf": (REG_FAST_TANH, "reg"),
     "reg, 1 / max(n, 1) once a step": (REG_RCP, "reg"),
-    "reg, forward over a cluster of 2": (
-        [(FWD, "constexpr int FWD_CLUSTER = 1;", "constexpr int FWD_CLUSTER = 2;")], "reg"),
-    "reg, forward over a cluster of 4": (
-        [(FWD, "constexpr int FWD_CLUSTER = 1;", "constexpr int FWD_CLUSTER = 4;")], "reg"),
     "reg, 768 threads x 48 floats of r": (
-        [(f, "constexpr int CPT = 2;", "constexpr int CPT = 1;") for f in (FWD, BWD)], "reg"),
+        [(HDR, "constexpr int CPT = 2;", "constexpr int CPT = 1;")], "reg"),
     "reg, forward on 192 threads x 192 floats of r": (_CPT4, "reg"),
     "reg, a ring of 4 steps": (
-        [(f, "constexpr int NSTAGE = 8;", "constexpr int NSTAGE = 4;") for f in (FWD, BWD)], "reg"),
+        [(HDR, "constexpr int NSTAGE = 8;", "constexpr int NSTAGE = 4;")], "reg"),
     "reg, stores behind the barrier (forward), before it (backward)": (REG_STORES_SWAPPED, "reg"),
     "reg, refills after the matvec": (REG_REFILL_LATE, "reg"),
     "reg, no gates (times only)": (REG_NO_GATES, "reg"),
@@ -246,14 +248,20 @@ def _ptxas(out):
 def build(tmp, variants):
     """{variant: (forward library, backward library)}, every source of every
     variant compiled at once; ptxas's lines by variant."""
-    srcs = {f: open(os.path.join(_build.CSRC, f)).read() for f in (FWD, BWD)}
+    srcs = {f: open(os.path.join(_build.CSRC, f)).read() for f in (FWD, BWD, HDR)}
     procs = {}
     for i, (name, (edits, _)) in enumerate(variants.items()):
         for f in (FWD, BWD):
-            text = _edit(srcs[f], [(o, n) for ff, o, n in edits if ff == f], name)
-            cu = os.path.join(tmp, f"v{i}_{f}")
+            # each kernel in a directory of its own, beside its copy of the
+            # header (a quoted include looks there first)
+            where = os.path.join(tmp, f"v{i}_{f[:-3]}")
+            os.makedirs(where)
+            with open(os.path.join(where, HDR), "w") as fh:
+                fh.write(_edit(srcs[HDR], [(o, n) for t, o, n in edits if t in (HDR, (f, HDR))],
+                               name))
+            cu = os.path.join(where, f)
             with open(cu, "w") as fh:
-                fh.write(text)
+                fh.write(_edit(srcs[f], [(o, n) for t, o, n in edits if t == f], name))
             cmd = [_build.nvcc_path(), *_build.FLAGS, "-I", _build.CSRC, "-o", cu[:-3] + ".so", cu]
             procs[(name, f)] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                  stderr=subprocess.STDOUT, text=True),
