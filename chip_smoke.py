@@ -167,7 +167,39 @@ if it fails:
     (logits, loss and every gradient leaf within 1e-3), a prefill and 4
     decode steps block by block in bf16; both CLIs in subprocesses with
     launches exact;
-15. prints the kernels line, the ``nvidia-smi`` line, and last
+15. MoE (deepseek-moe-16b, 16,879,568,896 parameters: 28 layers of 64
+    routed experts, top-6, and 2 shared). Its serving main path runs right
+    after phase 14's, its training main path right after phase 14's
+    training, each with the counts set to 0 just before and read just
+    after: ``serve_loop`` at full width and depth (batch 4, prompt 128, 32
+    tokens; weights formed a leaf at a time, so ``init_s`` is minutes of
+    host draws) with the launches per prefill and per decode step exact
+    by kernel and variant (``dos_matmul`` 225 with the 28 routers ``f32``,
+    ``grouped_matmul`` 84 ``mma``, ``flash_attention`` 28 per prefill),
+    profiled like phase 6 (the grouped GEMM's share of busy time); and
+    ``train_loop`` at full width cut to 4 layers (8 x 512, 30 steps,
+    remat): the loss falls, the launches per step exact by variant
+    (``grouped_matmul`` 36 and ``grouped_matmul_dw`` 12 ``mma``), one
+    profiled step. After phase 14's checks: ``grouped_matmul`` against
+    ``grouped_matmul_ref`` at deepseek's prefill, decode and training
+    shapes with a real router's routes (some groups empty at decode), the
+    training backward's dX on the weights' transposed views, both of
+    llama4-scout's expert shapes, and edge cases (empty groups, one group
+    holding every row, rows past the sum, ragged K and N, rows off 16
+    bytes, f32, both weight layouts); ``grouped_matmul_dw`` at the
+    training shape and the edges, both variants; each at phase 4's GEMM
+    gate, two calls bit-identical, timed beside its bound, its plain
+    version and ``torch._grouped_mm``; one decode call of ``moe_block``
+    under ``set_sync_debug_mode("error")``; card against CPU: one
+    attention+MoE layer in bf16 (each sub-block fed the CPU's input,
+    within 3e-2), the model cut to 2 layers in f32 at 2 x 128 (prefill and
+    4 decode steps within 1e-3), one ``moe_block``'s gradients in bf16
+    (the input's and every parameter's, within 3e-2), one layer's loss and
+    every gradient leaf in f32 (within 1e-3), each with the routing
+    agreement printed; a fault
+    and resume at one layer, every loss bit-identical to an uninterrupted
+    run's; the train CLI ``--layers 1 --steps 3``, launches exact;
+16. prints the kernels line, the ``nvidia-smi`` line, and last
     ``{"ok": true, "device": {...}}``.
 
 ``--details PATH`` also writes every measurement to a JSON file.
@@ -205,6 +237,10 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     attention_bwd_ref, attention_fwd_ref, attention_ref, flash_attention, flash_attention_bwd,
 )
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
+from repro_torch.kernels.grouped_matmul import (  # noqa: E402
+    grouped_matmul, grouped_matmul_dw, grouped_matmul_dw_ref, grouped_matmul_ref,
+)
+from repro_torch.kernels.grouped_matmul import ops as gmm_ops  # noqa: E402
 from repro_torch.kernels.slstm import (  # noqa: E402
     slstm_dr, slstm_scan, slstm_scan_bwd, slstm_scan_bwd_ref, slstm_scan_ref,
 )
@@ -217,8 +253,8 @@ from repro_torch.data import DataConfig, SyntheticLM  # noqa: E402
 from repro_torch.launch.serve import serve_loop  # noqa: E402
 from repro_torch.launch.steps import accumulate_grads, loss_and_grads, make_train_step  # noqa: E402
 from repro_torch.launch.train import train_loop  # noqa: E402
-from repro_torch.models import build, decoder  # noqa: E402
-from repro_torch.models.params import leaves, map_tree, materialize  # noqa: E402
+from repro_torch.models import build, decoder, layers, moe  # noqa: E402
+from repro_torch.models.params import leaves, map_tree, materialize, materialize_cast  # noqa: E402
 from repro_torch.models.ssm import mamba_block, mamba_defs  # noqa: E402
 from repro_torch.models.xlstm import mlstm_block, mlstm_defs, slstm_block, slstm_defs  # noqa: E402
 from repro_torch.optim import OptConfig, adamw_update  # noqa: E402
@@ -236,6 +272,8 @@ COLD_BYTES = 128 * 2**20  # rotate inputs over more than the 50 MB L2
 ARCH, HYBRID, BATCH, PROMPT, GEN = "smollm-135m", "zamba2-2.7b", 4, 128, 32
 PATHS = (ARCH, HYBRID)
 XLSTM = "xlstm-125m"  # phase 14's serving and training paths, at the same sizes
+MOE = "deepseek-moe-16b"  # phase 15's serving and training paths
+SCOUT = "llama4-scout-17b-a16e"  # its expert shapes, in phase 15's kernel checks
 E2E_DECODE_STEPS = 4
 # zamba2's end-to-end check against the CPU keeps full width but 2 of
 # its 9 groups (12 Mamba2 layers, 2 shared-block calls) at batch 2.
@@ -340,6 +378,7 @@ def phase_build():
     ssm_ops._bwd_lib()
     slstm_ops._lib()
     slstm_ops._bwd_lib()
+    gmm_ops._lib()
     dt = time.perf_counter() - t0
     print(f"[build] {len(libs)} kernels built and loaded in {dt:.1f} s", flush=True)
     for name, path in libs.items():
@@ -360,7 +399,8 @@ _VARIANT_OF = {"dos_matmul_skinny": "skinny", "dos_matmul_wgmma": "wgmma",
                "flash_mma": "mma", "flash_fwd": "fma", "flash_bwd_mma": "mma", "flash_bwd": "fma",
                "ssd_mma": "mma", "ssd_fwd": "fma", "ssd_bwd_mma": "mma", "ssd_bwd": "fma",
                "slstm_fwd_reg": "reg", "slstm_fwd": "fma", "slstm_bwd_reg": "reg",
-               "slstm_bwd": "fma"}
+               "slstm_bwd": "fma", "gmm_fwd_mma": "mma", "gmm_fwd_fma": "fma",
+               "gmm_dw_mma": "mma", "gmm_dw_fma": "fma"}
 
 
 def _variant_tag(name: str) -> str:
@@ -407,7 +447,9 @@ def expected_launches(cfg, gen_tokens: int = GEN) -> dict:
     decode steps) as the layers call them: a GEMM per projection, one
     flash call per attention layer in prefill, one scan per Mamba2 layer
     in prefill; an xLSTM's two scans per mLSTM block in prefill and one
-    recurrence per sLSTM block in prefill and in each decode step."""
+    recurrence per sLSTM block in prefill and in each decode step; an MoE
+    layer's router, shared-expert and attention GEMMs and its three
+    grouped expert products in prefill and in each decode step."""
     head = 1  # the unembedding, tied or not
     prefill = dict.fromkeys(KERNELS, 0)
     step = dict.fromkeys(KERNELS, 0)
@@ -421,6 +463,10 @@ def expected_launches(cfg, gen_tokens: int = GEN) -> dict:
         n_attn = cfg.n_layers // cfg.attn_every  # shared-block calls
         n_mamba = n_attn * cfg.attn_every
         gemms = 6 * n_mamba + 7 * n_attn + head  # wx wz wB wC wdt wo; q k v o gate up down
+    elif cfg.family == "moe":  # and three expert products per layer
+        n_attn, n_mamba = cfg.n_layers, 0
+        gemms = moe_layer_gemms(cfg) * n_attn + head
+        prefill["grouped_matmul"] = step["grouped_matmul"] = 3 * n_attn
     else:
         n_attn, n_mamba = cfg.n_layers, 0
         gemms = 7 * n_attn + head
@@ -473,9 +519,9 @@ def phase_main_path(arch):
     variants = dict(dos_matmul.variants)
     print(f"[main] {arch} dos_matmul launches by variant: {variants}", flush=True)
     summary["dos_matmul_variants"] = variants
-    if cfg.family == "ssm":  # phase 14: every kernel's variants exact
+    if cfg.family in ("ssm", "moe"):  # phases 14, 15: every kernel's variants exact
         got = {k: dict(fn.variants) for k, fn in KERNELS.items()}
-        want_v = expected_serve_variants(cfg)
+        want_v = (expected_serve_variants if cfg.family == "ssm" else moe_serve_variants)(cfg)
         print(f"[main] {arch} launches by kernel and variant: {got}", flush=True)
         summary["variants"] = got
         check(got == want_v, f"{arch}: launches by variant {got}, expected {want_v}")
@@ -994,10 +1040,12 @@ def _e2e_setup(arch, dtype=None):
         cfg, batch = dataclasses.replace(cfg, n_layers=HYBRID_E2E_LAYERS), HYBRID_E2E_BATCH
     elif cfg.family == "ssm":  # full depth, batch 2: the CPU side stays short
         batch = HYBRID_E2E_BATCH
+    elif cfg.family == "moe":  # full width, 2 layers, batch 2
+        cfg, batch = dataclasses.replace(cfg, n_layers=MOE_E2E_LAYERS), MOE_E2E_BATCH
     if dtype:
         cfg = dataclasses.replace(cfg, compute_dtype=dtype)
     mc, mg = build(cfg, "cpu"), build(cfg, "cuda")
-    params_c = mc.compute_params(mc.init(torch.Generator().manual_seed(0)))
+    params_c = mc.init_compute(torch.Generator().manual_seed(0))
     prompts = torch.randint(0, cfg.vocab, (batch, PROMPT),
                             generator=torch.Generator().manual_seed(1))
     return cfg, batch, mc, mg, params_c, prompts
@@ -1134,7 +1182,7 @@ def full_depth_decode_state(arch):
     values do not change the work) after a prefill of the main path's
     shape: what the profile of its decode step needs."""
     model = build(get_config(arch), "cuda")
-    params = model.compute_params(model.init(torch.Generator(device="cuda").manual_seed(0)))
+    params = model.init_compute(torch.Generator(device="cuda").manual_seed(0))
     prompts = torch.randint(0, model.cfg.vocab, (BATCH, PROMPT),
                             generator=torch.Generator().manual_seed(1))
     logits, cache = model.prefill(params, {"tokens": prompts},
@@ -1202,7 +1250,7 @@ def phase_profile_prefill(arch, reps=5):
     profiler (the median of ``reps``, host clock ending in a synchronize),
     and device ms by kernel."""
     model = build(get_config(arch), "cuda")
-    params = model.compute_params(model.init(torch.Generator(device="cuda").manual_seed(0)))
+    params = model.init_compute(torch.Generator(device="cuda").manual_seed(0))
     prompts = torch.randint(0, model.cfg.vocab, (BATCH, PROMPT),
                             generator=torch.Generator().manual_seed(1))
 
@@ -1228,13 +1276,14 @@ def phase_profile_prefill(arch, reps=5):
         return
     busy_ms = busy / 1e3
     by_kernel = {k: sum(us for n, us in by_name.items() if k in n) / 1e3
-                 for k in ("dos_matmul", "flash", "ssd", "slstm")}
+                 for k in ("dos_matmul", "flash", "ssd", "slstm", "gmm")}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     print(f"[profile] {key}: device busy {busy_ms:.3f} ms of a {wall_ms:.3f} ms prefill (median "
           f"of {reps} without profiler): idle share {1 - busy_ms / wall_ms:.3f}; {n_ops} device "
           f"ops; dos_matmul {by_kernel['dos_matmul']:.3f} ms, flash_attention "
           f"{by_kernel['flash']:.3f} ms, ssm_scan {by_kernel['ssd']:.3f} ms, slstm_scan "
-          f"{by_kernel['slstm']:.3f} ms", flush=True)
+          f"{by_kernel['slstm']:.3f} ms, grouped_matmul {by_kernel['gmm']:.3f} ms "
+          f"({by_kernel['gmm'] / busy_ms:.3f} of busy)", flush=True)
     for name, us in top:
         print(f"[profile]   {us / 1e3:9.3f} ms  {name[:90]}")
     RESULTS["profile"][key] = {"busy_ms": busy_ms, "wall_ms": wall_ms, "walls_ms":
@@ -1265,15 +1314,19 @@ def phase_profile(arch, model, params, cache, tok, step_p50_s):
     idle = 1.0 - busy_ms / (step_p50_s * 1e3)
     dos_ms = sum(us for n, us in by_name.items() if "dos_matmul" in n) / 1e3 / PROFILE_STEPS
     slstm_ms = sum(us for n, us in by_name.items() if "slstm" in n) / 1e3 / PROFILE_STEPS
+    gmm_ms = sum(us for n, us in by_name.items() if "gmm_" in n) / 1e3 / PROFILE_STEPS
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     print(f"[profile] {arch} decode step: device busy {busy_ms:.3f} ms of a {step_p50_s*1e3:.3f} ms "
           f"step (p50 without profiler): idle share {idle:.3f}; {n_ops / PROFILE_STEPS:.0f} "
           f"device ops per step; dos_matmul {dos_ms:.3f} ms per step"
-          + (f", slstm_scan {slstm_ms:.3f} ms" if slstm_ms else ""), flush=True)
+          + (f", slstm_scan {slstm_ms:.3f} ms" if slstm_ms else "")
+          + (f", grouped_matmul {gmm_ms:.3f} ms ({gmm_ms / busy_ms:.3f} of busy)"
+             if gmm_ms else ""), flush=True)
     for name, us in top:
         print(f"[profile]   {us / PROFILE_STEPS:9.1f} us/step  {name[:90]}")
     RESULTS["profile"][arch] = {"busy_ms_per_step": busy_ms, "idle_share": idle,
                                 "dos_matmul_ms_per_step": dos_ms, "slstm_ms_per_step": slstm_ms,
+                                "grouped_matmul_ms_per_step": gmm_ms,
                                 "device_ops_per_step": n_ops / PROFILE_STEPS,
                                 "top_us_per_step": {n: us / PROFILE_STEPS for n, us in top}}
 
@@ -1873,7 +1926,11 @@ def expected_train_launches(cfg) -> dict:
     scan backward; the shared block's flash forward and backward once per
     call. xLSTM: no remat (as the reference): each GEMM once forward, then
     dA and dB; two scans per mLSTM block (with states) and their two
-    backwards; one recurrence per sLSTM block and its backward."""
+    backwards; one recurrence per sLSTM block and its backward. MoE: as
+    dense, with the router's product among each layer's GEMMs and one more
+    outside the layers (the load-balance term's), and per layer three
+    grouped expert products, again in the recompute, their three dX
+    products and three dW."""
     out = dict.fromkeys(KERNELS, 0)
     if cfg.family == "ssm":
         n_m, n_s = xlstm_block_counts(cfg)
@@ -1886,6 +1943,13 @@ def expected_train_launches(cfg) -> dict:
         gemms = 6 * n_mamba + 7 * n_attn + 1
         out.update(dos_matmul=gemms + 6 * n_mamba + 2 * gemms, flash_attention=n_attn,
                    flash_attention_bwd=n_attn, ssm_scan=2 * n_mamba, ssm_scan_bwd=n_mamba)
+        return out
+    if cfg.family == "moe":
+        n = cfg.n_layers
+        gemms = moe_layer_gemms(cfg) * n + 2  # the unembedding and the load-balance router
+        out.update(dos_matmul=gemms + moe_layer_gemms(cfg) * n + 2 * gemms,
+                   flash_attention=2 * n, flash_attention_bwd=n, grouped_matmul=9 * n,
+                   grouped_matmul_dw=3 * n)
         return out
     gemms = 7 * cfg.n_layers + 1
     out.update(dos_matmul=gemms + 7 * cfg.n_layers + 2 * gemms,
@@ -2279,8 +2343,9 @@ TRAIN_VARIANTS = {"dos_matmul": "wgmma", "flash_attention": "mma", "flash_attent
 
 
 def phase_train_path(arch=ARCH):
-    """Phase 12's main path (smollm-135m) or phase 13's (zamba2-2.7b):
-    ``train_loop`` at full size on the card, with the launch counts set to
+    """Phase 12's main path (smollm-135m), phase 13's (zamba2-2.7b), 14's
+    (xlstm-125m) or 15's (deepseek-moe-16b, depth cut to
+    MOE_TRAIN_LAYERS): ``train_loop`` at full width on the card, with the launch counts set to
     0 just before and read just after. Every loss finite (and falling on
     the dense path: phase_train_hybrid_learns holds the hybrid's), the
     launches per step exact (every dos_matmul launch wgmma, every flash
@@ -2288,6 +2353,8 @@ def phase_train_path(arch=ARCH):
     tokens/s and peak memory. Returns the counts, the final state and the
     step p50."""
     cfg = get_config(arch)
+    if cfg.family == "moe":  # phase 15: full width, depth cut
+        cfg = dataclasses.replace(cfg, n_layers=MOE_TRAIN_LAYERS)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
@@ -2326,9 +2393,10 @@ def phase_train_path(arch=ARCH):
               f"{first:.4f} -> {last:.4f})")
     want = {k: n * TRAIN_STEPS for k, n in expected_train_launches(cfg).items()}
     check(counts == want, f"train launches {counts}, expected {want}")
-    if cfg.family == "ssm":  # phase 14: every kernel's variants exact
-        want_v = {k: {v: n * TRAIN_STEPS for v, n in c.items()}
-                  for k, c in expected_train_variants(cfg).items()}
+    if cfg.family in ("ssm", "moe"):  # phases 14, 15: every kernel's variants exact
+        want_v = {k: {v: n * TRAIN_STEPS for v, n in c.items()} for k, c in
+                  (expected_train_variants if cfg.family == "ssm" else moe_train_variants)(cfg)
+                  .items()}
         check(variants == want_v, f"train launches by variant {variants}, expected {want_v}")
     else:
         for k, want_variant in TRAIN_VARIANTS.items():
@@ -2841,6 +2909,7 @@ def phase_train_hybrid_cli():
     --json`` in a subprocess: exit 0, finite losses, the launches of 3
     steps exact."""
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    torch.cuda.empty_cache()  # the full model's training state is the subprocess's
     t0 = time.perf_counter()
     r = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--arch", HYBRID,
                         "--steps", str(HYBRID_CLI_STEPS), "--json"], capture_output=True,
@@ -3349,6 +3418,514 @@ def phase_xlstm_cli():
 
 
 # ---------------------------------------------------------------------------
+# phase 15: MoE (deepseek-moe-16b) serving and training on the card
+# ---------------------------------------------------------------------------
+
+# grouped_matmul against its plain version on the f32 result of the same
+# operands (phase 4's GEMM gate): f32 within 1e-5 of the largest entry
+# (sums in another order); a bf16 output one bf16 rounding (2**-8) of each
+# entry more. grouped_matmul_dw's output is f32 whatever its operands:
+# 1e-5 of the largest entry.
+GMM_TOL = 1e-5
+# the training path: full width, depth cut to 4 layers (f32 masters,
+# gradients and AdamW moments: 16 bytes a parameter, ~44 GB at 4 layers,
+# 270 GB at 28)
+MOE_TRAIN_LAYERS = 4
+# card against CPU: one attention+MoE layer in bf16, each sub-block fed the
+# CPU's input (the bf16 band, E2E_TOL); the model in f32 at 2 layers,
+# batch 2 x 128. f32 band: each GEMM differs between the devices by ~1e-6
+# of its scale (summation order), two layers ~1e-5; a flipped route moves
+# a token's output by the order of its scale, and shows in the routing
+# agreement printed beside it.
+MOE_E2E_LAYERS, MOE_E2E_BATCH, MOE_F32_TOL = 2, 2, 1e-3
+# the restart check: full width, one layer (a checkpoint holds params, m
+# and v in f32: 12 GB), 6 steps, a checkpoint every 3, a fault at step 4
+MOE_RESTART_LAYERS, MOE_RESTART_STEPS, MOE_RESTART_EVERY, MOE_RESTART_FAULT = 1, 6, 3, 4
+MOE_CLI_LAYERS, MOE_CLI_STEPS = 1, 3
+
+
+def moe_serve_variants(cfg, gen_tokens: int = GEN) -> dict:
+    """An MoE serve run's launches by kernel and variant, prefill and
+    decode together: the bf16 projections ``wgmma`` in prefill and
+    ``skinny`` in decode (M = batch), the router's f32 product ``f32``,
+    every expert product ``mma``, every prefill attention ``mma``."""
+    n, per = cfg.n_layers, moe_layer_gemms(cfg)
+    out = {k: dict.fromkeys(fn.variants, 0) for k, fn in KERNELS.items()}
+    out["dos_matmul"].update(wgmma=(per - 1) * n + 1, skinny=((per - 1) * n + 1) * (gen_tokens - 1),
+                             f32=n * gen_tokens)
+    out["grouped_matmul"]["mma"] = 3 * n * gen_tokens
+    out["flash_attention"]["mma"] = n
+    return out
+
+
+def moe_layer_gemms(cfg) -> int:
+    """dos_matmul calls of one MoE layer: q k v o, the router and, with
+    shared experts, their gate, up and down projections."""
+    return 5 + (3 if cfg.n_shared_experts else 0)
+
+
+def moe_train_variants(cfg) -> dict:
+    """An MoE train step's launches by kernel and variant (remat): the
+    router's f32 products (forward, recompute, dA, dB; the load-balance
+    term's once and its dA, dB) ``f32``, every other GEMM ``wgmma``; the
+    expert products ``mma`` (forward, recompute, dX) and their dW ``mma``;
+    attention ``mma``."""
+    n = cfg.n_layers
+    out = {k: dict.fromkeys(fn.variants, 0) for k, fn in KERNELS.items()}
+    total = expected_train_launches(cfg)
+    f32 = (n + 1) + n + 2 * (n + 1)
+    out["dos_matmul"].update(f32=f32, wgmma=total["dos_matmul"] - f32)
+    for k in ("grouped_matmul", "grouped_matmul_dw", "flash_attention", "flash_attention_bwd"):
+        out[k]["mma"] = total[k]
+    return out
+
+
+def moe_routes(gen, cfg, tokens):
+    """Group sizes (experts, int32, on the card) of ``tokens`` tokens
+    routed as ``moe_block`` routes them: random activations through a
+    random f32 router, top-k, sorted by expert."""
+    x = torch.randn(tokens, cfg.d_model, generator=gen, device="cuda")
+    router = torch.randn(cfg.d_model, cfg.n_experts, generator=gen, device="cuda")
+    _, top_i = moe.route({"router": router / cfg.d_model**0.5}, x, cfg.top_k)
+    expert = top_i.reshape(-1).sort(stable=True).values
+    bounds = torch.searchsorted(expert, torch.arange(cfg.n_experts + 1, device="cuda"))
+    return bounds.diff().to(torch.int32)
+
+
+def gmm_work(rows, k, n, sizes, es):
+    """Bytes of a grouped GEMM (the rows in groups and the weights of the
+    non-empty groups read once, the whole output written once) and its
+    operations (2 K N per row in a group): what these sizes need."""
+    used = min(int(sizes.sum()), rows)
+    active = int((sizes > 0).sum())
+    return es * (used * k + active * k * n + rows * n), 2.0 * used * k * n
+
+
+def gmm_dw_work(rows, k, n, sizes, es):
+    """Bytes of the weight gradient (the rows in groups of x and dy read
+    once, the (G, K, N) f32 gradient written once) and its operations."""
+    used = min(int(sizes.sum()), rows)
+    return es * used * (k + n) + 4 * len(sizes) * k * n, 2.0 * used * k * n
+
+
+def _library_ms(call, what):
+    """``cuda_ms`` of ``torch._grouped_mm``, the one PyTorch call that
+    computes a grouped GEMM, where this torch has it and it takes the
+    inputs; else None, with the reason printed."""
+    if not hasattr(torch, "_grouped_mm"):
+        return None
+    try:
+        call(0)
+        return cuda_ms(call, 2)
+    except (RuntimeError, TypeError, ValueError) as e:
+        print(f"[moe] {what}: torch._grouped_mm does not take these inputs: {str(e)[:160]}")
+        return None
+
+
+def check_gmm(gen, rows, k, n, sizes, dtype=torch.bfloat16, transposed=False, time_it=False,
+              what=""):
+    """``grouped_matmul`` (the variant ``plan`` picks) on x (rows, k) and
+    w (G, k, n), row-major or the transposed view of a (G, n, k) weight,
+    against ``grouped_matmul_ref`` on the f32 result of the same operands
+    at GMM_TOL (plus one bf16 rounding of each entry for bf16); rows past
+    the sum zero; two calls bit-identical. Timed: kernel (inputs rotated
+    over two sets), plain version (host clock: it reads the sizes on the
+    host), torch._grouped_mm where it takes the inputs, bound."""
+    sizes = torch.as_tensor(sizes, dtype=torch.int32, device="cuda")
+    g = len(sizes)
+
+    def operands():
+        x = torch.randn(rows, k, generator=gen, device="cuda").to(dtype)
+        w = (torch.randn(g, n, k, generator=gen, device="cuda") / k**0.5).to(dtype)
+        return x, (w.transpose(-1, -2) if transposed else w.reshape(g, k, n))
+
+    x, w = operands()
+    want_v = "mma" if dtype == torch.bfloat16 and k % 8 == 0 and n % 8 == 0 else "fma"
+    before = dict(grouped_matmul.variants)
+    out = grouped_matmul(x, w, sizes)
+    check(grouped_matmul.variants == dict(before, **{want_v: before[want_v] + 1}),
+          f"grouped_matmul {what}: variants {grouped_matmul.variants}, {want_v} expected")
+    exact = grouped_matmul_ref(x.float(), w.float(), sizes)
+    err = (out.float() - exact).abs()
+    tol = GMM_TOL * exact.abs().max() + (2.0**-8 * exact.abs() if dtype == torch.bfloat16 else 0)
+    used = int(sizes.sum())
+    check(bool((err <= tol).all()), f"grouped_matmul {what}: off the gate by "
+          f"{(err - tol).max().item():.3g}")
+    check(not out[used:].any(), f"grouped_matmul {what}: a row past the sum is not zero")
+    check(torch.equal(out, grouped_matmul(x, w, sizes)), f"grouped_matmul {what}: two calls differ")
+    es = torch.finfo(dtype).bits // 8
+    n_bytes, n_ops = gmm_work(rows, k, n, sizes.cpu(), es)
+    row = {"what": what, "rows": rows, "K": k, "N": n, "G": g,
+           "active": int((sizes > 0).sum()), "dtype": str(dtype), "transposed": transposed,
+           "variant": want_v, "max_abs_err": err.max().item(), "bytes": n_bytes, "ops": n_ops}
+    row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, n_ops, dtype)
+    if time_it:
+        sets = [(x, w), operands()]
+        row["ms"] = cuda_ms(lambda i: grouped_matmul(sets[i][0], sets[i][1], sizes), 2)
+        row["plain_ms"] = _host_ms(lambda: grouped_matmul_ref(x, w, sizes))
+        offs = sizes.cumsum(0).to(torch.int32)
+        row["library_ms"] = _library_ms(
+            lambda i: torch._grouped_mm(sets[i][0], sets[i][1], offs=offs), what)
+        lib = "none" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms"
+        print(f"[moe] grouped_matmul {what}: ({rows}, {k}) x ({g}, {k}, {n}){' w^T' * transposed}"
+              f", {row['active']} groups non-empty, {want_v}: {row['ms']:.4f} ms, bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}), plain {row['plain_ms']:.3f} ms, "
+              f"torch._grouped_mm {lib}; max|err| {row['max_abs_err']:.3g}", flush=True)
+    return row
+
+
+def check_gmm_dw(gen, rows, k, n, sizes, dtype=torch.bfloat16, time_it=False, what=""):
+    """``grouped_matmul_dw`` (the variant ``dw_plan`` picks, and ``fma``
+    forced on the same inputs) against ``grouped_matmul_dw_ref`` within
+    GMM_TOL of the largest entry; empty groups zero; two calls of each
+    bit-identical. Timed like ``check_gmm``; torch._grouped_mm's 2-D x 2-D
+    form (offsets along the rows, output in the operands' type) is the
+    PyTorch call."""
+    sizes = torch.as_tensor(sizes, dtype=torch.int32, device="cuda")
+    x = torch.randn(rows, k, generator=gen, device="cuda").to(dtype)
+    dy = torch.randn(rows, n, generator=gen, device="cuda").to(dtype)
+    exact = grouped_matmul_dw_ref(x, dy, sizes)
+    scale = exact.abs().max().item()
+    want_v = "mma" if dtype == torch.bfloat16 and k % 8 == 0 and n % 8 == 0 else "fma"
+    errs = {}
+    for variant in sorted({want_v, "fma"}):
+        before = dict(grouped_matmul_dw.variants)
+        dw = gmm_ops._launch_dw(x, dy, sizes, force_fma=variant == "fma")
+        check(grouped_matmul_dw.variants == dict(before, **{variant: before[variant] + 1}),
+              f"grouped_matmul_dw {what}: variants {grouped_matmul_dw.variants}")
+        errs[variant] = (dw - exact).abs().max().item()
+        check(errs[variant] <= GMM_TOL * scale, f"grouped_matmul_dw {what} ({variant}): "
+              f"{errs[variant] / scale:.3g} of the largest entry")
+        check(all(not dw[i].any() for i in range(len(sizes)) if int(sizes[i]) == 0),
+              f"grouped_matmul_dw {what}: an empty group's gradient is not zero")
+        check(torch.equal(dw, gmm_ops._launch_dw(x, dy, sizes, force_fma=variant == "fma")),
+              f"grouped_matmul_dw {what} ({variant}): two calls differ")
+    es = torch.finfo(dtype).bits // 8
+    n_bytes, n_ops = gmm_dw_work(rows, k, n, sizes.cpu(), es)
+    row = {"what": what, "rows": rows, "K": k, "N": n, "G": len(sizes), "dtype": str(dtype),
+           "variant": want_v, "max_abs_err": max(errs.values()), "bytes": n_bytes, "ops": n_ops}
+    row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, n_ops, dtype)
+    if time_it:
+        sets = [(x, dy), (torch.randn_like(x), torch.randn_like(dy))]
+        row["ms"] = cuda_ms(lambda i: grouped_matmul_dw(sets[i][0], sets[i][1], sizes), 2)
+        row["fma_ms"] = cuda_ms(lambda i: gmm_ops._launch_dw(sets[i][0], sets[i][1], sizes,
+                                                             force_fma=True), 2, iters=5)
+        row["plain_ms"] = _host_ms(lambda: grouped_matmul_dw_ref(x, dy, sizes))
+        offs = sizes.cumsum(0).to(torch.int32)
+        # its output in the operands' type: the one it takes
+        row["library_ms"] = _library_ms(
+            lambda i: torch._grouped_mm(sets[i][0].T, sets[i][1], offs=offs), what)
+        lib = "none" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms"
+        print(f"[moe] grouped_matmul_dw {what}: ({rows}, {k})^T x ({rows}, {n}) over "
+              f"{len(sizes)} groups, {want_v}: {row['ms']:.4f} ms (fma {row['fma_ms']:.4f}), bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}), plain {row['plain_ms']:.3f} ms, "
+              f"torch._grouped_mm {lib}; max|err| {row['max_abs_err']:.3g}", flush=True)
+    return row
+
+
+def check_moe_decode_no_sync(gen):
+    """One decode call of ``moe_block`` at deepseek-moe-16b's full width
+    (4 tokens, weights drawn on the card) under
+    ``torch.cuda.set_sync_debug_mode("error")``: a device-to-host sync
+    raises."""
+    cfg = get_config(MOE)
+    p = materialize_cast(moe.moe_defs(cfg), torch.Generator(device="cuda").manual_seed(15),
+                         torch.float32, torch.bfloat16, "cuda")
+    x = torch.randn(BATCH, 1, cfg.d_model, generator=gen, device="cuda").to(torch.bfloat16)
+    with torch.no_grad():
+        moe.moe_block(p, x, cfg)  # warm: the first call loads the kernels
+        torch.cuda.synchronize()
+        before = grouped_matmul.launches
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            y = moe.moe_block(p, x, cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    check(grouped_matmul.launches == before + 3, "moe_block's decode call launched "
+          f"{grouped_matmul.launches - before} grouped GEMMs, 3 expected")
+    check(bool(torch.isfinite(y.float()).all()), "moe_block's decode output is not finite")
+    print(f"[moe] moe_block decode call ({BATCH} tokens, full width) under "
+          "set_sync_debug_mode('error'): no device-to-host sync", flush=True)
+
+
+def phase_moe_kernels():
+    """Phase 15's kernel checks (``check_gmm``, ``check_gmm_dw``): the
+    expert products at deepseek-moe-16b's prefill, decode and training
+    shapes with routes from a real router (timed), the training backward's
+    dX on the weights' transposed views (timed), both of llama4-scout's
+    expert shapes (16 groups, 5,120 x 8,192 and back; timed), edge cases
+    (empty groups, one group holding every row, rows past the sum, ragged
+    K and N, rows off 16 bytes, the f32 variant, both layouts), the weight
+    gradient at the training shape (timed) and at edge shapes, and the
+    decode call of ``moe_block`` without a sync. Returns the rows and the
+    largest error by kernel."""
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    cfg, scout = get_config(MOE), get_config(SCOUT)
+    e, f, k = cfg.d_model, cfg.expert_d_ff, cfg.top_k
+    fw, dw = {}, {}
+    routes = {tag: moe_routes(gen, cfg, tokens) for tag, tokens in
+              (("prefill", BATCH * PROMPT), ("decode", BATCH), ("train", TRAIN_BATCH * TRAIN_SEQ))}
+    for tag, sizes in routes.items():
+        r = int(sizes.sum())
+        fw[f"{tag} gate/up"] = check_gmm(gen, r, e, f, sizes, time_it=True,
+                                         what=f"{MOE} {tag} gate/up")
+        fw[f"{tag} down"] = check_gmm(gen, r, f, e, sizes, time_it=True, what=f"{MOE} {tag} down")
+    rt = int(routes["train"].sum())
+    fw["train dX of gate/up"] = check_gmm(gen, rt, f, e, routes["train"], transposed=True,
+                                          time_it=True, what=f"{MOE} train dX of gate/up")
+    fw["train dX of down"] = check_gmm(gen, rt, e, f, routes["train"], transposed=True,
+                                       time_it=True, what=f"{MOE} train dX of down")
+    s_sizes = moe_routes(gen, scout, BATCH * PROMPT)
+    se, sf = scout.d_model, scout.expert_d_ff
+    fw["scout up"] = check_gmm(gen, BATCH * PROMPT, se, sf, s_sizes, time_it=True,
+                               what=f"{SCOUT} prefill gate/up")
+    fw["scout down"] = check_gmm(gen, BATCH * PROMPT, sf, se, s_sizes, time_it=True,
+                                 what=f"{SCOUT} prefill down")
+    edges = {"empty groups": (96, 256, 136, [0, 40, 0, 0, 56, 0]),
+             "one group holds every row": (300, 200, 136, [0, 300, 0]),
+             "rows past the sum": (130, 96, 72, [17, 0, 40, 3]),
+             "ragged K and N": (257, 1000, 520, [64, 1, 0, 100, 92]),
+             "rows off 16 bytes": (77, 1001, 515, [30, 0, 47])}
+    for name, (rows, kk, nn, sizes) in edges.items():
+        for dtype in (torch.bfloat16, torch.float32):
+            for tr in (False, True):
+                fw[f"{name} {dtype} {'w^T' if tr else 'w'}"] = check_gmm(
+                    gen, rows, kk, nn, sizes, dtype, tr, what=f"{name}, {dtype}")
+        dw[f"{name} bf16"] = check_gmm_dw(gen, rows, kk, nn, sizes, what=name)
+        dw[f"{name} f32"] = check_gmm_dw(gen, rows, kk, nn, sizes, torch.float32, what=name)
+    dw["train gate/up"] = check_gmm_dw(gen, rt, e, f, routes["train"], time_it=True,
+                                       what=f"{MOE} train gate/up")
+    dw["train down"] = check_gmm_dw(gen, rt, f, e, routes["train"], time_it=True,
+                                    what=f"{MOE} train down")
+    check_moe_decode_no_sync(gen)
+    rows = {"grouped_matmul": fw, "grouped_matmul_dw": dw}
+    RESULTS["moe_kernels"] = rows
+    return rows, {kname: max(r["max_abs_err"] for r in rs.values()) for kname, rs in rows.items()}
+
+
+class _RecordRoutes:
+    """Inside the ``with``, every ``moe.route`` call records its top-k
+    indices and the k-th to (k+1)-th probability gap of each token, by the
+    device it ran on (the extra router product is outside every count)."""
+
+    def __init__(self):
+        self.calls = {"cuda": [], "cpu": []}
+
+    def __enter__(self):
+        self._route = moe.route
+
+        def route(p, xt, k):
+            top_p, top_i = self._route(p, xt, k)
+            probs = torch.softmax(layers.proj(xt.float(), p["router"].float()), dim=-1)
+            srt = probs.sort(dim=-1, descending=True).values
+            self.calls[xt.device.type].append((top_i.cpu(), (srt[:, k - 1] - srt[:, k]).cpu()))
+            return top_p, top_i
+
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        moe.route = self._route
+
+    def agreement(self) -> dict:
+        """Tokens whose top-k experts agree between the card's calls and
+        the CPU's, and the smallest gap the CPU saw."""
+        card, cpu = self.calls["cuda"], self.calls["cpu"]
+        check(len(card) == len(cpu) > 0, "the card and the CPU routed different calls")
+        rows = sum(ic.shape[0] for ic, _ in cpu)
+        same = sum(int((ig == ic).all(dim=-1).sum()) for (ig, _), (ic, _) in zip(card, cpu))
+        return {"rows": rows, "agree": same, "smallest_gap": min(g.min().item() for _, g in cpu)}
+
+
+def phase_moe_e2e():
+    """Card against CPU on the same weights and inputs (the CPU's plain
+    versions): one attention+MoE layer of deepseek-moe-16b at full width
+    in bf16, the attention and the MoE sub-blocks each fed the CPU's
+    input, within the bf16 band of the output's max; and the full-width
+    model cut to 2 layers in f32 at batch 2 x 128, prefill and 4 decode
+    steps, within MOE_F32_TOL. Prints the routing agreement of each."""
+    cfg = dataclasses.replace(get_config(MOE), n_layers=1)
+    lp_c = materialize_cast(decoder._block_defs(cfg), torch.Generator().manual_seed(0),
+                            torch.float32, torch.bfloat16, "cpu")
+    lp_g = map_tree(lambda t: t.to("cuda"), lp_c)
+    x = torch.randn(MOE_E2E_BATCH, PROMPT, cfg.d_model, generator=torch.Generator().manual_seed(1)
+                    ).to(torch.bfloat16)
+    wins, thetas = decoder.layer_metadata(cfg)
+    kw = dict(mode="prefill", window=wins[0], theta=thetas[0])
+    with torch.no_grad(), _RecordRoutes() as rec:
+        h_c = layers.attention(lp_c["attn"], layers.rmsnorm(x, lp_c["ln1"], cfg.norm_eps), cfg,
+                               **kw)[0]
+        h_g = layers.attention(lp_g["attn"], layers.rmsnorm(x.cuda(), lp_g["ln1"], cfg.norm_eps),
+                               cfg, **kw)[0]
+        y_in = layers.rmsnorm(x + h_c, lp_c["ln2"], cfg.norm_eps)
+        m_c = moe.moe_block(lp_c["ffn"], y_in, cfg)
+        m_g = moe.moe_block(lp_g["ffn"], y_in.cuda(), cfg)
+    gaps = {what: (got.float().cpu() - ref.float()).abs().max().item()
+            / ref.float().abs().max().item()
+            for what, got, ref in (("attention", h_g, h_c), ("moe", m_g, m_c))}
+    agree = rec.agreement()
+    print(f"[moe] card vs CPU, one layer of {MOE} at full width in bf16, batch {MOE_E2E_BATCH} x "
+          f"{PROMPT}, each sub-block fed the CPU's input: attention {gaps['attention']:.3g}, MoE "
+          f"{gaps['moe']:.3g} of the output's max (band {E2E_TOL}); routes agree on "
+          f"{agree['agree']} of {agree['rows']} tokens (smallest k-th to (k+1)-th probability "
+          f"gap {agree['smallest_gap']:.3g})", flush=True)
+    for what, gap in gaps.items():
+        check(gap <= E2E_TOL, f"{MOE} bf16 {what} block: card and CPU differ by {gap:.3g}")
+    del lp_c, lp_g
+    with _RecordRoutes() as rec:
+        timed(phase_e2e, MOE, "float32", MOE_F32_TOL)
+    agree_f32 = rec.agreement()
+    print(f"[moe] {MOE} ({MOE_E2E_LAYERS} layers) f32 end to end: routes agree on "
+          f"{agree_f32['agree']} of {agree_f32['rows']} (token, layer) pairs of the prefill and "
+          f"{E2E_DECODE_STEPS} decode steps (smallest k-th to (k+1)-th probability gap "
+          f"{agree_f32['smallest_gap']:.3g})", flush=True)
+    RESULTS["moe_e2e"] = {"bf16_block_rel": gaps, "bf16_routes": agree, "f32_routes": agree_f32}
+def phase_train_moe_profile(state, step_p50_s):
+    """One train step of phase 15's training path (its trained state, the
+    next batch) under torch.profiler: device busy time, the idle share
+    against the path's step p50, device time by kernel and by plain op.
+    The step updates the state in place."""
+    cfg = dataclasses.replace(get_config(MOE), n_layers=MOE_TRAIN_LAYERS)
+    model = build(cfg, "cuda")
+    step = make_train_step(model, OptConfig(lr=1e-3, warmup_steps=20, total_steps=TRAIN_STEPS),
+                           remat=True)
+    data = SyntheticLM(DataConfig(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=0))
+    batch = {k: torch.from_numpy(x).to("cuda") for k, x in data.batch(TRAIN_STEPS).items()}
+    RESULTS["profile"][f"train {MOE}"] = _profile_train_step(
+        lambda: step(state["params"], state["opt"], batch), step_p50_s,
+        f"{MOE} ({MOE_TRAIN_LAYERS} layers) train step",
+        {"dos_matmul": "dos_matmul", "flash_attention": "flash_mma",
+         "flash_attention_bwd": "flash_bwd", "grouped_matmul": "gmm_fwd",
+         "grouped_matmul_dw": "gmm_dw"})
+
+
+def phase_moe_train_e2e():
+    """Card against CPU on the same f32 master weights: one ``moe_block``
+    at full width in bf16, batch 2 x 128 (its input's and parameters'
+    gradients under a random output gradient, within E2E_TOL of each
+    leaf's max|g|: the ``mma`` dX on the weights' transposed views, the
+    ``mma`` dW and the dispatch's backward, as training runs them); and
+    one train step's loss (the load-balance term included) and every
+    gradient leaf at full width with one layer, batch 2 x 128, in f32
+    within TRAIN_F32_TOL of each leaf's max|g|. The routing agreement of
+    each printed."""
+    cfg = get_config(MOE)
+    gen = torch.Generator().manual_seed(0)
+    lp = materialize(moe.moe_defs(cfg), gen)
+    x = torch.randn(MOE_E2E_BATCH, PROMPT, cfg.d_model, generator=gen).to(torch.bfloat16)
+    gy = torch.randn(MOE_E2E_BATCH, PROMPT, cfg.d_model, generator=gen).to(torch.bfloat16)
+
+    def block_grads(dev):
+        ins = {"x": x.to(dev).requires_grad_(),
+               "p": map_tree(lambda t: t.to(dev).requires_grad_(), lp)}
+        torch.autograd.backward(moe.moe_block(ins["p"], ins["x"], cfg), gy.to(dev))
+        return map_tree(lambda t: t.grad, ins)
+
+    with _RecordRoutes() as rec:
+        before = (grouped_matmul.variants["mma"], grouped_matmul_dw.variants["mma"])
+        block_g = block_grads("cuda")
+        block_c = block_grads("cpu")
+    after = (grouped_matmul.variants["mma"], grouped_matmul_dw.variants["mma"])
+    check(after == (before[0] + 6, before[1] + 3), "moe_block's bf16 backward launched "
+          f"{after[0] - before[0]} mma grouped GEMMs and {after[1] - before[1]} mma dW, 6 and 3 "
+          "expected")
+    block_rel, block_leaf = _grad_gap(block_g, block_c)
+    block_agree = rec.agreement()
+    del block_g, block_c, lp
+    print(f"[moe] train, card vs CPU, one moe_block of {MOE} at full width, batch "
+          f"{MOE_E2E_BATCH} x {PROMPT}, bf16: worst gradient (input and parameters) {block_leaf} "
+          f"at {block_rel:.3g} of its max|g| (band {E2E_TOL}); routes agree on "
+          f"{block_agree['agree']} of {block_agree['rows']} tokens (smallest gap "
+          f"{block_agree['smallest_gap']:.3g})", flush=True)
+    check(block_rel <= E2E_TOL, f"moe_block gradient {block_leaf} differs by {block_rel:.3g}")
+
+    cfg = dataclasses.replace(cfg, n_layers=1, compute_dtype="float32")
+    mc, mg = build(cfg, "cpu"), build(cfg, "cuda")
+    params_c = mc.init(torch.Generator().manual_seed(0))
+    params_g = map_tree(lambda t: t.to("cuda"), params_c)
+    data = SyntheticLM(DataConfig(cfg.vocab, PROMPT, MOE_E2E_BATCH, seed=0))
+    batch = {k: torch.from_numpy(x) for k, x in data.batch(0).items()}
+    with _RecordRoutes() as rec:
+        lc, gc = loss_and_grads(mc, params_c, batch, True)
+        lg, gg = loss_and_grads(mg, params_g, {k: x.cuda() for k, x in batch.items()}, True)
+    loss_rel = abs(float(lg) - float(lc)) / abs(float(lc))
+    worst, worst_leaf = _grad_gap(gg, gc)
+    agree = rec.agreement()
+    print(f"[moe] train, card vs CPU, {MOE} 1 layer at full width, batch {MOE_E2E_BATCH} x "
+          f"{PROMPT}, f32: loss {float(lg):.6f} vs {float(lc):.6f} (relative {loss_rel:.3g}); "
+          f"worst gradient leaf {worst_leaf} at {worst:.3g} of its max|g| (band "
+          f"{TRAIN_F32_TOL}); routes agree on {agree['agree']} of {agree['rows']} tokens "
+          f"(smallest gap {agree['smallest_gap']:.3g})", flush=True)
+    check(loss_rel <= TRAIN_F32_TOL,
+          f"the card's MoE loss differs from the CPU's by {loss_rel:.3g}")
+    check(worst <= TRAIN_F32_TOL, f"MoE gradient {worst_leaf} differs by {worst:.3g} of its scale")
+    RESULTS["moe_train_e2e"] = {"block_bf16_worst_grad_rel": block_rel,
+                                "block_bf16_worst_leaf": block_leaf,
+                                "block_bf16_routes": block_agree, "loss_rel": loss_rel,
+                                "worst_grad_rel": worst, "worst_leaf": worst_leaf,
+                                "routes": agree}
+
+
+def phase_moe_restart():
+    """``train_loop`` on deepseek-moe-16b at full width and one layer with
+    a checkpoint every MOE_RESTART_EVERY steps and a fault at
+    MOE_RESTART_FAULT: the loop resumes from the last checkpoint and its
+    losses repeat an uninterrupted run's bit for bit (the grouped GEMM's
+    dW and the dispatch's backward use no atomics)."""
+    import shutil
+    import tempfile
+
+    cfg = dataclasses.replace(get_config(MOE), n_layers=MOE_RESTART_LAYERS)
+    kw = dict(steps=MOE_RESTART_STEPS, global_batch=MOE_E2E_BATCH, seq_len=PROMPT, log_every=0,
+              device="cuda")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_moe_ckpt_")
+    resume = MOE_RESTART_FAULT // MOE_RESTART_EVERY * MOE_RESTART_EVERY
+    try:
+        inj = FaultInjector(fail_at_steps=(MOE_RESTART_FAULT,))
+        t0 = time.perf_counter()
+        _, losses, _ = train_loop(cfg, ckpt_dir=tmp, ckpt_every=MOE_RESTART_EVERY,
+                                  fault_injector=inj, **kw)
+        wall = time.perf_counter() - t0
+        _, clean, _ = train_loop(cfg, **kw)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    same = losses == clean[:MOE_RESTART_FAULT] + clean[resume:]
+    print(f"[moe] restart, {MOE} {MOE_RESTART_LAYERS} layer at full width: fault at step "
+          f"{MOE_RESTART_FAULT} fired {MOE_RESTART_FAULT in inj.fired}; resumed from step {resume} "
+          f"in {wall:.2f} s with checkpoints; every loss equals an uninterrupted run's bit for "
+          f"bit: {same} ({losses} vs {clean})", flush=True)
+    check(MOE_RESTART_FAULT in inj.fired, "the injected fault did not fire")
+    check(same, f"the resumed MoE losses {losses} differ from an uninterrupted run's {clean}")
+    RESULTS["moe_restart"] = {"losses": losses, "clean": clean, "bit_identical": same,
+                              "wall_s": wall}
+
+
+def phase_moe_cli():
+    """``python -m repro_torch.launch.train --arch deepseek-moe-16b --layers
+    1 --steps 3 --json`` in a subprocess: exit 0 on the card, finite
+    losses, the launches per step exact."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    cmd = ["repro_torch.launch.train", "--arch", MOE, "--layers", str(MOE_CLI_LAYERS), "--steps",
+           str(MOE_CLI_STEPS), "--batch", str(MOE_E2E_BATCH), "--seq", str(PROMPT), "--json"]
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", *cmd], capture_output=True, text=True, timeout=600,
+                       env=env, cwd=ROOT)
+    wall = time.perf_counter() - t0
+    check(r.returncode == 0, f"python -m {' '.join(cmd)} exited {r.returncode}: {r.stderr[-2000:]}")
+    out = json.loads(r.stdout)
+    cfg = dataclasses.replace(get_config(MOE), n_layers=MOE_CLI_LAYERS)
+    want = {k: n * MOE_CLI_STEPS for k, n in expected_train_launches(cfg).items()}
+    check(out["device"]["platform"] == "gpu" and len(out["losses"]) == MOE_CLI_STEPS
+          and all(math.isfinite(x) for x in out["losses"]) and out["launches"] == want,
+          f"the MoE train CLI's summary is wrong: {out['device']}, {out['losses']}, "
+          f"{out['launches']} (expected {want})")
+    print(f"[moe] python -m {' '.join(cmd)}: exit 0 in {wall:.1f} s; loss {out['loss_first']:.4f} "
+          f"-> {out['loss_last']:.4f}, step p50 {out['step_p50_s']*1e3:.3f} ms, launches "
+          f"{out['launches']}", flush=True)
+    RESULTS["moe_cli"] = {k: out[k] for k in ("losses", "step_p50_s", "launches", "wall_s")}
+
+
+# ---------------------------------------------------------------------------
 
 
 def timed(phase, *args):
@@ -3378,7 +3955,8 @@ def main(argv=None) -> int:
                 json.dump(RESULTS, f, indent=1)
         return 0
     counts, step_p50_s = {}, {}
-    for arch in PATHS + (XLSTM,):  # first, so nothing else holds memory; XLSTM: phase 14's
+    # first, so nothing else holds memory; XLSTM: phase 14's, MOE: phase 15's
+    for arch in PATHS + (XLSTM, MOE):
         counts[arch], step_p50_s[arch] = timed(phase_main_path, arch)
     counts["train"], train_state, train_p50 = timed(phase_train_path)  # phase 12's main path
     counts[f"train {HYBRID}"], hybrid_state, hybrid_p50 = timed(phase_train_path,
@@ -3390,6 +3968,10 @@ def main(argv=None) -> int:
                                                              XLSTM)  # phase 14's
     timed(phase_train_xlstm_profile, xlstm_state, xlstm_p50)
     del xlstm_state
+    torch.cuda.empty_cache()
+    counts[f"train {MOE}"], moe_state, moe_p50 = timed(phase_train_path, MOE)  # phase 15's
+    timed(phase_train_moe_profile, moe_state, moe_p50)
+    del moe_state
     torch.cuda.empty_cache()
     launched = {k for c in counts.values() for k, n in c.items() if n > 0}
     check(launched == set(KERNELS), f"kernels no main path launched: {set(KERNELS) - launched}")
@@ -3429,6 +4011,13 @@ def main(argv=None) -> int:
     timed(phase_xlstm_e2e)
     timed(phase_e2e_blocks, XLSTM)
     timed(phase_xlstm_cli)
+    timed(phase_profile_prefill, MOE)  # phase 15 from here
+    timed(phase_profile, MOE, *full_depth_decode_state(MOE), step_p50_s[MOE])
+    moe_rows, moe_err = timed(phase_moe_kernels)
+    timed(phase_moe_e2e)
+    timed(phase_moe_train_e2e)
+    timed(phase_moe_restart)
+    timed(phase_moe_cli)
 
     replaces = {
         "dos_matmul": ("src/repro_torch/kernels/csrc/dos_matmul.cu",
@@ -3490,21 +4079,48 @@ def main(argv=None) -> int:
                          else "operations"),
             "library_ms": None,
         })
+    moe_cfg = get_config(MOE)
+    fw, dw = moe_rows["grouped_matmul"], moe_rows["grouped_matmul_dw"]
+    per_layer = {  # one prefill plus one decode step: each layer's gate, up and down products
+        "grouped_matmul": (moe_cfg.n_layers, [fw[f"{t} {p}"] for t in ("prefill", "decode")
+                                              for p in ("gate/up", "gate/up", "down")]),
+        # one train step of phase 15's training path: each layer's three dW
+        "grouped_matmul_dw": (MOE_TRAIN_LAYERS, [dw["train gate/up"], dw["train gate/up"],
+                                                 dw["train down"]]),
+    }
+    for kname, (n_layers, rows_k) in per_layer.items():
+        lib = [r["library_ms"] for r in rows_k]
+        n_bytes, n_ops = (n_layers * sum(r[k] for r in rows_k) for k in ("bytes", "ops"))
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/grouped_matmul.cu",
+            "replaces": "src/repro/models/moe.py:72-76 (jax.lax.ragged_dot"
+                        + ("; its autodiff's dW" if kname == "grouped_matmul_dw" else "")
+                        + "; an XLA op, not a Pallas kernel)",
+            "launches": sum(c[kname] for c in counts.values()),
+            "max_abs_err": moe_err[kname],
+            **{k: n_layers * sum(r[k] for r in rows_k) for k in ("ms", "plain_ms", "bound_ms")},
+            "bound_by": ("bytes" if n_bytes / HBM_BYTES_S >= n_ops / PEAK_OPS_S[torch.bfloat16]
+                         else "operations"),
+            "library_ms": None if None in lib else n_layers * sum(lib),
+        })
     RESULTS["kernels"] = kernels
     RESULTS["wall_s"] = time.perf_counter() - t0
     if details:
         os.makedirs(os.path.dirname(os.path.abspath(details)), exist_ok=True)
         with open(details, "w") as f:
             json.dump(RESULTS, f, indent=1)
-    print(f"[done] {RESULTS['wall_s']:.1f} s; the kernels' launches sum the six main paths' "
-          "runs (serving and training smollm-135m, zamba2-2.7b and xlstm-125m), phase 7's "
-          "calibration and the front door's calibrate Study; max_abs_err is the largest of phase "
-          "4's, 7's, 12's, 13's and 14's checks; ms, plain_ms, library_ms and bound_ms sum the "
-          "calls of one prefill plus one decode step of both phase-3 serving paths "
-          "(dos_matmul, flash_attention, ssm_scan) or of xlstm-125m (slstm_scan), for "
-          "flash_attention_bwd the calls of one smollm-135m train step, for ssm_scan_bwd those "
-          "of one zamba2-2.7b train step and for slstm_scan_bwd those of one xlstm-125m train "
-          "step")
+    print(f"[done] {RESULTS['wall_s']:.1f} s; the kernels' launches sum the eight main paths' "
+          "runs (serving and training smollm-135m, zamba2-2.7b, xlstm-125m and "
+          "deepseek-moe-16b), phase 7's calibration and the front door's calibrate Study; "
+          "max_abs_err is the largest of phase 4's, 7's, 12's, 13's, 14's and 15's checks; ms, "
+          "plain_ms, library_ms and bound_ms sum the calls of one prefill plus one decode step "
+          "of both phase-3 serving paths (dos_matmul, flash_attention, ssm_scan), of xlstm-125m "
+          "(slstm_scan) or of deepseek-moe-16b (grouped_matmul), for flash_attention_bwd the "
+          "calls of one smollm-135m train step, for ssm_scan_bwd those of one zamba2-2.7b train "
+          "step, for slstm_scan_bwd those of one xlstm-125m train step and for "
+          "grouped_matmul_dw those of one deepseek-moe-16b train step at "
+          f"{MOE_TRAIN_LAYERS} layers")
     print("[done] wall s by phase: " + ", ".join(f"{k[:-2]} {v:.1f}"
                                                  for k, v in RESULTS["phases"].items()))
     print(json.dumps({"kernels": kernels}))

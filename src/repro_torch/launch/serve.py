@@ -1,9 +1,9 @@
 """Serving launcher: batched prefill + greedy decode loop.
 
-Serves the dense, hybrid (zamba2) and SSM (xLSTM) families; the others
-raise, naming their ROADMAP item. Measures prefill latency, aggregate
-decode throughput and per-step decode latency percentiles, with each
-step ended by a device
+Serves the dense, MoE (deepseek-moe, llama4-scout), hybrid (zamba2) and
+SSM (xLSTM) families; the others raise, naming their ROADMAP item.
+Measures prefill latency, aggregate decode throughput and per-step
+decode latency percentiles, with each step ended by a device
 synchronize, so the times are device work and not enqueue time. It also
 records how many times each CUDA kernel launched in prefill and in
 decode. ``--json`` prints the machine-readable summary with the JAX
@@ -12,6 +12,7 @@ package's keys, plus the device the run used.
     python -m repro_torch.launch.serve --json            # on the card
     python -m repro_torch.launch.serve --arch zamba2-2.7b --json
     python -m repro_torch.launch.serve --arch xlstm-125m --json
+    python -m repro_torch.launch.serve --arch deepseek-moe-16b --json
     python -m repro_torch.launch.serve --smoke --device cpu
 """
 
@@ -105,7 +106,11 @@ def serve_loop(
     ``"dos"``, is taken. Decoding is greedy, as in the reference.
     Weights and prompts are drawn on the CPU, so one seed gives the same
     run on either device; ``init_s`` is the time that takes (weights
-    drawn, moved and cast), outside the prefill and decode times."""
+    drawn, moved and cast), outside the prefill and decode times. The
+    weights are formed a leaf at a time (``Model.init_compute``), so the
+    card holds them in the compute dtype only (deepseek-moe-16b: 33.8 GB
+    of bf16, where the f32 tree alone is 67.5 GB); drawing its 16.9 B
+    values on the host takes minutes."""
     dev = resolve_device(device)
     if tuple(mesh_shape) != (1, 1):
         raise NotImplementedError(
@@ -117,7 +122,7 @@ def serve_loop(
         )
     t0 = time.perf_counter()
     model = build(cfg, device=dev)
-    params = model.compute_params(model.init(torch.Generator().manual_seed(seed)))
+    params = model.init_compute(torch.Generator().manual_seed(seed))
     _sync(dev)
     init_s = time.perf_counter() - t0
     prompts = torch.randint(0, cfg.vocab, (batch, prompt_len),

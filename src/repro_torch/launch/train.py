@@ -3,6 +3,7 @@
     python -m repro_torch.launch.train --arch smollm-135m --steps 30 --batch 8 --seq 512
     python -m repro_torch.launch.train --arch zamba2-2.7b --steps 30 --batch 8 --seq 512
     python -m repro_torch.launch.train --arch xlstm-125m --steps 30 --batch 8 --seq 512
+    python -m repro_torch.launch.train --arch deepseek-moe-16b --layers 4 --steps 30 --batch 8 --seq 512
     python -m repro_torch.launch.train --smoke --device cpu --steps 3 --json
 
 The same loop as the JAX package's: a deterministic restart-safe data
@@ -20,9 +21,12 @@ synchronize, so the watchdog's step times are the device's.
 
 Runs on the card unless ``device="cpu"``; raises without one. One device
 only: a ``mesh_shape`` other than (1, 1), or a ``strategy`` other than
-``"dos"``, is ROADMAP queue 1 item 10. The dense, hybrid and SSM
-(xLSTM) families train; the MoE, VLM and encoder-decoder families wait
-for item 9. The step donates the state it is given, as the
+``"dos"``, is ROADMAP queue 1 item 10. The dense, MoE, hybrid and SSM
+(xLSTM) families train; the VLM and encoder-decoder families wait for
+item 9. ``--layers N`` cuts the config's depth to N layers at full
+width: deepseek-moe-16b's f32 masters, gradients and AdamW moments take
+16 bytes a parameter (270 GB at full depth), so one card trains it at 4
+layers. The step donates the state it is given, as the
 reference's jitted step does (``donate_argnums``): AdamW writes the new
 parameters and moments into the old ones' memory, so a step holds
 params, moments and gradients once each (zamba2-2.7b: ~39 GB in f32,
@@ -32,6 +36,7 @@ not ~68).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 
@@ -138,6 +143,8 @@ def main(argv=None):
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--arch", default="smollm-135m")
     ap.add_argument("--smoke", action="store_true", help="reduced config")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the config's depth to this many layers (full width)")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
@@ -153,6 +160,8 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = reduced(cfg)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
     dev = resolve_device(args.device)
     c0 = launch_counts()
     t0 = time.time()

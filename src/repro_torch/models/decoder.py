@@ -1,8 +1,10 @@
 """Decoder LM: the dense branch (llama/smollm/qwen and gemma3's
-local:global), the hybrid branch (zamba2: groups of Mamba2 layers,
-each group followed by one weight-shared attention+MLP block) and the
-``ssm`` branch (xLSTM: a list of mLSTM and sLSTM blocks, each behind
-its own rmsnorm ``ln``, with no MLP).
+local:global; with ``family="moe"`` each layer's MLP is a
+Mixture-of-Experts FFN: deepseek-moe, llama4-scout), the hybrid branch
+(zamba2: groups of Mamba2 layers, each group followed by one
+weight-shared attention+MLP block) and the ``ssm`` branch (xLSTM: a list
+of mLSTM and sLSTM blocks, each behind its own rmsnorm ``ln``, with no
+MLP).
 
 The reference scans stacked layer trees with ``lax.scan`` and carries
 each layer's window and rope theta as scanned arrays. The port keeps the
@@ -29,6 +31,7 @@ from .layers import (
     attention, attn_defs, embed_defs, embed_tokens, mlp, mlp_defs, rmsnorm,
     rmsnorm_def, unembed,
 )
+from .moe import moe_block, moe_defs
 from .params import compute_cast, map_tree, stack_defs
 from .ssm import mamba_block, mamba_defs, mamba_init_state
 from .xlstm import (
@@ -40,14 +43,13 @@ __all__ = ["check_trainable", "decoder_defs", "decoder_forward", "init_cache", "
 _GLOBAL_WINDOW = 2**30  # "window" larger than any sequence = global attn
 
 _NOT_PORTED = {
-    "moe": "ROADMAP queue 1 item 9",
     "vlm": "ROADMAP queue 1 item 9",
     "encdec": "ROADMAP queue 1 item 9",
 }
 
 
 def _check_family(cfg: ArchConfig):
-    if cfg.family not in ("dense", "hybrid", "ssm"):
+    if cfg.family not in ("dense", "moe", "hybrid", "ssm"):
         where = _NOT_PORTED.get(cfg.family, "no ROADMAP item")
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) is not ported to repro_torch: {where}"
@@ -55,8 +57,8 @@ def _check_family(cfg: ArchConfig):
 
 
 def check_trainable(cfg: ArchConfig):
-    """Raise unless the port can train ``cfg``: the dense, hybrid and ssm
-    (xLSTM) families."""
+    """Raise unless the port can train ``cfg``: the dense, MoE, hybrid and
+    ssm (xLSTM) families."""
     _check_family(cfg)
 
 
@@ -65,7 +67,7 @@ def _block_defs(cfg: ArchConfig):
         "ln1": rmsnorm_def(cfg.d_model),
         "attn": attn_defs(cfg),
         "ln2": rmsnorm_def(cfg.d_model),
-        "ffn": mlp_defs(cfg),
+        "ffn": moe_defs(cfg) if cfg.family == "moe" else mlp_defs(cfg),
     }
 
 
@@ -114,8 +116,8 @@ def layer_metadata(cfg: ArchConfig, n: int | None = None):
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16,
                device=None):
     """Decode-ready cache and one ``length`` for all layers (the
-    reference keeps a copy per layer). Dense: stacked (L, B, max_len,
-    KVH, D) k/v buffers under ``layers``. Hybrid: the Mamba2 states
+    reference keeps a copy per layer). Dense and MoE: stacked (L, B,
+    max_len, KVH, D) k/v buffers under ``layers``. Hybrid: the Mamba2 states
     stacked (n_groups, period, ...) under ``mamba`` (``ssm`` in f32,
     ``conv`` in ``dtype``) and the shared block's (n_groups, B, max_len,
     KVH, D) k/v under ``attn``. xLSTM: each block's f32 state under
@@ -134,7 +136,7 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16,
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
 
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         return {"layers": kv(cfg.n_layers), "length": 0}
     n_groups, period = _groups(cfg)
     m = mamba_init_state(cfg, batch, dtype, device)
@@ -151,7 +153,9 @@ def _attn_mlp_block(lp, x, cfg, *, mode, cache, window, theta):
         mode=mode, cache=cache, window=window, theta=theta,
     )
     x = x + h
-    return x + mlp(lp["ffn"], rmsnorm(x, lp["ln2"], cfg.norm_eps)), new_cache
+    y = rmsnorm(x, lp["ln2"], cfg.norm_eps)
+    ffn = moe_block(lp["ffn"], y, cfg) if "router" in lp["ffn"] else mlp(lp["ffn"], y)
+    return x + ffn, new_cache
 
 
 def _train_block(lp, x, cfg, *, window, theta, remat):
@@ -174,7 +178,7 @@ def _train_block(lp, x, cfg, *, window, theta, remat):
 
 
 def _dense_layers(params, x, cfg, *, mode, cache, remat=False):
-    """The dense stack; prefill returns its k/v stacked (L, B, S, KVH, D),
+    """The dense (and MoE) stack; prefill returns its k/v stacked (L, B, S, KVH, D),
     train no cache."""
     wins, thetas = layer_metadata(cfg)
     ks, vs = [], []  # prefill: each layer's new k, v

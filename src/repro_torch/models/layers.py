@@ -5,8 +5,9 @@ by ParamDef trees, as in the JAX package. Every GEMM goes through
 ``proj`` and so through the dOS matmul kernel on the card; prefill and
 training attention go through the flash kernel. All of them are
 differentiable: in training the GEMMs and attention run through the
-kernels' autograd Functions. The cross-attention branch and the gelu
-MLP wait for the families that use them (ROADMAP queue 1 item 9).
+kernels' autograd Functions. The MoE family's expert FFN is
+``models/moe.py``; the cross-attention branch and the gelu MLP wait for
+the families that use them (vlm, encdec: ROADMAP queue 1 item 9).
 """
 
 from __future__ import annotations

@@ -21,15 +21,16 @@ import math
 
 import torch
 
-__all__ = ["ParamDef", "materialize", "tree_size", "stack_defs", "map_tree", "leaves", "unflatten",
-           "compute_cast"]
+__all__ = ["ParamDef", "materialize", "materialize_cast", "tree_size", "stack_defs", "map_tree",
+           "leaves", "unflatten", "compute_cast"]
 
 # Leaves the reference reads in f32: the norm scales (rmsnorm; the
 # xLSTM's per-block ``ln`` and its blocks' ``norm``), Mamba2's A, dt_bias
 # and its gated-norm scale ``norm`` (ssm.py), and the xLSTM's forget-gate
-# bias ``bf`` and sLSTM recurrent weights ``r`` (xlstm.py).
+# bias ``bf`` and sLSTM recurrent weights ``r`` (xlstm.py), and the MoE
+# router, which routes in f32 (moe.py).
 _FLOAT_LEAVES_KEPT = ("ln1", "ln2", "ln", "final_norm", "q_norm", "k_norm", "A", "dt_bias",
-                      "norm", "bf", "r")
+                      "norm", "bf", "r", "router")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,30 +101,49 @@ def unflatten(pairs) -> dict:
     return lists(out)
 
 
+def _draw(d: ParamDef, generator: torch.Generator, dtype):
+    """One leaf of ``d`` in ``dtype``, drawn on the generator's device."""
+    gen_device = generator.device
+    if d.init == "zeros":
+        return torch.zeros(d.shape, dtype=dtype, device=gen_device)
+    if d.init == "ones":
+        return torch.ones(d.shape, dtype=dtype, device=gen_device)
+    if d.init == "neg_linspace":  # mamba A: -[1..H], broadcast over stacking
+        h = d.shape[-1]
+        v = -torch.linspace(1.0, float(h), h, device=gen_device).to(dtype)
+        return v.expand(d.shape).contiguous()
+    if d.init == "normal":
+        fan_in = d.shape[d.contract] if d.contract is not None else d.shape[0]
+        scale = d.scale if d.scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
+        # scaled in place: a stacked expert weight holds billions of values
+        return torch.randn(d.shape, generator=generator, device=gen_device).mul_(scale).to(dtype)
+    raise ValueError(f"init {d.init!r} is not ported")
+
+
 def materialize(defs, generator: torch.Generator, dtype=torch.float32, device=None):
     """Initialize real parameters for a ParamDef tree. Values are drawn
     on the generator's device, in the reference's leaf order, then moved
     to ``device``: one seed gives the same weights on every device."""
-    gen_device = generator.device
 
     def one(d: ParamDef):
-        if d.init == "zeros":
-            t = torch.zeros(d.shape, dtype=dtype, device=gen_device)
-        elif d.init == "ones":
-            t = torch.ones(d.shape, dtype=dtype, device=gen_device)
-        elif d.init == "neg_linspace":  # mamba A: -[1..H], broadcast over stacking
-            h = d.shape[-1]
-            v = -torch.linspace(1.0, float(h), h, device=gen_device).to(dtype)
-            t = v.expand(d.shape).contiguous()
-        elif d.init == "normal":
-            fan_in = d.shape[d.contract] if d.contract is not None else d.shape[0]
-            scale = d.scale if d.scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
-            t = (torch.randn(d.shape, generator=generator, device=gen_device) * scale).to(dtype)
-        else:
-            raise ValueError(f"init {d.init!r} is not ported")
+        t = _draw(d, generator, dtype)
         return t.to(device) if device is not None else t
 
     return unflatten((path, one(d)) for path, d in leaves(defs))  # a fixed draw order
+
+
+def materialize_cast(defs, generator: torch.Generator, dtype, compute_dtype, device=None):
+    """``compute_cast(materialize(defs, generator, dtype, device),
+    compute_dtype)``, the same values, formed one leaf at a time: each
+    leaf is drawn, moved and cast before the next is drawn, so the device
+    never holds the tree in ``dtype`` (deepseek-moe-16b: 67.5 GB in f32,
+    33.8 GB in bf16), only its largest leaf."""
+
+    def one(path, d: ParamDef):
+        t = _draw(d, generator, dtype)
+        return compute_cast(t.to(device) if device is not None else t, compute_dtype, path[-1])
+
+    return unflatten((path, one(path, d)) for path, d in leaves(defs))
 
 
 def tree_size(defs) -> int:

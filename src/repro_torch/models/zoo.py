@@ -1,10 +1,12 @@
 """Model facade: one ``Model`` per architecture config, bound to a device.
-The dense, hybrid and SSM (xLSTM) families are ported; the others raise.
+The dense, MoE, hybrid and SSM (xLSTM) families are ported; the others
+raise.
 
     model = build(cfg)                      # cuda unless device="cpu"
     master = model.init(torch.Generator().manual_seed(0))   # param_dtype (f32)
     loss = model.loss(master, {"tokens": t, "labels": y})   # train: differentiable
     params = model.compute_params(master)   # serving: cast once
+    params = model.init_compute(gen)        # the same, a leaf at a time
     logits, cache = model.prefill(params, {"tokens": tokens}, max_len=...)
     logits, cache = model.decode(params, cache, {"token": tok})
 """
@@ -15,11 +17,13 @@ import dataclasses
 from typing import Any
 
 import torch
+import torch.nn.functional as F
 
 from .._device import resolve_device
 from ..config import ArchConfig
 from .decoder import decoder_defs, decoder_forward, init_cache
-from .params import compute_cast, materialize, tree_size
+from .moe import aux_load_balance_loss
+from .params import compute_cast, materialize, materialize_cast, tree_size
 
 __all__ = ["Model", "build", "softmax_xent"]
 
@@ -50,10 +54,17 @@ class Model:
         ``conv_w`` and ``D`` and the embedding table cast once to the
         compute dtype; the leaves the reference reads in f32 (norm
         scales, Mamba2's ``A`` and ``dt_bias``, the xLSTM's forget-gate
-        biases ``bf`` and sLSTM recurrent weights ``r``) stay as they
-        are. The reference casts the same weights to the same values on every
-        call."""
+        biases ``bf`` and sLSTM recurrent weights ``r``, the MoE router)
+        stay as they are. The reference casts the same weights to the
+        same values on every call."""
         return compute_cast(params, getattr(torch, self.cfg.compute_dtype))
+
+    def init_compute(self, generator: torch.Generator):
+        """``compute_params(init(generator))``, bit for bit, formed one
+        leaf at a time (drawn on the generator's device, moved, cast), so
+        that serving never holds the f32 tree on the device."""
+        return materialize_cast(self.defs, generator, getattr(torch, self.cfg.param_dtype),
+                                getattr(torch, self.cfg.compute_dtype), self.device)
 
     @property
     def n_params(self) -> int:
@@ -65,11 +76,17 @@ class Model:
         batch["labels"] (B, S), differentiable in ``params`` (the f32
         masters: each GEMM casts its weight to the compute dtype).
         ``remat``: False, True (recompute each layer in the backward) or
-        ``"save_gathered"`` (recompute it, keeping the cast weights). The
-        MoE load-balance term waits for MoE (ROADMAP queue 1 item 9)."""
-        logits, _ = decoder_forward(params, batch["tokens"].to(self.device), self.cfg,
-                                    mode="train", remat=remat)
-        return softmax_xent(logits, batch["labels"].to(self.device))
+        ``"save_gathered"`` (recompute it, keeping the cast weights). An
+        MoE model adds 0.01 x the load-balance term of its first layer's
+        router on the tokens' raw embeddings, as the reference does."""
+        tokens = batch["tokens"].to(self.device)
+        logits, _ = decoder_forward(params, tokens, self.cfg, mode="train", remat=remat)
+        loss = softmax_xent(logits, batch["labels"].to(self.device))
+        if self.cfg.family == "moe":
+            x = F.embedding(tokens, params["embed"]["tok"]).float()
+            router = {"router": params["layers"]["ffn"]["router"][0]}
+            loss = loss + 0.01 * aux_load_balance_loss(router, x, self.cfg)
+        return loss
 
     @torch.no_grad()
     def prefill(self, params, batch, *, max_len: int = 0):

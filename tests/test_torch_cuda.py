@@ -882,3 +882,85 @@ def test_kernels_launch_from_a_fresh_thread_after_the_main_thread(gen):
     assert not errors
     for name in calls:
         assert torch.equal(got[name], want[name]), name
+
+
+# The grouped GEMM (grouped_matmul, grouped_matmul_dw) against its plain
+# version on the f32 result of the same operands: f32, 1e-5 of max|ref|
+# (summation order); a bf16 output, one bf16 rounding (2**-8) of each
+# entry more. dw is f32 whatever the operands: 1e-5 of max|ref|.
+_GMM_CASES = [  # rows, K, N, sizes
+    (24, 2048, 1408, [1, 0, 2, 0, 3, 0, 0, 1] * 3),   # decode-like, empty groups
+    (300, 200, 136, [0, 300, 0]),                      # one group holds every row
+    (130, 96, 72, [17, 0, 40, 3]),                     # rows past the sum (60 of 130)
+    (257, 1000, 520, [64, 1, 0, 100, 92]),             # ragged K and N
+]
+
+
+def _gmm_inputs(gen, rows, k, n, sizes, dtype, transposed):
+    x = torch.randn(rows, k, generator=gen, device="cuda").to(dtype)
+    w = torch.randn(len(sizes), n, k, generator=gen, device="cuda").to(dtype) / k**0.5
+    w = w.transpose(-1, -2) if transposed else w.reshape(len(sizes), k, n)
+    return x, w, torch.tensor(sizes, dtype=torch.int32, device="cuda")
+
+
+@pytest.mark.parametrize("case", _GMM_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("transposed", [False, True])
+def test_grouped_matmul_kernel(gen, case, dtype, transposed):
+    from repro_torch.kernels import grouped_matmul
+    from repro_torch.kernels.grouped_matmul import grouped_matmul_ref
+
+    rows, k, n, sizes = case
+    x, w, gs = _gmm_inputs(gen, rows, k, n, sizes, dtype, transposed)
+    want = "mma" if dtype == torch.bfloat16 else "fma"
+    before = dict(grouped_matmul.variants)
+    out = grouped_matmul(x, w, gs)
+    assert grouped_matmul.variants == dict(before, **{want: before[want] + 1})
+    exact = grouped_matmul_ref(x.float(), w.float(), gs)
+    tol = 1e-5 * exact.abs().max() + (2.0**-8 * exact.abs() if dtype == torch.bfloat16 else 0)
+    assert out.dtype == dtype
+    assert bool(((out.float() - exact).abs() <= tol).all())
+    assert not out[sum(sizes):].any()
+    assert torch.equal(out, grouped_matmul(x, w, gs))
+
+
+@pytest.mark.parametrize("case", _GMM_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grouped_matmul_dw_kernel(gen, case, dtype):
+    from repro_torch.kernels import grouped_matmul_dw
+    from repro_torch.kernels.grouped_matmul import grouped_matmul_dw_ref
+    from repro_torch.kernels.grouped_matmul import ops as gmm_ops
+
+    rows, k, n, sizes = case
+    x, _, gs = _gmm_inputs(gen, rows, k, n, sizes, dtype, False)
+    dy = torch.randn(rows, n, generator=gen, device="cuda").to(dtype)
+    dw = grouped_matmul_dw(x, dy, gs)
+    exact = grouped_matmul_dw_ref(x, dy, gs)
+    assert dw.dtype == torch.float32
+    assert bool(((dw - exact).abs() <= 1e-5 * exact.abs().max()).all())
+    for g, s in enumerate(sizes):
+        if s == 0:
+            assert not dw[g].any()
+    assert torch.equal(dw, grouped_matmul_dw(x, dy, gs))
+    fma = gmm_ops._launch_dw(x, dy, gs, force_fma=True)  # the other variant, same inputs
+    assert bool(((fma - exact).abs() <= 1e-5 * exact.abs().max()).all())
+
+
+def test_grouped_matmul_function_gradients(gen):
+    """dX through the forward kernel on w's transposed view, dW through
+    grouped_matmul_dw, against autograd of the plain version."""
+    from repro_torch.kernels import grouped_matmul, grouped_matmul_dw
+    from repro_torch.kernels.grouped_matmul import grouped_matmul_ref
+
+    x, w, gs = _gmm_inputs(gen, 384, 256, 192, [100, 0, 200, 84], torch.bfloat16, False)
+    dy = torch.randn(384, 192, generator=gen, device="cuda").to(torch.bfloat16)
+    xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+    before = (grouped_matmul.launches, grouped_matmul_dw.launches)
+    grouped_matmul(xg, wg, gs).backward(dy)
+    assert (grouped_matmul.launches, grouped_matmul_dw.launches) == (before[0] + 2,
+                                                                      before[1] + 1)
+    xr, wr = x.float().requires_grad_(), w.float().requires_grad_()
+    grouped_matmul_ref(xr, wr, gs).backward(dy.float())
+    for got, want in ((xg.grad, xr.grad), (wg.grad, wr.grad)):
+        tol = 1e-5 * want.abs().max() + 2.0**-8 * want.abs()
+        assert bool(((got.float() - want).abs() <= tol).all())

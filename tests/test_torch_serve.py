@@ -29,7 +29,8 @@ from repro_torch.models.decoder import decoder_defs
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # every registered kernel, none launched (the CPU runs the plain versions)
 NO_LAUNCHES = {"dos_matmul": 0, "flash_attention": 0, "flash_attention_bwd": 0, "ssm_scan": 0,
-               "ssm_scan_bwd": 0, "slstm_scan": 0, "slstm_scan_bwd": 0}
+               "ssm_scan_bwd": 0, "slstm_scan": 0, "slstm_scan_bwd": 0, "grouped_matmul": 0,
+               "grouped_matmul_dw": 0}
 JSON_KEYS = {"arch", "batch", "prompt_len", "gen_tokens", "prefill_s", "decode_tok_s",
              "step_p50_s", "step_p99_s"}
 
@@ -106,15 +107,18 @@ def test_entry_points_need_a_card_unless_cpu_is_asked():
 
 def test_unported_families_raise():
     # every arch's config is registered (the front door lowers all ten);
-    # building a model of an unported family raises, naming its item
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build(get_config("deepseek-moe-16b"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        decoder_defs(get_config("deepseek-moe-16b"))
-    for family in ("moe", "vlm", "encdec"):
+    # building a model of an unported family (vlm, encdec) raises, naming
+    # its item; the MoE family is ported
+    for arch in ("llama-3.2-vision-11b", "whisper-medium"):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
+            build(get_config(arch), device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
+            decoder_defs(get_config(arch))
+    for family in ("vlm", "encdec"):
         cfg = dataclasses.replace(get_config("smollm-135m"), family=family)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
             decoder_defs(cfg)
+    assert "router" in decoder_defs(get_config("deepseek-moe-16b"))["layers"]["ffn"]
 
 
 @pytest.mark.parametrize("kw", [{"mesh_shape": (2, 1)}, {"strategy": "megatron"}])

@@ -220,7 +220,6 @@ def test_train_loop_needs_a_card_unless_asked_for_the_cpu():
     ("smollm-135m", {"mesh_shape": (2, 1)}, "item 10"),
     ("smollm-135m", {"strategy": "megatron"}, "item 10"),
     ("whisper-medium", {}, "item 9"),
-    ("deepseek-moe-16b", {}, "item 9"),
     ("llama-3.2-vision-11b", {}, "item 9"),
 ])
 def test_not_ported_configurations_name_their_roadmap_items(arch, kw, match):
