@@ -175,11 +175,12 @@ if it fails:
     tokens; weights formed a leaf at a time, so ``init_s`` is minutes of
     host draws) with the launches per prefill and per decode step exact
     by kernel and variant (``dos_matmul`` 225 with the 28 routers ``f32``,
-    ``grouped_matmul`` 84 ``mma``, ``flash_attention`` 28 per prefill),
+    ``grouped_matmul`` 84 ``wgmma`` per prefill and per decode step,
+    ``flash_attention`` 28 per prefill),
     profiled like phase 6 (the grouped GEMM's share of busy time); and
     ``train_loop`` at full width cut to 4 layers (8 x 512, 30 steps,
     remat): the loss falls, the launches per step exact by variant
-    (``grouped_matmul`` 36 and ``grouped_matmul_dw`` 12 ``mma``), one
+    (``grouped_matmul`` 36 and ``grouped_matmul_dw`` 12 ``wgmma``), one
     profiled step. After phase 14's checks: ``grouped_matmul`` against
     ``grouped_matmul_ref`` at deepseek's prefill, decode and training
     shapes with a real router's routes (some groups empty at decode), the
@@ -187,9 +188,14 @@ if it fails:
     llama4-scout's expert shapes, and edge cases (empty groups, one group
     holding every row, rows past the sum, ragged K and N, rows off 16
     bytes, f32, both weight layouts); ``grouped_matmul_dw`` at the
-    training shape and the edges, both variants; each at phase 4's GEMM
-    gate, two calls bit-identical, timed beside its bound, its plain
-    version and ``torch._grouped_mm``; one decode call of ``moe_block``
+    training shape and the edges; each the planned variant and every
+    other variant the operands allow (``wgmma``, ``fma``), forced on the
+    same inputs, at phase 4's GEMM gate, two calls bit-identical, each
+    dW's bf16 output its f32 one cast bit for bit; the planned variant
+    (``wgmma``) timed beside the bound, the plain version and
+    ``torch._grouped_mm`` (dW with the bf16 output training asks for, and
+    with an f32 output beside it);
+    one decode call of ``moe_block``
     under ``set_sync_debug_mode("error")``; card against CPU: one
     attention+MoE layer in bf16 (each sub-block fed the CPU's input,
     within 3e-2), the model cut to 2 layers in f32 at 2 x 128 (prefill and
@@ -399,8 +405,8 @@ _VARIANT_OF = {"dos_matmul_skinny": "skinny", "dos_matmul_wgmma": "wgmma",
                "flash_mma": "mma", "flash_fwd": "fma", "flash_bwd_mma": "mma", "flash_bwd": "fma",
                "ssd_mma": "mma", "ssd_fwd": "fma", "ssd_bwd_mma": "mma", "ssd_bwd": "fma",
                "slstm_fwd_reg": "reg", "slstm_fwd": "fma", "slstm_bwd_reg": "reg",
-               "slstm_bwd": "fma", "gmm_fwd_mma": "mma", "gmm_fwd_fma": "fma",
-               "gmm_dw_mma": "mma", "gmm_dw_fma": "fma"}
+               "slstm_bwd": "fma", "gmm_fwd_wgmma": "wgmma",
+               "gmm_fwd_fma": "fma", "gmm_dw_wgmma": "wgmma", "gmm_dw_fma": "fma"}
 
 
 def _variant_tag(name: str) -> str:
@@ -3444,16 +3450,25 @@ MOE_RESTART_LAYERS, MOE_RESTART_STEPS, MOE_RESTART_EVERY, MOE_RESTART_FAULT = 1,
 MOE_CLI_LAYERS, MOE_CLI_STEPS = 1, 3
 
 
+def gmm_variant(cfg, tokens: int) -> str:
+    """The variant ``plan`` gives an expert product of ``tokens`` tokens
+    (each routed to top_k experts) in bf16 with TMA-describable operands."""
+    return gmm_ops.plan(tokens * cfg.top_k, cfg.n_experts, torch.bfloat16, True).variant
+
+
 def moe_serve_variants(cfg, gen_tokens: int = GEN) -> dict:
     """An MoE serve run's launches by kernel and variant, prefill and
     decode together: the bf16 projections ``wgmma`` in prefill and
     ``skinny`` in decode (M = batch), the router's f32 product ``f32``,
-    every expert product ``mma``, every prefill attention ``mma``."""
+    the expert products as ``plan`` picks them (``wgmma``), every prefill
+    attention ``mma``."""
     n, per = cfg.n_layers, moe_layer_gemms(cfg)
     out = {k: dict.fromkeys(fn.variants, 0) for k, fn in KERNELS.items()}
     out["dos_matmul"].update(wgmma=(per - 1) * n + 1, skinny=((per - 1) * n + 1) * (gen_tokens - 1),
                              f32=n * gen_tokens)
-    out["grouped_matmul"]["mma"] = 3 * n * gen_tokens
+    gmm = out["grouped_matmul"]
+    gmm[gmm_variant(cfg, BATCH * PROMPT)] += 3 * n
+    gmm[gmm_variant(cfg, BATCH)] += 3 * n * (gen_tokens - 1)
     out["flash_attention"]["mma"] = n
     return out
 
@@ -3468,14 +3483,18 @@ def moe_train_variants(cfg) -> dict:
     """An MoE train step's launches by kernel and variant (remat): the
     router's f32 products (forward, recompute, dA, dB; the load-balance
     term's once and its dA, dB) ``f32``, every other GEMM ``wgmma``; the
-    expert products ``mma`` (forward, recompute, dX) and their dW ``mma``;
-    attention ``mma``."""
+    expert products (forward, recompute, dX) as ``plan`` picks them
+    (``wgmma``) and their dW as ``dw_plan`` does (``wgmma``); attention
+    ``mma``."""
     n = cfg.n_layers
     out = {k: dict.fromkeys(fn.variants, 0) for k, fn in KERNELS.items()}
     total = expected_train_launches(cfg)
     f32 = (n + 1) + n + 2 * (n + 1)
     out["dos_matmul"].update(f32=f32, wgmma=total["dos_matmul"] - f32)
-    for k in ("grouped_matmul", "grouped_matmul_dw", "flash_attention", "flash_attention_bwd"):
+    out["grouped_matmul"][gmm_variant(cfg, TRAIN_BATCH * TRAIN_SEQ)] = total["grouped_matmul"]
+    out["grouped_matmul_dw"][gmm_ops.dw_plan(torch.bfloat16, True, cfg.n_experts)] = (
+        total["grouped_matmul_dw"])
+    for k in ("flash_attention", "flash_attention_bwd"):
         out[k]["mma"] = total[k]
     return out
 
@@ -3501,11 +3520,12 @@ def gmm_work(rows, k, n, sizes, es):
     return es * (used * k + active * k * n + rows * n), 2.0 * used * k * n
 
 
-def gmm_dw_work(rows, k, n, sizes, es):
+def gmm_dw_work(rows, k, n, sizes, es, es_out=4):
     """Bytes of the weight gradient (the rows in groups of x and dy read
-    once, the (G, K, N) f32 gradient written once) and its operations."""
+    once, the (G, K, N) gradient written once, ``es_out`` bytes an entry)
+    and its operations."""
     used = min(int(sizes.sum()), rows)
-    return es * used * (k + n) + 4 * len(sizes) * k * n, 2.0 * used * k * n
+    return es * used * (k + n) + es_out * len(sizes) * k * n, 2.0 * used * k * n
 
 
 def _library_ms(call, what):
@@ -3522,15 +3542,35 @@ def _library_ms(call, what):
         return None
 
 
+def _gmm_variants(dtype, k, n) -> list[str]:
+    """The variants that forced launches can take on these operands (the
+    checks' operands are contiguous: bf16 rows on 16 bytes iff K and N are
+    multiples of 8)."""
+    if dtype == torch.bfloat16 and k % 8 == 0 and n % 8 == 0:
+        return list(gmm_ops.VARIANTS)
+    return ["fma"]
+
+
+def _count_one(fn, variant, call, what):
+    """``call()``, checked to add one launch of ``variant`` to ``fn``."""
+    before = dict(fn.variants)
+    out = call()
+    check(fn.variants == dict(before, **{variant: before[variant] + 1}),
+          f"{what}: variants {fn.variants}, one more {variant} expected")
+    return out
+
+
 def check_gmm(gen, rows, k, n, sizes, dtype=torch.bfloat16, transposed=False, time_it=False,
               what=""):
-    """``grouped_matmul`` (the variant ``plan`` picks) on x (rows, k) and
-    w (G, k, n), row-major or the transposed view of a (G, n, k) weight,
-    against ``grouped_matmul_ref`` on the f32 result of the same operands
-    at GMM_TOL (plus one bf16 rounding of each entry for bf16); rows past
-    the sum zero; two calls bit-identical. Timed: kernel (inputs rotated
-    over two sets), plain version (host clock: it reads the sizes on the
-    host), torch._grouped_mm where it takes the inputs, bound."""
+    """``grouped_matmul`` on x (rows, k) and w (G, k, n), row-major or the
+    transposed view of a (G, n, k) weight: the variant ``plan`` picks and
+    every other variant the operands allow, forced on the same inputs,
+    each against ``grouped_matmul_ref`` on the f32 result of the same
+    operands at GMM_TOL (plus one bf16 rounding of each entry for bf16),
+    rows past the sum zero, two calls bit-identical. Timed: the planned
+    variant (inputs rotated over two sets), the plain version (host clock:
+    it reads the sizes on the host), torch._grouped_mm where it takes the
+    inputs, bound."""
     sizes = torch.as_tensor(sizes, dtype=torch.int32, device="cuda")
     g = len(sizes)
 
@@ -3540,24 +3580,30 @@ def check_gmm(gen, rows, k, n, sizes, dtype=torch.bfloat16, transposed=False, ti
         return x, (w.transpose(-1, -2) if transposed else w.reshape(g, k, n))
 
     x, w = operands()
-    want_v = "mma" if dtype == torch.bfloat16 and k % 8 == 0 and n % 8 == 0 else "fma"
-    before = dict(grouped_matmul.variants)
-    out = grouped_matmul(x, w, sizes)
-    check(grouped_matmul.variants == dict(before, **{want_v: before[want_v] + 1}),
-          f"grouped_matmul {what}: variants {grouped_matmul.variants}, {want_v} expected")
+    variants = _gmm_variants(dtype, k, n)
+    want_v = gmm_ops.plan(rows, g, dtype, variants[0] == "wgmma").variant
     exact = grouped_matmul_ref(x.float(), w.float(), sizes)
-    err = (out.float() - exact).abs()
     tol = GMM_TOL * exact.abs().max() + (2.0**-8 * exact.abs() if dtype == torch.bfloat16 else 0)
     used = int(sizes.sum())
-    check(bool((err <= tol).all()), f"grouped_matmul {what}: off the gate by "
-          f"{(err - tol).max().item():.3g}")
-    check(not out[used:].any(), f"grouped_matmul {what}: a row past the sum is not zero")
-    check(torch.equal(out, grouped_matmul(x, w, sizes)), f"grouped_matmul {what}: two calls differ")
+    errs = {}
+    for variant in [None] + variants:
+        name = variant or f"planned {want_v}"
+        call = ((lambda: grouped_matmul(x, w, sizes)) if variant is None else
+                (lambda: gmm_ops._launch_forward(x, w, sizes, force=variant)))
+        out = _count_one(grouped_matmul, variant or want_v, call, f"grouped_matmul {what} ({name})")
+        err = (out.float() - exact).abs()
+        errs[variant or want_v] = err.max().item()
+        check(bool((err <= tol).all()), f"grouped_matmul {what} ({name}): off the gate by "
+              f"{(err - tol).max().item():.3g}")
+        check(not out[used:].any(), f"grouped_matmul {what} ({name}): a row past the sum is not "
+              "zero")
+        check(torch.equal(out, call()), f"grouped_matmul {what} ({name}): two calls differ")
     es = torch.finfo(dtype).bits // 8
     n_bytes, n_ops = gmm_work(rows, k, n, sizes.cpu(), es)
     row = {"what": what, "rows": rows, "K": k, "N": n, "G": g,
            "active": int((sizes > 0).sum()), "dtype": str(dtype), "transposed": transposed,
-           "variant": want_v, "max_abs_err": err.max().item(), "bytes": n_bytes, "ops": n_ops}
+           "variant": want_v, "max_abs_err": max(errs.values()), "max_abs_err_by_variant": errs,
+           "bytes": n_bytes, "ops": n_ops}
     row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, n_ops, dtype)
     if time_it:
         sets = [(x, w), operands()]
@@ -3568,58 +3614,70 @@ def check_gmm(gen, rows, k, n, sizes, dtype=torch.bfloat16, transposed=False, ti
             lambda i: torch._grouped_mm(sets[i][0], sets[i][1], offs=offs), what)
         lib = "none" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms"
         print(f"[moe] grouped_matmul {what}: ({rows}, {k}) x ({g}, {k}, {n}){' w^T' * transposed}"
-              f", {row['active']} groups non-empty, {want_v}: {row['ms']:.4f} ms, bound "
-              f"{row['bound_ms']:.4f} ms ({row['bound_by']}), plain {row['plain_ms']:.3f} ms, "
-              f"torch._grouped_mm {lib}; max|err| {row['max_abs_err']:.3g}", flush=True)
+              f", {row['active']} groups non-empty, planned {want_v}: {row['ms']:.4f} ms"
+              f", bound {row['bound_ms']:.4f} ms ({row['bound_by']}), plain "
+              f"{row['plain_ms']:.3f} ms, torch._grouped_mm {lib}; max|err| by variant "
+              + ", ".join(f"{v} {e:.3g}" for v, e in errs.items()), flush=True)
     return row
 
 
 def check_gmm_dw(gen, rows, k, n, sizes, dtype=torch.bfloat16, time_it=False, what=""):
-    """``grouped_matmul_dw`` (the variant ``dw_plan`` picks, and ``fma``
-    forced on the same inputs) against ``grouped_matmul_dw_ref`` within
-    GMM_TOL of the largest entry; empty groups zero; two calls of each
-    bit-identical. Timed like ``check_gmm``; torch._grouped_mm's 2-D x 2-D
-    form (offsets along the rows, output in the operands' type) is the
-    PyTorch call."""
+    """``grouped_matmul_dw``: the variant ``dw_plan`` picks and every other
+    variant the operands allow, forced on the same inputs, each against
+    ``grouped_matmul_dw_ref`` within GMM_TOL of the largest entry; empty
+    groups zero; two calls of each bit-identical; each variant's bf16
+    output the f32 one cast, bit for bit. Timed like ``check_gmm`` with
+    the bf16 output the training path asks for (beside ``wgmma`` with an
+    f32 output); torch._grouped_mm's 2-D x 2-D form (offsets along the
+    rows, output in the operands' type) is the PyTorch call. The bound
+    counts a bf16 dW."""
     sizes = torch.as_tensor(sizes, dtype=torch.int32, device="cuda")
     x = torch.randn(rows, k, generator=gen, device="cuda").to(dtype)
     dy = torch.randn(rows, n, generator=gen, device="cuda").to(dtype)
     exact = grouped_matmul_dw_ref(x, dy, sizes)
     scale = exact.abs().max().item()
-    want_v = "mma" if dtype == torch.bfloat16 and k % 8 == 0 and n % 8 == 0 else "fma"
+    variants = _gmm_variants(dtype, k, n)
+    want_v = gmm_ops.dw_plan(dtype, variants[0] == "wgmma", len(sizes))
     errs = {}
-    for variant in sorted({want_v, "fma"}):
-        before = dict(grouped_matmul_dw.variants)
-        dw = gmm_ops._launch_dw(x, dy, sizes, force_fma=variant == "fma")
-        check(grouped_matmul_dw.variants == dict(before, **{variant: before[variant] + 1}),
-              f"grouped_matmul_dw {what}: variants {grouped_matmul_dw.variants}")
-        errs[variant] = (dw - exact).abs().max().item()
-        check(errs[variant] <= GMM_TOL * scale, f"grouped_matmul_dw {what} ({variant}): "
-              f"{errs[variant] / scale:.3g} of the largest entry")
+    for variant in [None] + variants:
+        name = variant or f"planned {want_v}"
+        call = ((lambda: grouped_matmul_dw(x, dy, sizes)) if variant is None else
+                (lambda: gmm_ops._launch_dw(x, dy, sizes, force=variant)))
+        dw = _count_one(grouped_matmul_dw, variant or want_v, call,
+                        f"grouped_matmul_dw {what} ({name})")
+        errs[variant or want_v] = (dw - exact).abs().max().item()
+        check(errs[variant or want_v] <= GMM_TOL * scale, f"grouped_matmul_dw {what} ({name}): "
+              f"{errs[variant or want_v] / scale:.3g} of the largest entry")
         check(all(not dw[i].any() for i in range(len(sizes)) if int(sizes[i]) == 0),
-              f"grouped_matmul_dw {what}: an empty group's gradient is not zero")
-        check(torch.equal(dw, gmm_ops._launch_dw(x, dy, sizes, force_fma=variant == "fma")),
-              f"grouped_matmul_dw {what} ({variant}): two calls differ")
+              f"grouped_matmul_dw {what} ({name}): an empty group's gradient is not zero")
+        check(torch.equal(dw, call()), f"grouped_matmul_dw {what} ({name}): two calls differ")
+        if variant:
+            low = gmm_ops._launch_dw(x, dy, sizes, force=variant, out_dtype=torch.bfloat16)
+            check(torch.equal(low, dw.to(torch.bfloat16)), f"grouped_matmul_dw {what} ({name}): "
+                  "the bf16 output is not the f32 one cast")
     es = torch.finfo(dtype).bits // 8
-    n_bytes, n_ops = gmm_dw_work(rows, k, n, sizes.cpu(), es)
+    n_bytes, n_ops = gmm_dw_work(rows, k, n, sizes.cpu(), es, es)
     row = {"what": what, "rows": rows, "K": k, "N": n, "G": len(sizes), "dtype": str(dtype),
-           "variant": want_v, "max_abs_err": max(errs.values()), "bytes": n_bytes, "ops": n_ops}
+           "variant": want_v, "max_abs_err": max(errs.values()), "max_abs_err_by_variant": errs,
+           "bytes": n_bytes, "ops": n_ops}
     row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, n_ops, dtype)
     if time_it:
         sets = [(x, dy), (torch.randn_like(x), torch.randn_like(dy))]
-        row["ms"] = cuda_ms(lambda i: grouped_matmul_dw(sets[i][0], sets[i][1], sizes), 2)
-        row["fma_ms"] = cuda_ms(lambda i: gmm_ops._launch_dw(sets[i][0], sets[i][1], sizes,
-                                                             force_fma=True), 2, iters=5)
-        row["plain_ms"] = _host_ms(lambda: grouped_matmul_dw_ref(x, dy, sizes))
+        row["ms"] = cuda_ms(lambda i: grouped_matmul_dw(sets[i][0], sets[i][1], sizes, dtype), 2)
+        row["wgmma_f32_ms"] = cuda_ms(lambda i: gmm_ops._launch_dw(
+            sets[i][0], sets[i][1], sizes, force="wgmma"), 2)
+        row["plain_ms"] = _host_ms(lambda: grouped_matmul_dw_ref(x, dy, sizes, dtype))
         offs = sizes.cumsum(0).to(torch.int32)
         # its output in the operands' type: the one it takes
         row["library_ms"] = _library_ms(
             lambda i: torch._grouped_mm(sets[i][0].T, sets[i][1], offs=offs), what)
         lib = "none" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms"
         print(f"[moe] grouped_matmul_dw {what}: ({rows}, {k})^T x ({rows}, {n}) over "
-              f"{len(sizes)} groups, {want_v}: {row['ms']:.4f} ms (fma {row['fma_ms']:.4f}), bound "
-              f"{row['bound_ms']:.4f} ms ({row['bound_by']}), plain {row['plain_ms']:.3f} ms, "
-              f"torch._grouped_mm {lib}; max|err| {row['max_abs_err']:.3g}", flush=True)
+              f"{len(sizes)} groups, {dtype} out, planned {want_v}: {row['ms']:.4f} ms (wgmma "
+              f"f32 out {row['wgmma_f32_ms']:.4f}), bound {row['bound_ms']:.4f} ms "
+              f"({row['bound_by']}), plain "
+              f"{row['plain_ms']:.3f} ms, torch._grouped_mm {lib}; max|err| by variant "
+              + ", ".join(f"{v} {e:.3g}" for v, e in errs.items()), flush=True)
     return row
 
 
@@ -3821,14 +3879,16 @@ def phase_moe_train_e2e():
         torch.autograd.backward(moe.moe_block(ins["p"], ins["x"], cfg), gy.to(dev))
         return map_tree(lambda t: t.grad, ins)
 
+    fv = gmm_variant(cfg, MOE_E2E_BATCH * PROMPT)
+    dv = gmm_ops.dw_plan(torch.bfloat16, True, cfg.n_experts)
     with _RecordRoutes() as rec:
-        before = (grouped_matmul.variants["mma"], grouped_matmul_dw.variants["mma"])
+        before = (grouped_matmul.variants[fv], grouped_matmul_dw.variants[dv])
         block_g = block_grads("cuda")
         block_c = block_grads("cpu")
-    after = (grouped_matmul.variants["mma"], grouped_matmul_dw.variants["mma"])
+    after = (grouped_matmul.variants[fv], grouped_matmul_dw.variants[dv])
     check(after == (before[0] + 6, before[1] + 3), "moe_block's bf16 backward launched "
-          f"{after[0] - before[0]} mma grouped GEMMs and {after[1] - before[1]} mma dW, 6 and 3 "
-          "expected")
+          f"{after[0] - before[0]} {fv} grouped GEMMs and {after[1] - before[1]} {dv} dW, 6 and "
+          "3 expected")
     block_rel, block_leaf = _grad_gap(block_g, block_c)
     block_agree = rec.agreement()
     del block_g, block_c, lp
@@ -4103,6 +4163,10 @@ def main(argv=None) -> int:
             "bound_by": ("bytes" if n_bytes / HBM_BYTES_S >= n_ops / PEAK_OPS_S[torch.bfloat16]
                          else "operations"),
             "library_ms": None if None in lib else n_layers * sum(lib),
+            # launches by variant on phase 15's serving and training paths
+            "variants": {v: sum(RESULTS["main_paths"][p]["variants"][kname][v]
+                                for p in (MOE, f"train {MOE}"))
+                         for v in gmm_ops.VARIANTS},
         })
     RESULTS["kernels"] = kernels
     RESULTS["wall_s"] = time.perf_counter() - t0

@@ -54,6 +54,8 @@
 // memory about once. K is split over a cluster only for grids of a few
 // tiles (2560x64 at M = 512 is 4): clusters of such whole-SM blocks
 // measured slow in larger grids.
+// Its mbarrier, TMA and wgmma helpers are in wgmma_util.cuh, shared
+// with grouped_matmul.cu.
 //
 // skinny and wgmma write bf16 (the serve path's output type).
 //
@@ -74,15 +76,18 @@
 // error code of the launch (0 on success). dtype codes: 0 = float32,
 // 1 = bfloat16. Variant codes: 0 general, 1 skinny, 2 wgmma, 3 f32.
 
-#include <cuda.h>  // CUtensorMap and its enums (types only: no libcuda link)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
 
+#include "wgmma_util.cuh"
+
 using namespace nvcuda;
 
 namespace {
+
+using namespace sm90;  // mbarriers, TMA, wgmma, tensor maps (wgmma_util.cuh)
 
 typedef __nv_bfloat16 bf16;
 
@@ -171,20 +176,13 @@ struct Tier {
 };
 
 // ---------------------------------------------------------------------------
-// Cluster helpers: a barrier over every thread of the cluster (release
-// and acquire: shared-memory writes before it, local or remote, are
-// visible after it), and the generic address of a shared-memory location
-// in another block of the cluster (plain loads and stores through it;
-// the barrier's memory clobber keeps them on their side of it).
+// Cluster helpers (beside wgmma_util.cuh's cluster_sync, a barrier over
+// every thread of the cluster whose release and acquire make shared-memory
+// writes before it, local or remote, visible after it): the generic
+// address of a shared-memory location in another block of the cluster
+// (plain loads and stores through it; the barrier's memory clobber keeps
+// them on their side of it).
 // ---------------------------------------------------------------------------
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n\t"
-               "barrier.cluster.wait.acquire.aligned;" ::: "memory");
-}
 
 // A block may touch another block's shared memory only once that block
 // has started: every block arrives (relaxed, not waiting) when it starts
@@ -575,114 +573,6 @@ struct WgCfg {
   static_assert(G_BM * BN * 4 <= STAGES * STAGE, "the split's partial tile must fit the ring");
 };
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" :: "r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" :: "r"(smem_u32(bar)) : "memory");
-}
-// returns once the phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done;
-  do {
-    asm volatile("{\n\t.reg .pred p;\n\t"
-                 "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-                 "selp.u32 %0, 1, 0, p;\n\t}"
-                 : "=r"(done) : "r"(addr), "r"(parity) : "memory");
-  } while (!done);
-}
-
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                         int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];"
-      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
-         "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// Shared-memory matrix descriptor, 128-byte swizzle; offsets in bytes.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
-         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" :: "n"(N) : "memory");
-}
-// keeps the compiler from moving accumulator registers across the
-// asynchronous wgmma (it cannot see that they are still being written)
-template <int R>
-__device__ __forceinline__ void fence_regs(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-
-#define D8(i)                                                                            \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),             \
-      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-
-// d(64 x N) += A(64 x 16, K-major) B(16 x N); TB: B is MN-major.
-template <int N, int TB> struct Wgmma;
-
-template <int TB> struct Wgmma<64, TB> {
-  static __device__ __forceinline__ void run(float (&d)[32], uint64_t da, uint64_t db) {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %34, 0;\n\t"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "%32, %33, p, 1, 1, 0, %35;\n\t}"
-        : D8(0), D8(8), D8(16), D8(24)
-        : "l"(da), "l"(db), "r"(1), "n"(TB));
-  }
-};
-
-template <int TB> struct Wgmma<128, TB> {
-  static __device__ __forceinline__ void run(float (&d)[64], uint64_t da, uint64_t db) {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %66, 0;\n\t"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "%64, %65, p, 1, 1, 0, %67;\n\t}"
-        : D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56)
-        : "l"(da), "l"(db), "r"(1), "n"(TB));
-  }
-};
-template <int TB> struct Wgmma<192, TB> {
-  static __device__ __forceinline__ void run(float (&d)[96], uint64_t da, uint64_t db) {
-    asm volatile(
-        "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %98, 0;\n\t"
-        "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
-        "%96, %97, p, 1, 1, 0, %99;\n\t}"
-        : D8(0), D8(8), D8(16), D8(24), D8(32), D8(40), D8(48), D8(56), D8(64), D8(72),
-          D8(80), D8(88)
-        : "l"(da), "l"(db), "r"(1), "n"(TB));
-  }
-};
-#undef D8
-
 // The block's 128 x BN result (each consumer thread's wgmma fragment,
 // f32) cast to bf16, staged through shared memory (the drained ring) and
 // written as 16-byte row vectors, masked at the matrix edge. Called by
@@ -851,43 +741,6 @@ dos_matmul_wgmma(const __grid_constant__ CUtensorMap ta, const __grid_constant__
 // ---------------------------------------------------------------------------
 // Host side
 // ---------------------------------------------------------------------------
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled is a driver-API function; the runtime hands out
-// its address, so the library needs no link against libcuda.
-EncodeTiled encode_fn() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                     cudaEnableDefault, &q);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (e == cudaSuccess && q == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
-  }
-  return fn;
-}
-
-// A 2-D bf16 tensor map: `inner` x `outer` elements, rows `ld` elements
-// apart, box `box_inner` x `box_outer`, 128-byte swizzle, zero fill.
-bool encode2d(EncodeTiled enc, CUtensorMap* map, const void* base, uint64_t inner,
-              uint64_t outer, uint64_t ld, uint32_t box_inner, uint32_t box_outer) {
-  const cuuint64_t dims[2] = {inner, outer};
-  const cuuint64_t strides[1] = {ld * 2};
-  const cuuint32_t box[2] = {box_inner, box_outer};
-  const cuuint32_t estr[2] = {1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims, strides,
-             box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
-         CUDA_SUCCESS;
-}
-
 // A launch of `kernel` on a grid whose x extent is one cluster.
 template <typename... KArgs, typename... Args>
 cudaError_t launch_cluster(void (*kernel)(KArgs...), dim3 grid, int threads, size_t smem,

@@ -8,8 +8,9 @@ rows ``[off_g, off_g + size_g)`` (off_g the sum of the sizes before it),
 
 summed in f32 and returned in x's type. Its gradients in closed form:
 dx is the same product on ``w.transpose(-1, -2)`` (``grouped_matmul_ref``
-again) and dw[g] = x[rows of g]^T dy[rows of g] in f32
-(``grouped_matmul_dw_ref``; an empty group's is zero). Sizes are
+again) and dw[g] = x[rows of g]^T dy[rows of g] summed in f32 and cast
+to the dtype asked for (``grouped_matmul_dw_ref``; an empty group's is
+zero). Sizes are
 clamped to the rows there are. Each is a loop over the groups; the
 sizes are read on the host.
 """
@@ -40,12 +41,14 @@ def grouped_matmul_ref(x: torch.Tensor, w: torch.Tensor, group_sizes) -> torch.T
     return out.to(x.dtype)
 
 
-def grouped_matmul_dw_ref(x: torch.Tensor, dy: torch.Tensor, group_sizes) -> torch.Tensor:
-    """x (R, K), dy (R, N), group_sizes (G,) -> dw (G, K, N) in f32."""
+def grouped_matmul_dw_ref(x: torch.Tensor, dy: torch.Tensor, group_sizes,
+                          out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """x (R, K), dy (R, N), group_sizes (G,) -> dw (G, K, N), summed in f32
+    and cast to ``out_dtype``."""
     bounds = group_bounds(group_sizes, x.shape[0])
     dw = torch.zeros((len(bounds), x.shape[1], dy.shape[1]), dtype=torch.float32,
                      device=x.device)
     for g, (a, b) in enumerate(bounds):
         if b > a:
             dw[g] = x[a:b].float().T @ dy[a:b].float()
-    return dw
+    return dw.to(out_dtype)

@@ -887,12 +887,18 @@ def test_kernels_launch_from_a_fresh_thread_after_the_main_thread(gen):
 # The grouped GEMM (grouped_matmul, grouped_matmul_dw) against its plain
 # version on the f32 result of the same operands: f32, 1e-5 of max|ref|
 # (summation order); a bf16 output, one bf16 rounding (2**-8) of each
-# entry more. dw is f32 whatever the operands: 1e-5 of max|ref|.
+# entry more. An f32 dw: 1e-5 of max|ref|; a bf16 dw is the f32 dw of the
+# same variant rounded once, bit for bit. Every variant the operands
+# allow (wgmma at each block height, fma) is forced on the same inputs
+# beside the one the plan picks.
 _GMM_CASES = [  # rows, K, N, sizes
     (24, 2048, 1408, [1, 0, 2, 0, 3, 0, 0, 1] * 3),   # decode-like, empty groups
     (300, 200, 136, [0, 300, 0]),                      # one group holds every row
     (130, 96, 72, [17, 0, 40, 3]),                     # rows past the sum (60 of 130)
     (257, 1000, 520, [64, 1, 0, 100, 92]),             # ragged K and N
+    (1200, 256, 512, [300, 0, 517, 383]),              # training-like: 128-row tiles, N % 256 = 0
+    (700, 136, 200, [130, 250, 0, 320]),               # ragged last k stage and n tile
+    (900, 128, 320, [300, 200, 0, 400]),               # a ragged last column tile
 ]
 
 
@@ -903,25 +909,36 @@ def _gmm_inputs(gen, rows, k, n, sizes, dtype, transposed):
     return x, w, torch.tensor(sizes, dtype=torch.int32, device="cuda")
 
 
+def _gmm_variants(dtype):
+    """(variant, block rows; 0: the plan's) of every variant bf16 or f32
+    operands with 16-byte rows allow."""
+    if dtype == torch.float32:
+        return [("fma", 0)]
+    return [("wgmma", 64), ("wgmma", 128), ("fma", 0)]
+
+
 @pytest.mark.parametrize("case", _GMM_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("transposed", [False, True])
 def test_grouped_matmul_kernel(gen, case, dtype, transposed):
     from repro_torch.kernels import grouped_matmul
     from repro_torch.kernels.grouped_matmul import grouped_matmul_ref
+    from repro_torch.kernels.grouped_matmul import ops as gmm_ops
 
     rows, k, n, sizes = case
     x, w, gs = _gmm_inputs(gen, rows, k, n, sizes, dtype, transposed)
-    want = "mma" if dtype == torch.bfloat16 else "fma"
+    want = gmm_ops.plan(rows, len(sizes), dtype, True).variant
     before = dict(grouped_matmul.variants)
     out = grouped_matmul(x, w, gs)
     assert grouped_matmul.variants == dict(before, **{want: before[want] + 1})
     exact = grouped_matmul_ref(x.float(), w.float(), gs)
     tol = 1e-5 * exact.abs().max() + (2.0**-8 * exact.abs() if dtype == torch.bfloat16 else 0)
-    assert out.dtype == dtype
-    assert bool(((out.float() - exact).abs() <= tol).all())
-    assert not out[sum(sizes):].any()
-    assert torch.equal(out, grouped_matmul(x, w, gs))
+    for variant, bm in [(None, 0)] + _gmm_variants(dtype):
+        got = out if variant is None else gmm_ops._launch_forward(x, w, gs, force=variant, bm=bm)
+        assert got.dtype == dtype
+        assert bool(((got.float() - exact).abs() <= tol).all()), (variant, bm)
+        assert not got[sum(sizes):].any(), (variant, bm)
+        assert torch.equal(got, gmm_ops._launch_forward(x, w, gs, force=variant, bm=bm))
 
 
 @pytest.mark.parametrize("case", _GMM_CASES)
@@ -934,16 +951,21 @@ def test_grouped_matmul_dw_kernel(gen, case, dtype):
     rows, k, n, sizes = case
     x, _, gs = _gmm_inputs(gen, rows, k, n, sizes, dtype, False)
     dy = torch.randn(rows, n, generator=gen, device="cuda").to(dtype)
+    before = dict(grouped_matmul_dw.variants)
     dw = grouped_matmul_dw(x, dy, gs)
+    want = gmm_ops.dw_plan(dtype, True)
+    assert grouped_matmul_dw.variants == dict(before, **{want: before[want] + 1})
     exact = grouped_matmul_dw_ref(x, dy, gs)
     assert dw.dtype == torch.float32
-    assert bool(((dw - exact).abs() <= 1e-5 * exact.abs().max()).all())
-    for g, s in enumerate(sizes):
-        if s == 0:
-            assert not dw[g].any()
-    assert torch.equal(dw, grouped_matmul_dw(x, dy, gs))
-    fma = gmm_ops._launch_dw(x, dy, gs, force_fma=True)  # the other variant, same inputs
-    assert bool(((fma - exact).abs() <= 1e-5 * exact.abs().max()).all())
+    for variant in (None,) + gmm_ops.VARIANTS if dtype == torch.bfloat16 else (None, "fma"):
+        got = dw if variant is None else gmm_ops._launch_dw(x, dy, gs, force=variant)
+        assert bool(((got - exact).abs() <= 1e-5 * exact.abs().max()).all()), variant
+        for g, s in enumerate(sizes):
+            if s == 0:
+                assert not got[g].any(), variant
+        assert torch.equal(got, gmm_ops._launch_dw(x, dy, gs, force=variant))
+        low = gmm_ops._launch_dw(x, dy, gs, force=variant, out_dtype=torch.bfloat16)
+        assert low.dtype == torch.bfloat16 and torch.equal(low, got.to(torch.bfloat16)), variant
 
 
 def test_grouped_matmul_function_gradients(gen):
