@@ -171,12 +171,13 @@ if it fails:
     routed experts, top-6, and 2 shared). Its serving main path runs right
     after phase 14's, its training main path right after phase 14's
     training, each with the counts set to 0 just before and read just
-    after: ``serve_loop`` at full width and depth (batch 4, prompt 128, 32
-    tokens; weights formed a leaf at a time, so ``init_s`` is minutes of
-    host draws) with the launches per prefill and per decode step exact
-    by kernel and variant (``dos_matmul`` 225 with the 28 routers ``f32``,
-    ``grouped_matmul`` 84 ``wgmma`` per prefill and per decode step,
-    ``flash_attention`` 28 per prefill),
+    after: ``serve_loop`` at full width with the depth cut to 7 of the 28
+    layers (``SERVE_LAYERS``: the full model's host draws alone take over
+    two minutes) (batch 4, prompt 128, 32 tokens; weights formed a leaf at
+    a time) with the launches per prefill and per decode step exact by
+    kernel and variant (``dos_matmul`` 57 with the 7 routers ``f32``,
+    ``grouped_matmul`` 21 ``wgmma`` per prefill and per decode step,
+    ``flash_attention`` 7 per prefill), at the same depth
     profiled like phase 6 (the grouped GEMM's share of busy time); and
     ``train_loop`` at full width cut to 4 layers (8 x 512, 30 steps,
     remat): the loss falls, the launches per step exact by variant
@@ -205,7 +206,38 @@ if it fails:
     agreement printed; a fault
     and resume at one layer, every loss bit-identical to an uninterrupted
     run's; the train CLI ``--layers 1 --steps 3``, launches exact;
-16. prints the kernels line, the ``nvidia-smi`` line, and last
+16. vision cross-attention (llama-3.2-vision-11b, 9,775,157,256
+    parameters: 8 groups of 4 self-attention layers and a gated
+    cross-attention layer over 1,600 image embeddings) and the
+    encoder-decoder (whisper-medium, 758,123,520 parameters: 24 encoder
+    layers over 1,500 frames, 24 decoder layers). Their serving main paths
+    run right after phase 15's, their training main paths right after
+    phase 15's training, each with the counts set to 0 just before and
+    read just after: ``serve_loop`` at full size (batch 4, prompt 128, 32
+    tokens; the image embeddings or frames drawn as serving draws them)
+    with the launches per prefill and per decode step exact by kernel and
+    variant (vision: 281 ``dos_matmul`` ``wgmma`` and 40 flash ``mma`` per
+    prefill, 265 ``skinny`` per decode step; whisper: 385 and 72, 193), and
+    ``make_train_step`` (the reference's ``train_loop`` cannot feed these
+    families) on the vision model cut to one group (5 layers; lr 3e-4: at
+    1e-3 neither it nor a dense model of its width learns in 30 steps,
+    ``tools/vlm_lr_probe.py``) and on whisper at full size (lr 1e-3), 8 x
+    512 tokens with each step's image embeddings or frames, 30 steps: the
+    loss falls, launches per step exact by
+    variant, microbatches=2 against 1, one profiled step. After phase 15's
+    checks: one prefill and one decode step of each profiled like phase 6;
+    the flash forward and backward at the paths' non-causal shapes (128 x
+    1,600 keys GQA 32/8 D 128; 1,500 x 1,500 and 128 x 1,500 MHA 16 D 64)
+    against their plain versions in bf16 (timed beside SDPA and the bound)
+    and f32; card against CPU with the vision gates opened to 0.5 (at
+    their init of 0 no cross-attention result reaches the logits): block by
+    block in bf16 and end to end in f32 at full width with the depth cut
+    (vision one group, whisper 4 + 4 layers; a prefill and 4 decode steps),
+    a decode step with no device-to-host sync, and one layer of each kind's
+    loss and every gradient leaf (f32 within 1e-3, bf16 within 3e-2 of the
+    leaf's max|g|); the serve CLI for whisper at full size and for the
+    vision model at ``--smoke`` size, launches exact;
+17. prints the kernels line, the ``nvidia-smi`` line, and last
     ``{"ok": true, "device": {...}}``.
 
 ``--details PATH`` also writes every measurement to a JSON file.
@@ -232,7 +264,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import get_config, reduced  # noqa: E402
 from repro_torch.core import analytical, calibrate, engine, systolic  # noqa: E402
 from repro_torch.core.dse import random_workloads  # noqa: E402
 from repro_torch.core.ppa import thermal  # noqa: E402
@@ -256,14 +288,15 @@ from repro_torch.kernels.ssm_scan import (  # noqa: E402
 )
 from repro_torch.kernels.ssm_scan import ops as ssm_ops  # noqa: E402
 from repro_torch.data import DataConfig, SyntheticLM  # noqa: E402
-from repro_torch.launch.serve import serve_loop  # noqa: E402
+from repro_torch.launch.serve import model_inputs, serve_loop  # noqa: E402
 from repro_torch.launch.steps import accumulate_grads, loss_and_grads, make_train_step  # noqa: E402
-from repro_torch.launch.train import train_loop  # noqa: E402
-from repro_torch.models import build, decoder, layers, moe  # noqa: E402
+from repro_torch.launch.train import cut_depth, train_loop  # noqa: E402
+from repro_torch.models import build, decoder, encdec, layers, moe  # noqa: E402
 from repro_torch.models.params import leaves, map_tree, materialize, materialize_cast  # noqa: E402
+from repro_torch.models.zoo import MODEL_INPUTS  # noqa: E402
 from repro_torch.models.ssm import mamba_block, mamba_defs  # noqa: E402
 from repro_torch.models.xlstm import mlstm_block, mlstm_defs, slstm_block, slstm_defs  # noqa: E402
-from repro_torch.optim import OptConfig, adamw_update  # noqa: E402
+from repro_torch.optim import OptConfig, adamw_update, init_opt_state  # noqa: E402
 from repro_torch.runtime import FaultInjector  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): the bound of a call
@@ -280,6 +313,14 @@ PATHS = (ARCH, HYBRID)
 XLSTM = "xlstm-125m"  # phase 14's serving and training paths, at the same sizes
 MOE = "deepseek-moe-16b"  # phase 15's serving and training paths
 SCOUT = "llama4-scout-17b-a16e"  # its expert shapes, in phase 15's kernel checks
+# Serving main paths run at full size but for these, cut in depth at full
+# width: deepseek-moe-16b's 16.9 G weights are drawn on the host (130-151 s
+# of an H100 machine's run), and with phase 16 the script took 1,046-1,084 s
+# of its 1,200. Each layer's work and launches are the full model's.
+SERVE_LAYERS = {MOE: 7}
+# phase 16's serving and training paths: vision cross-attention and the
+# encoder-decoder
+VLM, WHISPER = "llama-3.2-vision-11b", "whisper-medium"
 E2E_DECODE_STEPS = 4
 # zamba2's end-to-end check against the CPU keeps full width but 2 of
 # its 9 groups (12 Mamba2 layers, 2 shared-block calls) at batch 2.
@@ -455,7 +496,10 @@ def expected_launches(cfg, gen_tokens: int = GEN) -> dict:
     in prefill; an xLSTM's two scans per mLSTM block in prefill and one
     recurrence per sLSTM block in prefill and in each decode step; an MoE
     layer's router, shared-expert and attention GEMMs and its three
-    grouped expert products in prefill and in each decode step."""
+    grouped expert products in prefill and in each decode step; a vision
+    cross layer's or whisper decoder layer's cross k and v projections
+    and its cross-attention in prefill only (decode reads them from the
+    cache), whisper's encoder in prefill only."""
     head = 1  # the unembedding, tied or not
     prefill = dict.fromkeys(KERNELS, 0)
     step = dict.fromkeys(KERNELS, 0)
@@ -464,6 +508,19 @@ def expected_launches(cfg, gen_tokens: int = GEN) -> dict:
         gemms = xlstm_gemms(cfg)[0]
         prefill.update(dos_matmul=gemms, ssm_scan=2 * n_m, slstm_scan=n_s)
         step.update(dos_matmul=gemms, slstm_scan=n_s)
+        return {"prefill": prefill, "decode": {k: n * (gen_tokens - 1) for k, n in step.items()}}
+    if cfg.family == "vlm":  # a self layer's 7; a cross layer's q o and MLP, k v in prefill
+        n_groups, n_self = decoder._vlm_groups(cfg)
+        n_attn = n_groups * n_self
+        prefill.update(dos_matmul=7 * n_attn + 7 * n_groups + head,
+                       flash_attention=n_attn + n_groups)
+        step.update(dos_matmul=7 * n_attn + 5 * n_groups + head)
+        return {"prefill": prefill, "decode": {k: n * (gen_tokens - 1) for k, n in step.items()}}
+    if cfg.family == "encdec":  # encoder q k v o wi wo; decoder q k v o, cross q o (k v), wi wo
+        n_enc, n_dec = cfg.n_enc_layers, cfg.n_layers
+        prefill.update(dos_matmul=6 * n_enc + 10 * n_dec + head,
+                       flash_attention=n_enc + 2 * n_dec)
+        step.update(dos_matmul=8 * n_dec + head)
         return {"prefill": prefill, "decode": {k: n * (gen_tokens - 1) for k, n in step.items()}}
     if cfg.family == "hybrid":
         n_attn = cfg.n_layers // cfg.attn_every  # shared-block calls
@@ -499,8 +556,27 @@ def expected_serve_variants(cfg, gen_tokens: int = GEN) -> dict:
     return out
 
 
-def phase_main_path(arch):
+def cross_serve_variants(cfg, gen_tokens: int = GEN) -> dict:
+    """A vision or whisper serve run's launches by kernel and variant:
+    every prefill GEMM ``wgmma`` (whisper's tied unembedding included: B
+    is the table's transposed view, ldb = E), every decode GEMM ``skinny``
+    (M = batch), every attention ``mma``."""
+    want = expected_launches(cfg, gen_tokens)
+    out = {k: dict.fromkeys(fn.variants, 0) for k, fn in KERNELS.items()}
+    out["dos_matmul"].update(wgmma=want["prefill"]["dos_matmul"],
+                             skinny=want["decode"]["dos_matmul"])
+    out["flash_attention"]["mma"] = want["prefill"]["flash_attention"]
+    return out
+
+
+def serve_cfg(arch):
+    """The config of ``arch``'s serving main path (``SERVE_LAYERS``)."""
     cfg = get_config(arch)
+    return cut_depth(cfg, SERVE_LAYERS[arch]) if arch in SERVE_LAYERS else cfg
+
+
+def phase_main_path(arch):
+    cfg = serve_cfg(arch)
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -525,9 +601,11 @@ def phase_main_path(arch):
     variants = dict(dos_matmul.variants)
     print(f"[main] {arch} dos_matmul launches by variant: {variants}", flush=True)
     summary["dos_matmul_variants"] = variants
-    if cfg.family in ("ssm", "moe"):  # phases 14, 15: every kernel's variants exact
+    variants_of = {"ssm": expected_serve_variants, "moe": moe_serve_variants,
+                   "vlm": cross_serve_variants, "encdec": cross_serve_variants}
+    if cfg.family in variants_of:  # phases 14-16: every kernel's variants exact
         got = {k: dict(fn.variants) for k, fn in KERNELS.items()}
-        want_v = (expected_serve_variants if cfg.family == "ssm" else moe_serve_variants)(cfg)
+        want_v = variants_of[cfg.family](cfg)
         print(f"[main] {arch} launches by kernel and variant: {got}", flush=True)
         summary["variants"] = got
         check(got == want_v, f"{arch}: launches by variant {got}, expected {want_v}")
@@ -812,8 +890,8 @@ def check_flash(gen, b, sq, skv, h, kvh, d, dtype, causal=True, window=None, q_o
            "max_abs_err_vs_f32": err.max().item(), "ok": ok}
     if time_it:
         es = 2 if dtype == torch.bfloat16 else 4
-        check(causal and q_offset == 0 and (window or skv) >= skv,
-              "the library yardstick (sdpa) covers plain causal attention only")
+        check(q_offset == 0 and (window or skv) >= skv,
+              "the library yardstick (sdpa) covers attention with no window or offset only")
         pairs = _visible_pairs(sq, skv, causal, window, q_offset)
         row["bytes"] = (2 * b * sq * h + 2 * b * skv * kvh) * d * es
         row["ops"] = 4.0 * b * h * d * pairs
@@ -1038,9 +1116,10 @@ def phase_kernels():
 
 
 def _e2e_setup(arch, dtype=None):
-    """The path's config as the card-vs-CPU checks run it (zamba2 with its
-    depth and batch cut), CPU and card models, the CPU's parameters and
-    the prompts."""
+    """The path's config as the card-vs-CPU checks run it (zamba2, the
+    MoE, the vision model and whisper with their depth and batch cut),
+    CPU and card models, the CPU's parameters (the vision model's gates
+    opened to VLM_GATE) and the prefill's batch on the CPU."""
     cfg, batch = get_config(arch), BATCH
     if cfg.family == "hybrid":
         cfg, batch = dataclasses.replace(cfg, n_layers=HYBRID_E2E_LAYERS), HYBRID_E2E_BATCH
@@ -1048,13 +1127,25 @@ def _e2e_setup(arch, dtype=None):
         batch = HYBRID_E2E_BATCH
     elif cfg.family == "moe":  # full width, 2 layers, batch 2
         cfg, batch = dataclasses.replace(cfg, n_layers=MOE_E2E_LAYERS), MOE_E2E_BATCH
+    elif cfg.family in ("vlm", "encdec"):  # full width, depth cut, batch 2
+        cfg, batch = dataclasses.replace(cfg, **CROSS_E2E_DEPTH[cfg.family]), CROSS_E2E_BATCH
     if dtype:
         cfg = dataclasses.replace(cfg, compute_dtype=dtype)
     mc, mg = build(cfg, "cpu"), build(cfg, "cuda")
-    params_c = mc.init_compute(torch.Generator().manual_seed(0))
-    prompts = torch.randint(0, cfg.vocab, (batch, PROMPT),
-                            generator=torch.Generator().manual_seed(1))
-    return cfg, batch, mc, mg, params_c, prompts
+    # compute_params(init()) is init_compute() bit for bit; the draw is shared
+    params_c = mc.compute_params(_cpu_master(dataclasses.replace(cfg, compute_dtype="float32")))
+    return cfg, batch, mc, mg, params_c, prefill_batch(cfg, batch, "cpu")
+
+
+@functools.lru_cache(maxsize=1)
+def _cpu_master(cfg):
+    """``cfg``'s f32 master weights on the CPU from seed 0 (the vision
+    model's gates opened to VLM_GATE), drawn once for a path's bf16 and
+    f32 checks: a full-width draw takes the host seconds a billion."""
+    params = build(cfg, "cpu").init(torch.Generator().manual_seed(0))
+    if cfg.family == "vlm":
+        params["cross_layers"]["gate"].fill_(VLM_GATE)
+    return params
 
 
 def phase_e2e(arch, dtype=None, tol=E2E_TOL):
@@ -1062,11 +1153,11 @@ def phase_e2e(arch, dtype=None, tol=E2E_TOL):
     teacher-forced decode steps. Returns what the profile of a decode
     step needs (the card's model, parameters, cache and next token) and
     the CPU's prefill logits."""
-    cfg, batch, mc, mg, params_c, prompts = _e2e_setup(arch, dtype)
+    cfg, batch, mc, mg, params_c, pf_batch = _e2e_setup(arch, dtype)
     params_g = map_tree(lambda t: t.to("cuda"), params_c)
     max_len = PROMPT + E2E_DECODE_STEPS + PROFILE_STEPS + 2
-    lg, cg = mg.prefill(params_g, {"tokens": prompts}, max_len=max_len)
-    lc, cc = mc.prefill(params_c, {"tokens": prompts}, max_len=max_len)
+    lg, cg = mg.prefill(params_g, {k: t.cuda() for k, t in pf_batch.items()}, max_len=max_len)
+    lc, cc = mc.prefill(params_c, pf_batch, max_len=max_len)
     lc0, worst = lc, 0.0
     for step in range(E2E_DECODE_STEPS + 1):
         ref, got = lc.float(), lg.float().cpu()
@@ -1086,8 +1177,11 @@ def phase_e2e(arch, dtype=None, tol=E2E_TOL):
     return (mg, params_g, cg, lg[:, -1:].argmax(dim=-1)), lc0
 
 
-# the decoder's blocks, by name
-_BLOCKS = ("mamba_block", "_attn_mlp_block", "mlstm_block", "slstm_block", "unembed")
+# the blocks recorded by module: the decoder's (the vision model's cross
+# k, v projections among them) and the encoder-decoder's
+_BLOCKS = {decoder: ("mamba_block", "_attn_mlp_block", "mlstm_block", "slstm_block",
+                     "compute_cross_kv", "unembed"),
+           encdec: ("_enc_layer", "compute_cross_kv", "_dec_layer", "unembed")}
 
 
 def _tree(fn, tree):
@@ -1101,13 +1195,13 @@ def _tree(fn, tree):
     return tree
 
 
-def recorded_blocks(run):
-    """Run ``run()`` with the decoder's blocks recorded: returns its result
+def recorded_blocks(run, module=decoder):
+    """Run ``run()`` with ``module``'s blocks recorded: returns its result
     and every call as (name, function, args, kwargs, output). The state
     and cache arguments are copied before each call and the outputs after
     it (decode writes states in place); weights and activations are not
     modified and are kept."""
-    calls, originals = [], {n: getattr(decoder, n) for n in _BLOCKS}
+    calls, originals = [], {n: getattr(module, n) for n in _BLOCKS[module]}
 
     def hook(name):
         fn = originals[name]
@@ -1123,34 +1217,36 @@ def recorded_blocks(run):
 
         return recorded
 
-    for n in _BLOCKS:
-        setattr(decoder, n, hook(n))
+    for n in originals:
+        setattr(module, n, hook(n))
     try:
         result = run()
     finally:
         for n, fn in originals.items():
-            setattr(decoder, n, fn)
+            setattr(module, n, fn)
     return result, calls
 
 
 def phase_e2e_blocks(arch):
     """Card against CPU block by block: the CPU runs the prefill and
     E2E_DECODE_STEPS teacher-forced decode steps; every call of a Mamba2
-    block, of the shared block, of an mLSTM or sLSTM block and of the head
+    block, of an attention+MLP block (the shared, self-attention or gated
+    cross-attention one), of an mLSTM or sLSTM block, of a cross k, v
+    projection, of whisper's encoder and decoder layers and of the head
     is run again on the card with the CPU's inputs and states, and each
     output (the block's output, and a Mamba2 block's new SSM and conv
     states or an xLSTM block's new state) must agree within the bf16 band
     of the CPU's. Returns the CPU's prefill logits."""
-    cfg, batch, mc, _, params_c, prompts = _e2e_setup(arch)
+    cfg, batch, mc, _, params_c, pf_batch = _e2e_setup(arch)
 
     def run():
-        lc, cc = mc.prefill(params_c, {"tokens": prompts}, max_len=PROMPT + E2E_DECODE_STEPS)
+        lc, cc = mc.prefill(params_c, pf_batch, max_len=PROMPT + E2E_DECODE_STEPS)
         first = lc
         for _ in range(E2E_DECODE_STEPS):
             lc, cc = mc.decode(params_c, cc, {"token": lc[:, -1:].argmax(dim=-1)})
         return first
 
-    lc0, calls = recorded_blocks(run)
+    lc0, calls = recorded_blocks(run, encdec if cfg.family == "encdec" else decoder)
     worst: dict = {}
     for name, fn, args, kwargs, out in calls:
         got = fn(*_tree(lambda t: t.to("cuda"), args),
@@ -1161,12 +1257,14 @@ def phase_e2e_blocks(arch):
         elif name in ("mlstm_block", "slstm_block"):
             pairs = {"out": (got[0], out[0]),
                      **{f"state {k}": (got[1][k], out[1][k]) for k in out[1]}}
-        elif name == "_attn_mlp_block":
+        elif name in ("_attn_mlp_block", "_dec_layer"):
             pairs = {"out": (got[0], out[0])}
+        elif name == "compute_cross_kv":
+            pairs = {"k": (got[0], out[0]), "v": (got[1], out[1])}
         else:
-            pairs = {"logits": (got, out)}
+            pairs = {"out" if name == "_enc_layer" else "logits": (got, out)}
         mode = kwargs["mode"] if "mode" in kwargs else (
-            "prefill" if out.shape[1] > 1 else "decode")
+            "prefill" if next(iter(pairs.values()))[1].shape[1] > 1 else "decode")
         for what, (g, c) in pairs.items():
             c = c.float()
             rel = (g.float().cpu() - c).abs().max().item() / max(c.abs().max().item(), 1e-30)
@@ -1183,15 +1281,21 @@ def phase_e2e_blocks(arch):
     return lc0
 
 
-def full_depth_decode_state(arch):
-    """The path's full model with weights drawn on the card (fast; the
-    values do not change the work) after a prefill of the main path's
-    shape: what the profile of its decode step needs."""
-    model = build(get_config(arch), "cuda")
-    params = model.init_compute(torch.Generator(device="cuda").manual_seed(0))
-    prompts = torch.randint(0, model.cfg.vocab, (BATCH, PROMPT),
+def prefill_batch(cfg, batch, device="cuda"):
+    """The main path's prompts (batch x PROMPT, seed 1) and the model's
+    other inputs (``model_inputs``, seed 0), as serving draws them."""
+    prompts = torch.randint(0, cfg.vocab, (batch, PROMPT),
                             generator=torch.Generator().manual_seed(1))
-    logits, cache = model.prefill(params, {"tokens": prompts},
+    return {k: t.to(device) for k, t in dict(model_inputs(cfg, batch, 0), tokens=prompts).items()}
+
+
+def serve_decode_state(arch):
+    """The serving main path's model (``serve_cfg``) with weights drawn on
+    the card (fast; the values do not change the work) after a prefill of
+    the main path's shape: what the profile of its decode step needs."""
+    model = build(serve_cfg(arch), "cuda")
+    params = model.init_compute(torch.Generator(device="cuda").manual_seed(0))
+    logits, cache = model.prefill(params, prefill_batch(model.cfg, BATCH),
                                   max_len=PROMPT + PROFILE_STEPS + 2)
     return model, params, cache, logits[:, -1:].argmax(dim=-1)
 
@@ -1250,18 +1354,17 @@ def device_ms_per_call(call, reps=20):
 
 
 def phase_profile_prefill(arch, reps=5):
-    """One prefill of the path's full model (batch 4, prompt 128, weights
-    drawn on the card from a seed) under torch.profiler: device busy ms,
-    the idle share against the same prefill's wall time without the
-    profiler (the median of ``reps``, host clock ending in a synchronize),
-    and device ms by kernel."""
-    model = build(get_config(arch), "cuda")
+    """One prefill of the serving main path's model (``serve_cfg``; batch
+    4, prompt 128, weights drawn on the card from a seed) under
+    torch.profiler: device busy ms, the idle share against the same
+    prefill's wall time without the profiler (the median of ``reps``, host
+    clock ending in a synchronize), and device ms by kernel."""
+    model = build(serve_cfg(arch), "cuda")
     params = model.init_compute(torch.Generator(device="cuda").manual_seed(0))
-    prompts = torch.randint(0, model.cfg.vocab, (BATCH, PROMPT),
-                            generator=torch.Generator().manual_seed(1))
+    batch = prefill_batch(model.cfg, BATCH)
 
     def run():
-        model.prefill(params, {"tokens": prompts}, max_len=PROMPT + 1)
+        model.prefill(params, batch, max_len=PROMPT + 1)
 
     run()  # warm
     torch.cuda.synchronize()
@@ -1990,9 +2093,9 @@ def _bwd_work(b, sq, skv, h, kvh, d, es, causal, window, q_offset):
     return n_bytes, float(b * h * d * (10 * pairs + 2 * skv * dead))
 
 
-def _sdpa_bwd_ms(sets, reps=20):
+def _sdpa_bwd_ms(sets, causal=True, reps=20):
     """Device ms per call of the autograd backward of
-    ``scaled_dot_product_attention`` (causal, GQA) on the same operands,
+    ``scaled_dot_product_attention`` (GQA, causal or not) on the same operands,
     the backend that ran it and its three longest kernels: the sum of its
     device operations under torch.profiler (``device_ms_per_call``,
     cycling the input sets, after a warm-up), so autograd's host launches
@@ -2000,7 +2103,7 @@ def _sdpa_bwd_ms(sets, reps=20):
     graphs = []
     for q, k, v, _, do, _ in sets:
         qs, ks, vs = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
-        out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True, enable_gqa=True)
+        out = F.scaled_dot_product_attention(qs, ks, vs, is_causal=causal, enable_gqa=True)
         graphs.append((out, (qs, ks, vs), do.transpose(1, 2)))
 
     def run(i):
@@ -2147,8 +2250,8 @@ def check_flash_bwd(gen, b, sq, skv, h, kvh, d, dtype, causal=True, window=None,
            "o_max_abs_err_vs_f32": o_err.max().item(), "wrapper_o_bit_identical": o_same,
            "max_ref": ref_max, "bit_identical": same, "ok": ok and same}
     if time_it:
-        check(causal and q_offset == 0 and (window or skv) >= skv,
-              "the library yardstick (sdpa) covers plain causal attention only")
+        check(q_offset == 0 and (window or skv) >= skv,
+              "the library yardstick (sdpa) covers attention with no window or offset only")
         row["bytes"], row["ops"] = n_bytes, n_ops
         row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, n_ops, dtype)
         row["ms"] = cuda_ms(lambda i: flash_attention_bwd(*sets[i], **kw), n_sets)
@@ -2161,7 +2264,8 @@ def check_flash_bwd(gen, b, sq, skv, h, kvh, d, dtype, causal=True, window=None,
             row["fma_ms"] = cuda_ms(lambda i: flash_ops._backward(
                 *sets[i], scale=None, force_fma=True, **kw), n_sets)
         row["plain_ms"] = cuda_ms(lambda i: attention_bwd_ref(*sets[i], **kw), n_sets)
-        row["library_ms"], row["library_backend"], row["library_kernels"] = _sdpa_bwd_ms(sets)
+        row["library_ms"], row["library_backend"], row["library_kernels"] = _sdpa_bwd_ms(sets,
+                                                                                        causal)
     print(f"[train] flash_attention_bwd {tag}: max|err| vs f32 dq/dk/dv "
           f"{'/'.join(f'{e:.3g}' for e in errs)} (max|ref| {ref_max:.3g}; beyond one bf16 "
           f"rounding {slack:.3f} of the 1e-5 slack), lse "
@@ -3986,6 +4090,327 @@ def phase_moe_cli():
 
 
 # ---------------------------------------------------------------------------
+# phase 16: vision cross-attention (llama-3.2-vision-11b) and the
+# encoder-decoder (whisper-medium), serving and training on the card
+# ---------------------------------------------------------------------------
+
+# The cross layers' gate starts at 0 and scales their output by
+# tanh(gate): at init no cross-attention result reaches the logits, and a
+# broken cross path would pass. Every card-vs-CPU check sets the gates to
+# VLM_GATE on both devices.
+VLM_GATE = 0.5
+# the vision training path: full width cut to one group (4 self-attention
+# layers and the cross layer; 2.14 B parameters, 16 bytes each with the
+# gradients and AdamW's moments: ~34 GB, ~156 GB at full depth). Its
+# learning rate: at the other paths' 1e-3 its loss does not fall in 30
+# steps, and neither does that of a dense model of its width (4 layers at
+# d_model 4,096, vocab 128,256), with image embeddings drawn per step or
+# fixed; at 3e-4 both fall (tools/vlm_lr_probe.py). Whisper keeps 1e-3.
+VLM_TRAIN_LAYERS, VLM_TRAIN_LR = 5, 3e-4
+# card against CPU in serving: full width, depth cut where the CPU would
+# dominate (the vision model to one group, whisper to 4 + 4 layers), batch
+# 2. The f32 band: each block differs between the devices by ~1e-6 of its
+# scale (sums in another order); a wrong mask, cache or gate moves the
+# logits by the order of their scale.
+CROSS_E2E_DEPTH = {"vlm": {"n_layers": 5}, "encdec": {"n_enc_layers": 4, "n_layers": 4}}
+CROSS_E2E_BATCH, CROSS_F32_TOL = 2, 1e-3
+# card against CPU in training: one layer of each kind at full width, 2 x 64
+# tokens (the vision model's untied 4,096 x 128,256 head takes most of the
+# CPU's time)
+CROSS_TRAIN_E2E_SEQ = 64
+# the flash kernels at the shapes these paths give them, all non-causal:
+# (what, batch, Sq, Skv, H, KVH, D)
+CROSS_ATTN = (("vision cross", BATCH, PROMPT, 1600, 32, 8, 128),
+              ("whisper encoder", BATCH, 1500, 1500, 16, 16, 64),
+              ("whisper cross", BATCH, PROMPT, 1500, 16, 16, 64))
+
+
+def cross_train_cfg(arch):
+    """Phase 16's training config: the vision model cut to one group,
+    whisper whole."""
+    cfg = get_config(arch)
+    return cut_depth(cfg, VLM_TRAIN_LAYERS) if cfg.family == "vlm" else cfg
+
+
+def cross_opt_cfg(cfg) -> OptConfig:
+    """AdamW as the earlier training paths run it (20 warmup steps of 30),
+    at VLM_TRAIN_LR for the vision model and 1e-3 for whisper."""
+    return OptConfig(lr=VLM_TRAIN_LR if cfg.family == "vlm" else 1e-3, warmup_steps=20,
+                     total_steps=TRAIN_STEPS)
+
+
+def train_inputs(cfg, batch: int, seed: int) -> dict:
+    """A train batch's image embeddings or encoder frames: standard normals
+    drawn on the card from ``seed`` in the compute dtype (as serving draws
+    them on the host; 8 x 1,600 x 4,096 values a step would cost the host
+    ~0.4 s)."""
+    name, length = MODEL_INPUTS[cfg.family]
+    x = torch.randn(batch, getattr(cfg, length), cfg.d_model, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(seed))
+    return {name: x.to(getattr(torch, cfg.compute_dtype))}
+
+
+def cross_train_launches(cfg) -> dict:
+    """Launches of one train step with remat on the vision or whisper
+    path: each projection's GEMM in the forward, again in a checkpointed
+    layer's recompute (the vision self-attention layers; each whisper
+    decoder layer with its cross k and v; not the vision cross layers, the
+    encoder or the unembedding: the reference checkpoints the same), its
+    dB, and its dA unless A needs no gradient (a vision cross layer's k
+    and v read the image embeddings); a flash forward per attention, again
+    in a recompute, and one flash backward per attention."""
+    out = dict.fromkeys(KERNELS, 0)
+    if cfg.family == "vlm":
+        n_groups, n_self = decoder._vlm_groups(cfg)
+        n = n_groups * n_self
+        fwd = 7 * n + 7 * n_groups + 1
+        out.update(dos_matmul=fwd + 7 * n + fwd + fwd - 2 * n_groups,
+                   flash_attention=2 * n + n_groups, flash_attention_bwd=n + n_groups)
+    else:
+        n_enc, n_dec = cfg.n_enc_layers, cfg.n_layers
+        fwd = 6 * n_enc + 10 * n_dec + 1
+        out.update(dos_matmul=fwd + 10 * n_dec + 2 * fwd, flash_attention=n_enc + 4 * n_dec,
+                   flash_attention_bwd=n_enc + 2 * n_dec)
+    return out
+
+
+def cross_train_variants(cfg) -> dict:
+    """A phase-16 train step's launches by kernel and variant: every GEMM
+    ``wgmma`` but the dA and dB of an unembedding whose vocab is no
+    multiple of 8 (whisper's tied 51,865 rows: K of dA and ldb of dB are
+    no TMA row, so ``general``), every attention ``mma``."""
+    total = cross_train_launches(cfg)
+    out = {k: dict.fromkeys(fn.variants, 0) for k, fn in KERNELS.items()}
+    general = 2 if cfg.vocab % 8 else 0
+    out["dos_matmul"].update(wgmma=total["dos_matmul"] - general, general=general)
+    for k in ("flash_attention", "flash_attention_bwd"):
+        out[k]["mma"] = total[k]
+    return out
+
+
+def phase_train_cross(arch):
+    """Phase 16's training main paths: ``make_train_step`` (the route the
+    reference trains these families by: its ``train_loop`` feeds no image
+    embeddings or frames) on the vision model cut to one group or on
+    whisper at full size, bf16 compute on f32 masters, 8 x 512 tokens of
+    ``SyntheticLM`` (seed 0) with each step's image embeddings or frames
+    drawn on the card from the step, AdamW (``cross_opt_cfg``), remat, 30
+    steps, with the launch counts set to 0 just before and read just
+    after: every loss finite and falling, the launches per step exact by
+    kernel and variant, step p50/p99 (host clock from the batch's
+    transfer to a synchronize, as ``train_loop`` times a step), tokens/s,
+    peak memory. Returns the counts, the trained state and the step p50."""
+    cfg = cross_train_cfg(arch)
+    model = build(cfg, "cuda")
+    step_fn = make_train_step(model, cross_opt_cfg(cfg), remat=True)
+    data = SyntheticLM(DataConfig(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=0))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator().manual_seed(0))
+    opt = init_opt_state(params)
+    init_s = time.perf_counter() - t0
+    reset_launch_counts()
+    times, losses = [], []
+    t0 = time.perf_counter()
+    for step in range(TRAIN_STEPS):
+        ts = time.perf_counter()
+        batch = {k: torch.from_numpy(x).to("cuda") for k, x in data.batch(step).items()}
+        batch.update(train_inputs(cfg, TRAIN_BATCH, step))
+        params, opt, loss = step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - ts)
+        losses.append(float(loss))
+    wall = time.perf_counter() - t0
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    variants = {k: dict(fn.variants) for k, fn in KERNELS.items()}
+    steps = sorted(times)
+    p50, p99 = steps[len(steps) // 2], steps[min(len(steps) - 1, int(0.99 * len(steps)))]
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / p50
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    print(f"[cross] train {cfg.name} ({model.n_params:,} parameters, {cfg.n_layers} layers"
+          + (f" + {cfg.n_enc_layers} encoder layers" if cfg.family == "encdec" else "")
+          + f", {cfg.compute_dtype} on {cfg.param_dtype} masters, remat) batch {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} tokens, init {init_s:.2f} s, {TRAIN_STEPS} steps in {wall:.2f} s: step "
+          f"p50 {p50*1e3:.3f} ms, p99 {p99*1e3:.3f} ms (first {times[0]*1e3:.1f} ms), "
+          f"{tok_s:,.0f} tokens/s at p50, peak memory {peak / 2**20:.1f} MiB ({base / 2**20:.1f} "
+          "MiB before)", flush=True)
+    print(f"[cross] losses: {' '.join(f'{x:.4f}' for x in losses)}", flush=True)
+    print(f"[cross] launches {counts}; by variant {variants}", flush=True)
+    check(all(math.isfinite(x) for x in losses), f"{arch}: a training loss is not finite")
+    check(last < first and losses[-1] < losses[0],
+          f"{arch}: the loss did not fall: {losses[0]:.4f} -> {losses[-1]:.4f} (means of 5: "
+          f"{first:.4f} -> {last:.4f})")
+    want = {k: n * TRAIN_STEPS for k, n in cross_train_launches(cfg).items()}
+    check(counts == want, f"{arch}: train launches {counts}, expected {want}")
+    want_v = {k: {v: n * TRAIN_STEPS for v, n in c.items()}
+              for k, c in cross_train_variants(cfg).items()}
+    check(variants == want_v, f"{arch}: train launches by variant {variants}, expected {want_v}")
+    RESULTS["main_paths"][f"train {arch}"] = {
+        "n_layers": cfg.n_layers, "n_params": model.n_params, "init_s": init_s,
+        "steps": TRAIN_STEPS, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "wall_s": wall,
+        "step_s": times, "step_p50_s": p50, "step_p99_s": p99, "tok_s_p50": tok_s,
+        "losses": losses, "peak_mem_bytes": peak, "mem_before_bytes": base, "launches": counts,
+        "variants": variants}
+    return counts, {"params": params, "opt": opt}, p50
+
+
+def phase_train_cross_profile(arch, state, step_p50_s):
+    """On phase 16's trained state and the next batch: microbatches=2
+    against 1 (the loss, and the gradients a step updates with, leaf by
+    leaf, within the bf16 band of the leaf's max|g|), then one train step
+    under torch.profiler (device busy, idle share, kernels, plain ops; the
+    step updates the state in place)."""
+    cfg = cross_train_cfg(arch)
+    model = build(cfg, "cuda")
+    data = SyntheticLM(DataConfig(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=0))
+    batch = {k: torch.from_numpy(x).to("cuda") for k, x in data.batch(TRAIN_STEPS).items()}
+    batch.update(train_inputs(cfg, TRAIN_BATCH, TRAIN_STEPS))
+    params = state["params"]
+    l1, g1 = loss_and_grads(model, params, batch, True)
+    l2, g2 = accumulate_grads(model, params, batch, True, 2)
+    loss_rel = abs(float(l2) - float(l1)) / abs(float(l1))
+    worst, worst_leaf = 0.0, None
+    flat2 = dict(leaves(g2))
+    for path, want in leaves(g1):
+        r = ((flat2[path].float() - want.float()).abs().max()
+             / want.abs().max().clamp_min(1e-30)).item()
+        if r > worst:
+            worst, worst_leaf = r, ".".join(map(str, path))
+    del g1, g2, flat2
+    print(f"[cross] {arch} microbatches 2 against 1: loss {float(l2):.6f} vs {float(l1):.6f} "
+          f"(relative {loss_rel:.3g}); worst accumulated gradient {worst_leaf} at {worst:.3g} "
+          f"of its max|g| (band {E2E_TOL})", flush=True)
+    check(loss_rel <= E2E_TOL, f"{arch}: the microbatches=2 loss differs by {loss_rel:.3g}")
+    check(worst <= E2E_TOL, f"{arch}: the microbatches=2 gradient {worst_leaf} differs by "
+          f"{worst:.3g} of its scale")
+    step = make_train_step(model, cross_opt_cfg(cfg), remat=True)
+    out = {"microbatch_loss_rel": loss_rel, "microbatch_worst_grad_rel": worst,
+           "microbatch_worst_leaf": worst_leaf}
+    out.update(_profile_train_step(
+        lambda: step(params, state["opt"], batch), step_p50_s, f"{arch} train step",
+        {"dos_matmul": "dos_matmul", "flash_attention": "flash_mma",
+         "flash_attention_bwd": "flash_bwd"}))
+    RESULTS["profile"][f"train {arch}"] = out
+
+
+def phase_cross_kernels() -> dict:
+    """Both flash kernels at the shapes phase 16's paths give them
+    (CROSS_ATTN, non-causal, Skv no multiple of a 128 tile) against their
+    plain versions, bf16 (``mma``; timed beside the plain version, SDPA
+    and the bound) and f32 (``fma``), each at check_flash's and
+    check_flash_bwd's gates, the variant counted exactly. Returns the
+    largest error against the plain version of each kernel."""
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    rows, err = [], {"flash_attention": 0.0, "flash_attention_bwd": 0.0}
+    for what, b, sq, skv, h, kvh, d in CROSS_ATTN:
+        for dtype in (torch.bfloat16, torch.float32):
+            timed_ = dtype == torch.bfloat16
+            fwd = check_flash(gen, b, sq, skv, h, kvh, d, dtype, causal=False, time_it=timed_)
+            bwd = check_flash_bwd(gen, b, sq, skv, h, kvh, d, dtype, causal=False, time_it=timed_)
+            err["flash_attention"] = max(err["flash_attention"], fwd["max_abs_err"])
+            err["flash_attention_bwd"] = max(err["flash_attention_bwd"], bwd["max_abs_err"])
+            rows += [dict(fwd, path=what, kernel="flash_attention"),
+                     dict(bwd, path=what, kernel="flash_attention_bwd")]
+    RESULTS["cross_kernels"] = rows
+    return err
+
+
+def phase_cross_e2e(arch):
+    """Card against CPU on the same weights (the vision gates opened):
+    block by block in bf16 (``phase_e2e_blocks``), end to end in f32 (the
+    prefill and E2E_DECODE_STEPS decode steps within CROSS_F32_TOL), the
+    CPU's own bf16 against f32 prefill logits printed beside them (the
+    model's sensitivity to rounding), and one decode step of the f32 model
+    on the card under ``set_sync_debug_mode("error")``: no device-to-host
+    sync inside a step."""
+    bf16_logits = timed(phase_e2e_blocks, arch)
+    (mg, params_g, cache, tok), f32_logits = timed(phase_e2e, arch, "float32", CROSS_F32_TOL)
+    sens = ((bf16_logits.float() - f32_logits).abs().max() / f32_logits.abs().max()).item()
+    before = dos_matmul.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        logits, _ = mg.decode(params_g, cache, {"token": tok})
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    check(dos_matmul.launches > before and bool(torch.isfinite(logits).all()),
+          f"{arch}: the decode step under sync debug mode launched nothing or is not finite")
+    print(f"[cross] {arch}: the CPU's own bf16 and f32 prefill logits differ by {sens:.3g} of "
+          "max|logits| (the cut model's sensitivity to rounding); a decode step on the card "
+          "under set_sync_debug_mode('error'): no device-to-host sync", flush=True)
+    RESULTS.setdefault("cross_cpu_bf16_vs_f32", {})[arch] = sens
+
+
+def phase_cross_train_e2e(arch):
+    """Card against CPU on the same f32 master weights (the vision gate
+    opened) and batch (2 x 64 tokens with their image embeddings or
+    frames), one layer of each kind at full width: the vision model as
+    one self-attention and one cross layer, whisper as one encoder and one
+    decoder layer. The loss and every gradient leaf, in f32 within
+    TRAIN_F32_TOL and in bf16 within E2E_TOL of the leaf's max|g|."""
+    cfg = get_config(arch)
+    depth = ({"n_layers": 2, "cross_every": 2} if cfg.family == "vlm"
+             else {"n_enc_layers": 1, "n_layers": 1})
+    out = {}
+    for dtype, tol in (("float32", TRAIN_F32_TOL), ("bfloat16", E2E_TOL)):
+        c = dataclasses.replace(cfg, compute_dtype=dtype, **depth)
+        mc, mg = build(c, "cpu"), build(c, "cuda")
+        params_c = _cpu_master(dataclasses.replace(c, compute_dtype="float32"))
+        params_g = map_tree(lambda t: t.to("cuda"), params_c)
+        data = SyntheticLM(DataConfig(c.vocab, CROSS_TRAIN_E2E_SEQ, CROSS_E2E_BATCH, seed=0))
+        batch = {k: torch.from_numpy(x) for k, x in data.batch(0).items()}
+        batch.update(model_inputs(c, CROSS_E2E_BATCH, 0))
+        lc, gc = loss_and_grads(mc, params_c, batch, True)
+        lg, gg = loss_and_grads(mg, params_g, {k: x.cuda() for k, x in batch.items()}, True)
+        loss_rel = abs(float(lg) - float(lc)) / abs(float(lc))
+        worst, worst_leaf = _grad_gap(gg, gc)
+        print(f"[cross] train, card vs CPU, {arch} one layer of each kind at full width, batch "
+              f"{CROSS_E2E_BATCH} x {CROSS_TRAIN_E2E_SEQ}, {dtype}: loss {float(lg):.6f} vs "
+              f"{float(lc):.6f} "
+              f"(relative {loss_rel:.3g}); worst gradient leaf {worst_leaf} at {worst:.3g} of "
+              f"its max|g| (band {tol})", flush=True)
+        check(loss_rel <= tol, f"{arch} {dtype}: the card's loss differs by {loss_rel:.3g}")
+        check(worst <= tol, f"{arch} {dtype}: gradient {worst_leaf} differs by {worst:.3g}")
+        out[dtype] = {"loss_rel": loss_rel, "worst_grad_rel": worst, "worst_leaf": worst_leaf}
+    RESULTS.setdefault("cross_train_e2e", {})[arch] = out
+
+
+def phase_cross_cli():
+    """``python -m repro_torch.launch.serve --arch whisper-medium
+    --prompt-len 128 --json`` (full size) and ``--arch llama-3.2-vision-11b
+    --smoke`` (reduced: the full model's host draws alone take over a
+    minute, and its full-size run is the serving main path's
+    ``serve_loop``), in subprocesses started together: each exits 0 on
+    the card with the launches per prefill and decode exact."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    runs = {WHISPER: ["--prompt-len", str(PROMPT)], VLM: ["--smoke"]}
+    t0 = time.perf_counter()
+    procs = {arch: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch, *extra, "--json"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT)
+        for arch, extra in runs.items()}
+    for arch, proc in procs.items():
+        stdout, stderr = proc.communicate(timeout=600)
+        wall = time.perf_counter() - t0
+        check(proc.returncode == 0, f"the {arch} serve CLI exited {proc.returncode}: "
+              f"{stderr[-2000:]}")
+        out = json.loads(stdout)
+        cfg = get_config(arch) if arch == WHISPER else reduced(get_config(arch))
+        want = expected_launches(cfg, out["gen_tokens"])
+        check(out["device"]["platform"] == "gpu" and out["launches"] == want,
+              f"the {arch} serve CLI's summary is wrong: {out['device']}, {out['launches']} "
+              f"(expected {want})")
+        print(f"[cross] python -m repro_torch.launch.serve --arch {arch} {' '.join(runs[arch])}: "
+              f"exit 0 within {wall:.1f} s; prefill {out['prefill_s']*1e3:.2f} ms, decode "
+              f"{out['decode_tok_s']:.1f} tok/s, launches {out['launches']}", flush=True)
+        RESULTS.setdefault("cross_cli", {})[arch] = {k: out[k] for k in (
+            "prefill_s", "decode_tok_s", "step_p50_s", "launches")}
+
+
+# ---------------------------------------------------------------------------
 
 
 def timed(phase, *args):
@@ -4015,8 +4440,9 @@ def main(argv=None) -> int:
                 json.dump(RESULTS, f, indent=1)
         return 0
     counts, step_p50_s = {}, {}
-    # first, so nothing else holds memory; XLSTM: phase 14's, MOE: phase 15's
-    for arch in PATHS + (XLSTM, MOE):
+    # first, so nothing else holds memory; XLSTM: phase 14's, MOE: phase 15's, VLM and
+    # WHISPER: phase 16's
+    for arch in PATHS + (XLSTM, MOE, VLM, WHISPER):
         counts[arch], step_p50_s[arch] = timed(phase_main_path, arch)
     counts["train"], train_state, train_p50 = timed(phase_train_path)  # phase 12's main path
     counts[f"train {HYBRID}"], hybrid_state, hybrid_p50 = timed(phase_train_path,
@@ -4033,6 +4459,11 @@ def main(argv=None) -> int:
     timed(phase_train_moe_profile, moe_state, moe_p50)
     del moe_state
     torch.cuda.empty_cache()
+    for arch in (VLM, WHISPER):  # phase 16's
+        counts[f"train {arch}"], cross_state, cross_p50 = timed(phase_train_cross, arch)
+        timed(phase_train_cross_profile, arch, cross_state, cross_p50)
+        del cross_state
+        torch.cuda.empty_cache()
     launched = {k for c in counts.values() for k, n in c.items() if n > 0}
     check(launched == set(KERNELS), f"kernels no main path launched: {set(KERNELS) - launched}")
     totals, main_err = timed(phase_kernels)
@@ -4045,7 +4476,7 @@ def main(argv=None) -> int:
     print(f"[e2e] {HYBRID} ({HYBRID_E2E_LAYERS} layers): the CPU's own bf16 and f32 prefill "
           f"logits differ by {sens:.3g} of max|logits| (the model's sensitivity to rounding)")
     RESULTS["hybrid_cpu_bf16_vs_f32"] = sens
-    timed(phase_profile, HYBRID, *full_depth_decode_state(HYBRID), step_p50_s[HYBRID])
+    timed(phase_profile, HYBRID, *serve_decode_state(HYBRID), step_p50_s[HYBRID])
     counts["calibration"], cal_err = timed(phase_calibration)
     check(all(counts["calibration"][k] > 0 for k in ("dos_matmul", "flash_attention", "ssm_scan")),
           f"a kernel calibration never launched: {counts['calibration']}")
@@ -4066,18 +4497,26 @@ def main(argv=None) -> int:
     timed(phase_train_hybrid_cli)
     timed(phase_train_hybrid_gemms)
     timed(phase_profile_prefill, XLSTM)  # phase 14 from here
-    timed(phase_profile, XLSTM, *full_depth_decode_state(XLSTM), step_p50_s[XLSTM])
+    timed(phase_profile, XLSTM, *serve_decode_state(XLSTM), step_p50_s[XLSTM])
     xlstm_rows, xlstm_err = timed(phase_xlstm_kernels)
     timed(phase_xlstm_e2e)
     timed(phase_e2e_blocks, XLSTM)
     timed(phase_xlstm_cli)
     timed(phase_profile_prefill, MOE)  # phase 15 from here
-    timed(phase_profile, MOE, *full_depth_decode_state(MOE), step_p50_s[MOE])
+    timed(phase_profile, MOE, *serve_decode_state(MOE), step_p50_s[MOE])
     moe_rows, moe_err = timed(phase_moe_kernels)
     timed(phase_moe_e2e)
     timed(phase_moe_train_e2e)
     timed(phase_moe_restart)
     timed(phase_moe_cli)
+    for arch in (VLM, WHISPER):  # phase 16 from here
+        timed(phase_profile_prefill, arch)
+        timed(phase_profile, arch, *serve_decode_state(arch), step_p50_s[arch])
+    cross_err = timed(phase_cross_kernels)
+    for arch in (VLM, WHISPER):
+        timed(phase_cross_e2e, arch)
+        timed(phase_cross_train_e2e, arch)
+    timed(phase_cross_cli)
 
     replaces = {
         "dos_matmul": ("src/repro_torch/kernels/csrc/dos_matmul.cu",
@@ -4094,7 +4533,8 @@ def main(argv=None) -> int:
         kernels.append({
             "name": kname, "route": "cuda", "source": source, "replaces": repl,
             "launches": sum(c[kname] for c in counts.values()),
-            "max_abs_err": max(main_err[kname], cal_err[kname], xlstm_err.get(kname, 0.0)),
+            "max_abs_err": max(main_err[kname], cal_err[kname], xlstm_err.get(kname, 0.0),
+                               cross_err.get(kname, 0.0)),
             "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
             "bound_by": "bytes" if by_bytes else "operations",
             "library_ms": tot["library_ms"],
@@ -4106,7 +4546,7 @@ def main(argv=None) -> int:
         "replaces": "src/repro/kernels/flash_attention/chunked.py:112 (_bwd_rule; a jnp custom "
                     "VJP, not a Pallas kernel)",
         "launches": sum(c["flash_attention_bwd"] for c in counts.values()),
-        "max_abs_err": bwd_err,
+        "max_abs_err": max(bwd_err, cross_err["flash_attention_bwd"]),
         **{k: n_layers * bwd_row[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
         "bound_by": bwd_row["bound_by"],
     })
@@ -4174,10 +4614,11 @@ def main(argv=None) -> int:
         os.makedirs(os.path.dirname(os.path.abspath(details)), exist_ok=True)
         with open(details, "w") as f:
             json.dump(RESULTS, f, indent=1)
-    print(f"[done] {RESULTS['wall_s']:.1f} s; the kernels' launches sum the eight main paths' "
-          "runs (serving and training smollm-135m, zamba2-2.7b, xlstm-125m and "
-          "deepseek-moe-16b), phase 7's calibration and the front door's calibrate Study; "
-          "max_abs_err is the largest of phase 4's, 7's, 12's, 13's, 14's and 15's checks; ms, "
+    print(f"[done] {RESULTS['wall_s']:.1f} s; the kernels' launches sum the twelve main paths' "
+          "runs (serving and training smollm-135m, zamba2-2.7b, xlstm-125m, deepseek-moe-16b, "
+          "llama-3.2-vision-11b and whisper-medium), phase 7's calibration and the front door's "
+          "calibrate Study; max_abs_err is the largest of phase 4's, 7's and 12's to 16's "
+          "checks; ms, "
           "plain_ms, library_ms and bound_ms sum the calls of one prefill plus one decode step "
           "of both phase-3 serving paths (dos_matmul, flash_attention, ssm_scan), of xlstm-125m "
           "(slstm_scan) or of deepseek-moe-16b (grouped_matmul), for flash_attention_bwd the "

@@ -3,9 +3,7 @@
 ``get_config(name)`` returns the full ArchConfig; ``reduced(cfg)``
 (from repro_torch.config) gives the smoke-test sizing. The configs are
 copies of the JAX package's, so the Study front door and the network
-lowering see the same zoo. Building a model of a family whose decoder
-branch is not ported yet raises in ``models.decoder`` (naming its
-ROADMAP item); its config, lowering and DSE studies work here.
+lowering see the same zoo. ``models.build`` builds every one of them.
 """
 
 from __future__ import annotations

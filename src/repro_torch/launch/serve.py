@@ -1,10 +1,12 @@
 """Serving launcher: batched prefill + greedy decode loop.
 
-Serves the dense, MoE (deepseek-moe, llama4-scout), hybrid (zamba2) and
-SSM (xLSTM) families; the others raise, naming their ROADMAP item.
-Measures prefill latency, aggregate decode throughput and per-step
-decode latency percentiles, with each step ended by a device
-synchronize, so the times are device work and not enqueue time. It also
+Serves every family of the zoo: dense, MoE (deepseek-moe, llama4-scout),
+vision cross-attention (llama-3.2-vision: the prefill also takes image
+embeddings), hybrid (zamba2), SSM (xLSTM) and encoder-decoder (whisper:
+the prefill also takes encoder frames). Measures prefill latency,
+aggregate decode throughput and per-step decode latency percentiles,
+with each step ended by a device synchronize, so the times are device
+work and not enqueue time. It also
 records how many times each CUDA kernel launched in prefill and in
 decode. ``--json`` prints the machine-readable summary with the JAX
 package's keys, plus the device the run used.
@@ -13,6 +15,8 @@ package's keys, plus the device the run used.
     python -m repro_torch.launch.serve --arch zamba2-2.7b --json
     python -m repro_torch.launch.serve --arch xlstm-125m --json
     python -m repro_torch.launch.serve --arch deepseek-moe-16b --json
+    python -m repro_torch.launch.serve --arch llama-3.2-vision-11b --prompt-len 128 --json
+    python -m repro_torch.launch.serve --arch whisper-medium --prompt-len 128 --json
     python -m repro_torch.launch.serve --smoke --device cpu
 """
 
@@ -29,9 +33,10 @@ from .._device import device_info, resolve_device
 from ..configs import get_config, reduced
 from ..kernels import launch_counts
 from ..models import build
+from ..models.zoo import MODEL_INPUTS
 from .steps import make_prefill_step, make_serve_step
 
-__all__ = ["serve_loop", "generate"]
+__all__ = ["serve_loop", "generate", "model_inputs"]
 
 
 def _sync(device: torch.device):
@@ -43,20 +48,36 @@ def _delta(after: dict, before: dict) -> dict:
     return {k: after[k] - before[k] for k in after}
 
 
-def generate(model, params, prompts, gen_tokens: int):
+def model_inputs(cfg, batch: int, seed: int) -> dict:
+    """The prefill's input beside the prompts: ``image_embeds`` (B,
+    n_image_tokens, E) for the vision model, ``enc_frames`` (B, enc_seq, E)
+    for the encoder-decoder, none for the other families. Standard normals
+    drawn on the CPU from ``seed + 2`` and cast to the compute dtype, as
+    the reference's serve loop draws them in it."""
+    if cfg.family not in MODEL_INPUTS:
+        return {}
+    name, length = MODEL_INPUTS[cfg.family]
+    x = torch.randn((batch, getattr(cfg, length), cfg.d_model),
+                    generator=torch.Generator().manual_seed(seed + 2))
+    return {name: x.to(getattr(torch, cfg.compute_dtype))}
+
+
+def generate(model, params, prompts, gen_tokens: int, inputs=None):
     """Greedy prefill-then-decode of ``prompts`` (B, S); the first token
-    comes from the prefill logits. Returns the tokens (B, gen_tokens),
-    the timings and the kernel launches of each phase."""
+    comes from the prefill logits. ``inputs`` (``model_inputs``) go to the
+    prefill only: the decode steps read what it made of them from the
+    cache. Returns the tokens (B, gen_tokens), the timings and the kernel
+    launches of each phase."""
     dev = model.device
     batch, prompt_len = prompts.shape
     prefill = make_prefill_step(model, max_len=prompt_len + gen_tokens)
     decode = make_serve_step(model)
-    prompts = prompts.to(dev)
+    pf_batch = {"tokens": prompts.to(dev), **{k: t.to(dev) for k, t in (inputs or {}).items()}}
 
     c0 = launch_counts()
     _sync(dev)
     t0 = time.perf_counter()
-    logits, cache = prefill(params, {"tokens": prompts})
+    logits, cache = prefill(params, pf_batch)
     tok = logits[:, -1:].argmax(dim=-1)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
@@ -110,7 +131,8 @@ def serve_loop(
     weights are formed a leaf at a time (``Model.init_compute``), so the
     card holds them in the compute dtype only (deepseek-moe-16b: 33.8 GB
     of bf16, where the f32 tree alone is 67.5 GB); drawing its 16.9 B
-    values on the host takes minutes."""
+    values on the host takes minutes. The vision and encoder-decoder
+    prefills also take ``model_inputs`` (drawn after ``init_s``)."""
     dev = resolve_device(device)
     if tuple(mesh_shape) != (1, 1):
         raise NotImplementedError(
@@ -127,7 +149,7 @@ def serve_loop(
     init_s = time.perf_counter() - t0
     prompts = torch.randint(0, cfg.vocab, (batch, prompt_len),
                             generator=torch.Generator().manual_seed(seed + 1))
-    out = generate(model, params, prompts, gen_tokens)
+    out = generate(model, params, prompts, gen_tokens, model_inputs(cfg, batch, seed))
     out["init_s"] = init_s
     out["device"] = device_info(dev)
     return out

@@ -22,11 +22,16 @@ synchronize, so the watchdog's step times are the device's.
 Runs on the card unless ``device="cpu"``; raises without one. One device
 only: a ``mesh_shape`` other than (1, 1), or a ``strategy`` other than
 ``"dos"``, is ROADMAP queue 1 item 10. The dense, MoE, hybrid and SSM
-(xLSTM) families train; the VLM and encoder-decoder families wait for
-item 9. ``--layers N`` cuts the config's depth to N layers at full
-width: deepseek-moe-16b's f32 masters, gradients and AdamW moments take
-16 bytes a parameter (270 GB at full depth), so one card trains it at 4
-layers. The step donates the state it is given, as the
+(xLSTM) families train here. The vision (vlm) and encoder-decoder
+(encdec) families raise (``check_trainable``): the loop feeds
+``SyntheticLM``'s tokens and labels only, as the reference's does, and
+the reference's loop fails on them too; they train through
+``launch.steps.make_train_step`` with ``image_embeds`` / ``enc_frames``
+in the batch. ``--layers N`` cuts the config's depth to N layers at full
+width (``cut_depth``; a vision model keeps whole groups of
+``cross_every`` layers): deepseek-moe-16b's f32 masters, gradients and
+AdamW moments take 16 bytes a parameter (270 GB at full depth), so one
+card trains it at 4 layers. The step donates the state it is given, as the
 reference's jitted step does (``donate_argnums``): AdamW writes the new
 parameters and moments into the old ones' memory, so a step holds
 params, moments and gradients once each (zamba2-2.7b: ~39 GB in f32,
@@ -49,17 +54,40 @@ from ..configs import get_config, reduced
 from ..data import DataConfig, SyntheticLM
 from ..kernels import launch_counts
 from ..models import build
-from ..models.decoder import check_trainable
+from ..models.zoo import MODEL_INPUTS
 from ..optim import OptConfig, init_opt_state
 from ..runtime import FaultInjector, StragglerWatchdog, elastic_restore, run_with_restarts
 from .steps import make_train_step
 
-__all__ = ["train_loop", "main"]
+__all__ = ["check_trainable", "cut_depth", "train_loop", "main"]
 
 
 def _sync(device: torch.device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def check_trainable(cfg):
+    """Raise unless ``train_loop`` can train ``cfg``. It feeds tokens and
+    labels only, as the reference's ``train_loop`` does; the vision and
+    encoder-decoder models need image embeddings or encoder frames too."""
+    if cfg.family in MODEL_INPUTS:
+        extra = MODEL_INPUTS[cfg.family][0]
+        raise NotImplementedError(
+            f"train_loop feeds tokens and labels only, as the reference's train_loop does, "
+            f"and family {cfg.family!r} ({cfg.name}) also needs {extra!r}: train it through "
+            f"launch.steps.make_train_step with {extra!r} in the batch"
+        )
+
+
+def cut_depth(cfg, n_layers: int):
+    """``cfg`` at full width with its depth cut to ``n_layers``. A vision
+    model keeps whole groups (``cross_every - 1`` self layers and one
+    cross layer), so ``n_layers`` must be a multiple of ``cross_every``."""
+    if cfg.family == "vlm" and n_layers % cfg.cross_every:
+        raise ValueError(f"{cfg.name}: {n_layers} layers is not a multiple of cross_every "
+                         f"{cfg.cross_every}")
+    return dataclasses.replace(cfg, n_layers=n_layers)
 
 
 def train_loop(
@@ -161,7 +189,7 @@ def main(argv=None):
     if args.smoke:
         cfg = reduced(cfg)
     if args.layers:
-        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+        cfg = cut_depth(cfg, args.layers)
     dev = resolve_device(args.device)
     c0 = launch_counts()
     t0 = time.time()

@@ -1,4 +1,5 @@
-"""Model zoo of the port: the dense, hybrid (Mamba2) and SSM (xLSTM) decoders."""
+"""Model zoo of the port: the decoders (dense, MoE, vision cross-attention, hybrid
+Mamba2, SSM xLSTM) and the encoder-decoder (whisper)."""
 
 from .zoo import Model, build
 

@@ -1,23 +1,28 @@
 """Decoder LM: the dense branch (llama/smollm/qwen and gemma3's
 local:global; with ``family="moe"`` each layer's MLP is a
-Mixture-of-Experts FFN: deepseek-moe, llama4-scout), the hybrid branch
-(zamba2: groups of Mamba2 layers, each group followed by one
-weight-shared attention+MLP block) and the ``ssm`` branch (xLSTM: a list
-of mLSTM and sLSTM blocks, each behind its own rmsnorm ``ln``, with no
-MLP).
+Mixture-of-Experts FFN: deepseek-moe, llama4-scout), the ``vlm`` branch
+(llama-3.2-vision: groups of ``cross_every - 1`` self-attention layers,
+each group followed by a gated cross-attention layer over the image
+embeddings), the hybrid branch (zamba2: groups of Mamba2 layers, each
+group followed by one weight-shared attention+MLP block) and the ``ssm``
+branch (xLSTM: a list of mLSTM and sLSTM blocks, each behind its own
+rmsnorm ``ln``, with no MLP). The encoder-decoder family is
+``models/encdec.py``.
 
 The reference scans stacked layer trees with ``lax.scan`` and carries
 each layer's window and rope theta as scanned arrays. The port keeps the
-stacked parameter layout (``layers.wq`` is (L, E, H*hd); the hybrid's
-``layers.wx`` is (n_groups, period, E, Di), and so on) but runs the
-layers in a Python loop, so each layer's window and theta are Python
-numbers: the window reaches the flash kernel as a launch argument. The
-other families raise ``NotImplementedError`` naming their ROADMAP item.
+stacked parameter layout (``layers.wq`` is (L, E, H*hd); the vision
+model's ``layers.attn.wq`` is (n_groups, n_self, E, H*hd) and its
+``cross_layers`` are stacked (n_groups); the hybrid's ``layers.wx`` is
+(n_groups, period, E, Di), and so on) but runs the layers in a Python
+loop, so each layer's window and theta are Python numbers: the window
+reaches the flash kernel as a launch argument.
 
 Modes: ``train`` (whole sequence, loss-ready logits, no cache; ``remat``
-recomputes each dense layer, or each of the hybrid's Mamba2 layers, in
-the backward), ``prefill`` (whole prompt; returns the cache) and
-``decode`` (one token; the cache advances in place).
+recomputes each dense or vision self-attention layer, or each of the
+hybrid's Mamba2 layers, in the backward), ``prefill`` (whole prompt;
+returns the cache) and ``decode`` (one token; the cache advances in
+place).
 """
 
 from __future__ import annotations
@@ -28,38 +33,24 @@ from torch.utils.checkpoint import checkpoint
 
 from ..config import ArchConfig
 from .layers import (
-    attention, attn_defs, embed_defs, embed_tokens, mlp, mlp_defs, rmsnorm,
+    attention, attn_defs, compute_cross_kv, embed_defs, embed_tokens, mlp, mlp_defs, rmsnorm,
     rmsnorm_def, unembed,
 )
 from .moe import moe_block, moe_defs
-from .params import compute_cast, map_tree, stack_defs
+from .params import ParamDef, compute_cast, map_tree, stack_defs
 from .ssm import mamba_block, mamba_defs, mamba_init_state
 from .xlstm import (
     mlstm_block, mlstm_defs, mlstm_init_state, slstm_block, slstm_defs, slstm_init_state,
 )
 
-__all__ = ["check_trainable", "decoder_defs", "decoder_forward", "init_cache", "layer_metadata"]
+__all__ = ["decoder_defs", "decoder_forward", "init_cache", "layer_metadata", "pad_kv"]
 
 _GLOBAL_WINDOW = 2**30  # "window" larger than any sequence = global attn
 
-_NOT_PORTED = {
-    "vlm": "ROADMAP queue 1 item 9",
-    "encdec": "ROADMAP queue 1 item 9",
-}
-
 
 def _check_family(cfg: ArchConfig):
-    if cfg.family not in ("dense", "moe", "hybrid", "ssm"):
-        where = _NOT_PORTED.get(cfg.family, "no ROADMAP item")
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) is not ported to repro_torch: {where}"
-        )
-
-
-def check_trainable(cfg: ArchConfig):
-    """Raise unless the port can train ``cfg``: the dense, MoE, hybrid and
-    ssm (xLSTM) families."""
-    _check_family(cfg)
+    if cfg.family not in ("dense", "moe", "vlm", "hybrid", "ssm"):
+        raise ValueError(f"decoder does not handle family {cfg.family!r} ({cfg.name})")
 
 
 def _block_defs(cfg: ArchConfig):
@@ -74,6 +65,12 @@ def _block_defs(cfg: ArchConfig):
 def _groups(cfg: ArchConfig):
     """Hybrid layout: (n_groups, period) Mamba2 layers."""
     return cfg.n_layers // cfg.attn_every, cfg.attn_every
+
+
+def _vlm_groups(cfg: ArchConfig):
+    """Vision layout: (n_groups, n_self) self-attention layers, each group
+    followed by one cross layer."""
+    return cfg.n_layers // cfg.cross_every, cfg.cross_every - 1
 
 
 def decoder_defs(cfg: ArchConfig):
@@ -91,6 +88,17 @@ def decoder_defs(cfg: ArchConfig):
         ]
         for blk in defs["blocks"]:
             blk["ln"] = rmsnorm_def(cfg.d_model)
+    elif cfg.family == "vlm":
+        n_groups, n_self = _vlm_groups(cfg)
+        defs["layers"] = stack_defs(stack_defs(_block_defs(cfg), n_self), n_groups)
+        cross = {
+            "ln1": rmsnorm_def(cfg.d_model),
+            "attn": attn_defs(cfg),
+            "gate": ParamDef((1,), ("one",), init="zeros"),
+            "ln2": rmsnorm_def(cfg.d_model),
+            "ffn": mlp_defs(cfg),
+        }
+        defs["cross_layers"] = stack_defs(cross, n_groups)
     else:
         defs["layers"] = stack_defs(_block_defs(cfg), cfg.n_layers)
     return defs
@@ -117,8 +125,10 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16,
                device=None):
     """Decode-ready cache and one ``length`` for all layers (the
     reference keeps a copy per layer). Dense and MoE: stacked (L, B,
-    max_len, KVH, D) k/v buffers under ``layers``. Hybrid: the Mamba2 states
-    stacked (n_groups, period, ...) under ``mamba`` (``ssm`` in f32,
+    max_len, KVH, D) k/v buffers under ``layers``. Vision: the self
+    layers' (n_groups, n_self, B, max_len, KVH, D) under ``layers`` and the
+    cross layers' (n_groups, B, n_image_tokens, KVH, D) under ``cross``.
+    Hybrid: the Mamba2 states stacked (n_groups, period, ...) under ``mamba`` (``ssm`` in f32,
     ``conv`` in ``dtype``) and the shared block's (n_groups, B, max_len,
     KVH, D) k/v under ``attn``. xLSTM: each block's f32 state under
     ``blocks``, a list (mLSTM ``C`` (B, H, N, P) and ``n`` (B, H, N, 1);
@@ -131,13 +141,17 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16,
                            for i in range(cfg.n_layers)],
                 "length": 0}
 
-    def kv(n):
-        shape = (n, batch, max_len, cfg.n_kv_heads, cfg.head_dim_)
+    def kv(*lead, s=max_len):
+        shape = (*lead, batch, s, cfg.n_kv_heads, cfg.head_dim_)
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
 
     if cfg.family in ("dense", "moe"):
         return {"layers": kv(cfg.n_layers), "length": 0}
+    if cfg.family == "vlm":
+        n_groups, n_self = _vlm_groups(cfg)
+        return {"layers": kv(n_groups, n_self), "cross": kv(n_groups, s=cfg.n_image_tokens),
+                "length": 0}
     n_groups, period = _groups(cfg)
     m = mamba_init_state(cfg, batch, dtype, device)
     return {
@@ -147,11 +161,13 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16,
     }
 
 
-def _attn_mlp_block(lp, x, cfg, *, mode, cache, window, theta):
+def _attn_mlp_block(lp, x, cfg, *, mode, cache, window, theta, cross_kv=None):
     h, new_cache = attention(
         lp["attn"], rmsnorm(x, lp["ln1"], cfg.norm_eps), cfg,
-        mode=mode, cache=cache, window=window, theta=theta,
+        mode=mode, cache=cache, window=window, theta=theta, cross_kv=cross_kv,
     )
+    if "gate" in lp:  # gated cross-attention (llama-3.2-vision)
+        h = torch.tanh(lp["gate"].float()).to(h.dtype) * h
     x = x + h
     y = rmsnorm(x, lp["ln2"], cfg.norm_eps)
     ffn = moe_block(lp["ffn"], y, cfg) if "router" in lp["ffn"] else mlp(lp["ffn"], y)
@@ -206,6 +222,59 @@ def _dense_layers(params, x, cfg, *, mode, cache, remat=False):
     if mode == "decode":
         return x, {"layers": cache["layers"]}
     return x, {"layers": {"k": torch.stack(ks), "v": torch.stack(vs)}}
+
+
+def _vlm_layers(params, x, cfg, *, mode, cache, image_embeds, remat=False):
+    """Groups of ``n_self`` self-attention layers (each layer's window and
+    theta from ``layer_metadata`` over the n_groups * n_self self layers),
+    each group followed by its gated cross-attention layer. Train and
+    prefill project each cross layer's k, v from ``image_embeds`` (prefill
+    returns them under ``cross``); decode reads them from the cache and
+    writes the self layers' new k, v into it in place. ``remat``
+    recomputes the self layers in the backward, not the cross layers, as
+    in the reference."""
+    n_groups, n_self = _vlm_groups(cfg)
+    if mode != "decode" and image_embeds is None:
+        raise ValueError(f"{cfg.name}: {mode} needs image_embeds "
+                         f"(B, {cfg.n_image_tokens}, {cfg.d_model})")
+    wins, thetas = layer_metadata(cfg, n_groups * n_self)
+    # one unbind of each stacked leaf, as in _dense_layers
+    self_stack = map_tree(lambda a: a.flatten(0, 1).unbind(0), params["layers"])
+    cross_stack = map_tree(lambda a: a.unbind(0), params["cross_layers"])
+    ks, vs, cross_k, cross_v = [], [], [], []  # prefill: each layer's new k, v
+    for g in range(n_groups):
+        for i in range(n_self):
+            j = g * n_self + i
+            lp = map_tree(lambda a: a[j], self_stack)
+            if mode == "train":
+                x = _train_block(lp, x, cfg, window=wins[j], theta=thetas[j], remat=remat)
+                continue
+            cache_l = None
+            if mode == "decode":
+                cache_l = {"k": cache["layers"]["k"][g, i], "v": cache["layers"]["v"][g, i],
+                           "length": cache["length"]}
+            x, nc = _attn_mlp_block(lp, x, cfg, mode=mode, cache=cache_l, window=wins[j],
+                                    theta=thetas[j])
+            if mode == "prefill":
+                ks.append(nc["k"])
+                vs.append(nc["v"])
+        cp = map_tree(lambda a: a[g], cross_stack)
+        if mode == "decode":
+            ckv = (cache["cross"]["k"][g], cache["cross"]["v"][g])
+        else:
+            ckv = compute_cross_kv(cp["attn"], image_embeds, cfg)
+        x, _ = _attn_mlp_block(cp, x, cfg, mode=mode, cache=None, window=None, theta=None,
+                               cross_kv=ckv)
+        if mode == "prefill":
+            cross_k.append(ckv[0])
+            cross_v.append(ckv[1])
+    if mode == "train":
+        return x, None
+    if mode == "decode":
+        return x, {"layers": cache["layers"], "cross": cache["cross"]}
+    return x, {"layers": {"k": torch.stack(ks).unflatten(0, (n_groups, n_self)),
+                          "v": torch.stack(vs).unflatten(0, (n_groups, n_self))},
+               "cross": {"k": torch.stack(cross_k), "v": torch.stack(cross_v)}}
 
 
 def _train_mamba(lp, x, cfg, *, remat):
@@ -293,18 +362,20 @@ def _xlstm_blocks(params, x, cfg, *, mode, cache, remat=False):
 
 
 def decoder_forward(params, tokens, cfg: ArchConfig, *, mode: str, cache=None,
-                    max_len: int = 0, remat=False):
+                    image_embeds=None, max_len: int = 0, remat=False):
     """tokens (B, S) int -> (logits (B, S, V) f32, new cache); ``train``
     returns no cache, and ``remat`` (False, True or ``"save_gathered"``)
-    applies to it alone, as in the reference."""
-    if mode == "train":
-        check_trainable(cfg)
-    else:
-        _check_family(cfg)
+    applies to it alone, as in the reference. The vision model's train and
+    prefill take ``image_embeds`` (B, n_image_tokens, E)."""
+    _check_family(cfg)
     x = embed_tokens(params["embed"], tokens, getattr(torch, cfg.compute_dtype))
-    layers = {"hybrid": _hybrid_layers, "ssm": _xlstm_blocks}.get(cfg.family, _dense_layers)
-    x, new_cache = layers(params, x, cfg, mode=mode, cache=cache,
-                          remat=remat if mode == "train" else False)
+    remat = remat if mode == "train" else False
+    if cfg.family == "vlm":
+        x, new_cache = _vlm_layers(params, x, cfg, mode=mode, cache=cache,
+                                   image_embeds=image_embeds, remat=remat)
+    else:
+        layers = {"hybrid": _hybrid_layers, "ssm": _xlstm_blocks}.get(cfg.family, _dense_layers)
+        x, new_cache = layers(params, x, cfg, mode=mode, cache=cache, remat=remat)
 
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     logits = unembed(params["embed"], x, cfg.tie_embeddings)
@@ -315,20 +386,17 @@ def decoder_forward(params, tokens, cfg: ArchConfig, *, mode: str, cache=None,
         new_cache["length"] = cache["length"] + 1
         return logits, new_cache
     new_cache["length"] = tokens.shape[1]
-    if max_len:
-        new_cache = _pad_cache_tree(new_cache, max_len)
+    kv = "attn" if cfg.family == "hybrid" else "layers"  # the xLSTM's states have no k/v
+    if max_len and kv in new_cache:
+        new_cache[kv] = pad_kv(new_cache[kv], max_len)
     return logits, new_cache
 
 
-def _pad_cache_tree(cache, max_len):
-    """Pad the k/v buffers (dim -3 = seq; under ``layers`` or ``attn``)
-    up to max_len. A cache with no k/v (the xLSTM's states) is returned
-    as it is."""
-    kv = "attn" if "attn" in cache else "layers"
-    if kv not in cache:
-        return cache
-    s = cache[kv]["k"].shape[-3]
+def pad_kv(kv, max_len):
+    """A ``{"k", "v"}`` pair of buffers (dim -3 = seq) padded with zeros
+    up to ``max_len``."""
+    s = kv["k"].shape[-3]
     if s >= max_len:
-        return cache
+        return kv
     pad = (0, 0, 0, 0, 0, max_len - s)  # (D, KVH, S) from the last dim back
-    return {**cache, kv: {n: F.pad(t, pad) for n, t in cache[kv].items()}}
+    return {n: F.pad(t, pad) for n, t in kv.items()}

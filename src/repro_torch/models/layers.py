@@ -5,9 +5,14 @@ by ParamDef trees, as in the JAX package. Every GEMM goes through
 ``proj`` and so through the dOS matmul kernel on the card; prefill and
 training attention go through the flash kernel. All of them are
 differentiable: in training the GEMMs and attention run through the
-kernels' autograd Functions. The MoE family's expert FFN is
-``models/moe.py``; the cross-attention branch and the gelu MLP wait for
-the families that use them (vlm, encdec: ROADMAP queue 1 item 9).
+kernels' autograd Functions. ``attention`` is the reference's universal
+block: causal self-attention with or without rope (whisper's decoder
+passes ``theta=None``), bidirectional (``causal=False``, whisper's
+encoder) and cross-attention to keys and values that
+``compute_cross_kv`` projects once from an outside source (the vision
+model's image embeddings, whisper's encoder output). ``mlp`` is the
+gated-silu MLP or the plain 2-layer gelu one (whisper), as its tree's
+keys say. The MoE family's expert FFN is ``models/moe.py``.
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ from .params import ParamDef
 
 __all__ = [
     "proj", "rmsnorm", "rmsnorm_def", "rope", "embed_defs", "embed_tokens",
-    "unembed", "attn_defs", "attention", "mlp_defs", "mlp",
+    "unembed", "attn_defs", "compute_cross_kv", "attention", "mlp_defs", "mlp",
 ]
 
 
@@ -121,44 +126,74 @@ def attn_defs(cfg):
     return defs
 
 
-def attention(p, x, cfg, *, mode: str, window: int, theta: float, cache=None):
-    """Causal self-attention block. Returns (y, new_cache).
+def compute_cross_kv(p, kv_src, cfg):
+    """Project a cross-attention source (image embeddings, encoder
+    output) (B, Skv, E) to ``(k, v)``, each (B, Skv, KVH, D): once at
+    prefill, read from the cache by every decode step. ``proj`` casts the
+    weights to the source's dtype, as the reference's does."""
+    b, skv, _ = kv_src.shape
+    kvh, hd = cfg.n_kv_heads, cfg.head_dim_
+    k = proj(kv_src, p["wk"], p.get("bk")).reshape(b, skv, kvh, hd)
+    v = proj(kv_src, p["wv"], p.get("bv")).reshape(b, skv, kvh, hd)
+    return k, v
+
+
+def attention(p, x, cfg, *, mode: str, window=None, theta=None, cache=None, cross_kv=None,
+              causal: bool = True):
+    """The universal attention block. Returns (y, new_cache).
 
     ``mode`` is ``train`` (whole sequence, no cache: new_cache is None),
     ``prefill`` (whole prompt; the new cache holds its k, v) or
     ``decode`` (one token; ``cache`` is ``{"k", "v", "length"}`` with
     (B, S_max, KVH, D) buffers that this step writes slot ``length`` of
-    in place, where the reference returns an updated copy).
+    in place, where the reference returns an updated copy). ``theta``
+    None applies no rope. With ``cross_kv`` (k, v) the block attends to
+    them, every key visible (no mask, no window, no rope); q is normed if
+    ``cfg.qk_norm``, k is not, as in the reference; a cross block returns
+    no cache.
     """
     b, s, _ = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"mode {mode!r}: one of train, prefill, decode")
 
     q = proj(x, p["wq"], p.get("bq")).reshape(b, s, h, hd)
-    k = proj(x, p["wk"], p.get("bk")).reshape(b, s, kvh, hd)
-    v = proj(x, p["wv"], p.get("bv")).reshape(b, s, kvh, hd)
+    if cross_kv is None:
+        k = proj(x, p["wk"], p.get("bk")).reshape(b, s, kvh, hd)
+        v = proj(x, p["wv"], p.get("bv")).reshape(b, s, kvh, hd)
+    else:
+        k, v = cross_kv
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
-        k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+        if cross_kv is None:
+            k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
 
-    if mode == "decode":
+    new_cache = None
+    if cross_kv is not None:
+        if mode == "decode":
+            o = decode_attention(q, k, v, length=k.shape[1], window=None)
+        else:
+            o = flash_attention(q, k, v, causal=False, window=None)
+    elif mode == "decode":
         if cache is None or s != 1:
             raise ValueError("decode takes one token and a cache")
         length = cache["length"]
-        q = rope(q, length, theta)
-        k = rope(k, length, theta)
+        if theta is not None:
+            q = rope(q, length, theta)
+            k = rope(k, length, theta)
         kc, vc = cache["k"], cache["v"]
         kc[:, length] = k[:, 0].to(kc.dtype)
         vc[:, length] = v[:, 0].to(vc.dtype)
         o = decode_attention(q, kc, vc, length=length + 1, window=window)
         new_cache = {"k": kc, "v": vc, "length": length + 1}
-    elif mode in ("prefill", "train"):
-        positions = torch.arange(s, device=x.device)
-        q = rope(q, positions, theta)
-        k = rope(k, positions, theta)
-        o = flash_attention(q, k, v, causal=True, window=window)
-        new_cache = {"k": k, "v": v, "length": s} if mode == "prefill" else None
     else:
-        raise ValueError(f"mode {mode!r}: one of train, prefill, decode")
+        if theta is not None:
+            positions = torch.arange(s, device=x.device)
+            q = rope(q, positions, theta)
+            k = rope(k, positions, theta)
+        o = flash_attention(q, k, v, causal=causal, window=window)
+        if mode == "prefill":
+            new_cache = {"k": k, "v": v, "length": s}
 
     y = proj(o.reshape(b, s, h * hd), p["wo"])
     return y, new_cache
@@ -167,20 +202,31 @@ def attention(p, x, cfg, *, mode: str, window: int, theta: float, cache=None):
 # --- MLP -----------------------------------------------------------------------
 
 
-def mlp_defs(cfg):
-    if cfg.act != "silu":
-        raise NotImplementedError(
-            f"act {cfg.act!r}: the gelu MLP waits for its family (ROADMAP queue 1 item 9)"
-        )
-    e, f = cfg.d_model, cfg.d_ff
-    return {
-        "wi_gate": ParamDef((e, f), ("embed", "mlp"), contract=0, out=1),
-        "wi_up": ParamDef((e, f), ("embed", "mlp"), contract=0, out=1),
+def mlp_defs(cfg, d_ff=None, act=None):
+    e = cfg.d_model
+    f = d_ff or cfg.d_ff
+    act = act or cfg.act
+    if act == "silu":  # gated (llama family)
+        return {
+            "wi_gate": ParamDef((e, f), ("embed", "mlp"), contract=0, out=1),
+            "wi_up": ParamDef((e, f), ("embed", "mlp"), contract=0, out=1),
+            "wo": ParamDef((f, e), ("mlp", "embed"), contract=0, out=1),
+        }
+    return {  # plain 2-layer (whisper)
+        "wi": ParamDef((e, f), ("embed", "mlp"), contract=0, out=1),
+        "bi": ParamDef((f,), ("mlp",), init="zeros"),
         "wo": ParamDef((f, e), ("mlp", "embed"), contract=0, out=1),
+        "bo": ParamDef((e,), ("embed",), init="zeros"),
     }
 
 
 def mlp(p, x):
-    """Gated-silu MLP (llama family)."""
-    hidden = F.silu(proj(x, p["wi_gate"])) * proj(x, p["wi_up"])
-    return proj(hidden, p["wo"])
+    """The gated-silu MLP (llama family) if the tree has ``wi_gate``, else
+    the plain 2-layer MLP with the tanh form of gelu (``jax.nn.gelu``'s
+    default). The tree's keys pick the form, as in the reference, whose
+    ``act`` argument picks nothing."""
+    if "wi_gate" in p:
+        hidden = F.silu(proj(x, p["wi_gate"])) * proj(x, p["wi_up"])
+        return proj(hidden, p["wo"])
+    hidden = F.gelu(proj(x, p["wi"], p["bi"]), approximate="tanh")
+    return proj(hidden, p["wo"], p["bo"])

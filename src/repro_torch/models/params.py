@@ -27,10 +27,12 @@ __all__ = ["ParamDef", "materialize", "materialize_cast", "tree_size", "stack_de
 # Leaves the reference reads in f32: the norm scales (rmsnorm; the
 # xLSTM's per-block ``ln`` and its blocks' ``norm``), Mamba2's A, dt_bias
 # and its gated-norm scale ``norm`` (ssm.py), and the xLSTM's forget-gate
-# bias ``bf`` and sLSTM recurrent weights ``r`` (xlstm.py), and the MoE
-# router, which routes in f32 (moe.py).
+# bias ``bf`` and sLSTM recurrent weights ``r`` (xlstm.py), the MoE
+# router, which routes in f32 (moe.py), the vision cross layers' ``gate``
+# (tanh in f32, decoder.py) and whisper's cross-attention norm ``lnx`` and
+# encoder norm ``enc_norm`` (encdec.py).
 _FLOAT_LEAVES_KEPT = ("ln1", "ln2", "ln", "final_norm", "q_norm", "k_norm", "A", "dt_bias",
-                      "norm", "bf", "r", "router")
+                      "norm", "bf", "r", "router", "gate", "lnx", "enc_norm")
 
 
 @dataclasses.dataclass(frozen=True)

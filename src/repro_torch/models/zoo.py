@@ -1,6 +1,7 @@
 """Model facade: one ``Model`` per architecture config, bound to a device.
-The dense, MoE, hybrid and SSM (xLSTM) families are ported; the others
-raise.
+Every family of the zoo is ported: dense, MoE, vision cross-attention
+(vlm), hybrid and SSM (xLSTM) through ``models/decoder.py``, the
+encoder-decoder (whisper) through ``models/encdec.py``.
 
     model = build(cfg)                      # cuda unless device="cpu"
     master = model.init(torch.Generator().manual_seed(0))   # param_dtype (f32)
@@ -9,6 +10,10 @@ raise.
     params = model.init_compute(gen)        # the same, a leaf at a time
     logits, cache = model.prefill(params, {"tokens": tokens}, max_len=...)
     logits, cache = model.decode(params, cache, {"token": tok})
+
+The vision model's train and prefill batches also hold ``image_embeds``
+(B, n_image_tokens, E), whisper's ``enc_frames`` (B, enc_seq, E); a
+decode step reads what they gave from the cache.
 """
 
 from __future__ import annotations
@@ -22,10 +27,15 @@ import torch.nn.functional as F
 from .._device import resolve_device
 from ..config import ArchConfig
 from .decoder import decoder_defs, decoder_forward, init_cache
+from .encdec import encdec_defs, encdec_forward, encdec_init_cache
 from .moe import aux_load_balance_loss
 from .params import compute_cast, materialize, materialize_cast, tree_size
 
-__all__ = ["Model", "build", "softmax_xent"]
+__all__ = ["MODEL_INPUTS", "Model", "build", "softmax_xent"]
+
+# the input that a family's train and prefill batches hold beside the
+# tokens, and the config field that gives its length
+MODEL_INPUTS = {"vlm": ("image_embeds", "n_image_tokens"), "encdec": ("enc_frames", "enc_seq")}
 
 
 def softmax_xent(logits, labels):
@@ -54,9 +64,10 @@ class Model:
         ``conv_w`` and ``D`` and the embedding table cast once to the
         compute dtype; the leaves the reference reads in f32 (norm
         scales, Mamba2's ``A`` and ``dt_bias``, the xLSTM's forget-gate
-        biases ``bf`` and sLSTM recurrent weights ``r``, the MoE router)
-        stay as they are. The reference casts the same weights to the
-        same values on every call."""
+        biases ``bf`` and sLSTM recurrent weights ``r``, the MoE router,
+        the vision cross layers' ``gate``) stay as they are. The
+        reference casts the same weights to the same values on every
+        call."""
         return compute_cast(params, getattr(torch, self.cfg.compute_dtype))
 
     def init_compute(self, generator: torch.Generator):
@@ -71,6 +82,20 @@ class Model:
         return tree_size(self.defs)
 
     # ---- forward ------------------------------------------------------------
+    def _forward(self, params, tokens, *, mode, cache=None, batch=None, max_len=0,
+                 remat=False):
+        batch = batch or {}
+        tokens = tokens.to(self.device)
+        if self.cfg.family == "encdec":
+            frames = batch.get("enc_frames")
+            return encdec_forward(params, tokens, self.cfg, mode=mode, cache=cache,
+                                  enc_frames=None if frames is None else frames.to(self.device),
+                                  max_len=max_len, remat=remat)
+        image = batch.get("image_embeds")
+        return decoder_forward(params, tokens, self.cfg, mode=mode, cache=cache,
+                               image_embeds=None if image is None else image.to(self.device),
+                               max_len=max_len, remat=remat)
+
     def loss(self, params, batch, *, remat=False):
         """Mean next-token cross-entropy of batch["tokens"] against
         batch["labels"] (B, S), differentiable in ``params`` (the f32
@@ -80,7 +105,7 @@ class Model:
         MoE model adds 0.01 x the load-balance term of its first layer's
         router on the tokens' raw embeddings, as the reference does."""
         tokens = batch["tokens"].to(self.device)
-        logits, _ = decoder_forward(params, tokens, self.cfg, mode="train", remat=remat)
+        logits, _ = self._forward(params, tokens, mode="train", batch=batch, remat=remat)
         loss = softmax_xent(logits, batch["labels"].to(self.device))
         if self.cfg.family == "moe":
             x = F.embedding(tokens, params["embed"]["tok"]).float()
@@ -90,21 +115,22 @@ class Model:
 
     @torch.no_grad()
     def prefill(self, params, batch, *, max_len: int = 0):
-        return decoder_forward(params, batch["tokens"].to(self.device), self.cfg,
-                               mode="prefill", max_len=max_len)
+        return self._forward(params, batch["tokens"], mode="prefill", batch=batch,
+                             max_len=max_len)
 
     @torch.no_grad()
     def decode(self, params, cache, batch):
         """One serve step: batch["token"] (B, 1) -> logits (B, 1, V)."""
-        return decoder_forward(params, batch["token"].to(self.device), self.cfg,
-                               mode="decode", cache=cache)
+        return self._forward(params, batch["token"], mode="decode", cache=cache)
 
     # ---- caches -----------------------------------------------------------
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16):
-        return init_cache(self.cfg, batch, max_len, dtype, self.device)
+        fn = encdec_init_cache if self.cfg.family == "encdec" else init_cache
+        return fn(self.cfg, batch, max_len, dtype, self.device)
 
 
 def build(cfg: ArchConfig, device=None) -> Model:
     """The model of ``cfg`` on ``device`` (default ``cuda``; raises
     without a card unless ``device="cpu"``)."""
-    return Model(cfg=cfg, defs=decoder_defs(cfg), device=resolve_device(device))
+    defs = encdec_defs(cfg) if cfg.family == "encdec" else decoder_defs(cfg)
+    return Model(cfg=cfg, defs=defs, device=resolve_device(device))

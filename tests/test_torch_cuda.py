@@ -30,13 +30,17 @@ the one ``plan`` picks (``reg`` for d a multiple of 16 up to 192) and
 ``fma`` forced on the same inputs.
 """
 
+import dataclasses
+
 import pytest
 import torch
 
+from repro_torch.configs import get_config, reduced
 from repro_torch.kernels import dos_matmul, flash_attention, ssm_scan
 from repro_torch.kernels.dos_matmul import matmul_ref, plan
 from repro_torch.kernels.flash_attention import HEAD_DIMS, attention_ref
 from repro_torch.kernels.ssm_scan import CHUNKS, STATE_DIMS, ssm_scan_chunked
+from repro_torch.models import build
 
 pytestmark = pytest.mark.cuda
 
@@ -986,3 +990,21 @@ def test_grouped_matmul_function_gradients(gen):
     for got, want in ((xg.grad, xr.grad), (wg.grad, wr.grad)):
         tol = 1e-5 * want.abs().max() + 2.0**-8 * want.abs()
         assert bool(((got.float() - want).abs() <= tol).all())
+
+
+def test_vlm_with_image_embeds_off_the_compute_dtype_raises_naming_them(gen):
+    """bf16 compute with f32 image embeddings: the reference projects the
+    cross k, v in f32 and attends its bf16 q to them (tests/test_torch_vlm.py
+    pins that on the CPU). The card's flash kernel takes q, k, v of one
+    dtype, so the prefill raises, naming the dtypes, and casts nothing."""
+    cfg = dataclasses.replace(reduced(get_config("llama-3.2-vision-11b")),
+                              compute_dtype="bfloat16")
+    model = build(cfg, device="cuda")
+    params = model.init_compute(torch.Generator().manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab, (2, 16), generator=torch.Generator().manual_seed(1))
+    img = torch.randn(2, cfg.n_image_tokens, cfg.d_model,
+                      generator=torch.Generator().manual_seed(2))
+    with pytest.raises(TypeError, match="one dtype; got torch.bfloat16, torch.float32"):
+        model.prefill(params, {"tokens": tokens, "image_embeds": img})
+    logits, cache = model.prefill(params, {"tokens": tokens, "image_embeds": img.bfloat16()})
+    assert bool(torch.isfinite(logits).all()) and cache["cross"]["k"].dtype == torch.bfloat16

@@ -19,7 +19,7 @@ import torch
 from repro.configs import get_config as jax_get_config
 from repro.configs import reduced as jax_reduced
 from repro.models import build as jax_build
-from repro_torch.configs import get_config, reduced
+from repro_torch.configs import REGISTRY, get_config, reduced
 from repro_torch.launch import serve
 from repro_torch.launch.serve import generate, serve_loop
 from repro_torch.models import build
@@ -106,19 +106,20 @@ def test_entry_points_need_a_card_unless_cpu_is_asked():
 
 
 def test_unported_families_raise():
-    # every arch's config is registered (the front door lowers all ten);
-    # building a model of an unported family (vlm, encdec) raises, naming
-    # its item; the MoE family is ported
-    for arch in ("llama-3.2-vision-11b", "whisper-medium"):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
-            build(get_config(arch), device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
-            decoder_defs(get_config(arch))
-    for family in ("vlm", "encdec"):
-        cfg = dataclasses.replace(get_config("smollm-135m"), family=family)
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 9"):
-            decoder_defs(cfg)
+    # every family of the zoo is ported: all ten archs build on the CPU (the
+    # vision model's cross layers, whisper's two stacks); a family no
+    # branch handles still raises, and the decoder does not take whisper's
+    for arch in REGISTRY:
+        build(get_config(arch), device="cpu")
+    assert "cross_layers" in decoder_defs(get_config("llama-3.2-vision-11b"))
+    assert "enc_layers" in build(get_config("whisper-medium"), device="cpu").defs
     assert "router" in decoder_defs(get_config("deepseek-moe-16b"))["layers"]["ffn"]
+    with pytest.raises(ValueError, match="does not handle family 'encdec'"):
+        decoder_defs(get_config("whisper-medium"))
+    cfg = dataclasses.replace(get_config("smollm-135m"), family="rnn")
+    for make in (decoder_defs, lambda c: build(c, device="cpu")):
+        with pytest.raises(ValueError, match="does not handle family 'rnn'"):
+            make(cfg)
 
 
 @pytest.mark.parametrize("kw", [{"mesh_shape": (2, 1)}, {"strategy": "megatron"}])

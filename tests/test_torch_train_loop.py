@@ -22,8 +22,11 @@ import pytest
 import torch
 
 from repro.checkpoint import checkpointer as jax_checkpointer
+from repro.configs import get_config as jax_get_config
+from repro.configs import reduced as jax_reduced
 from repro.data import DataConfig as JaxDataConfig
 from repro.data import SyntheticLM as JaxSyntheticLM
+from repro.launch.train import train_loop as jax_train_loop
 from repro_torch.checkpoint import checkpointer
 from repro_torch.configs import get_config, reduced
 from repro_torch.data import DataConfig, SyntheticLM
@@ -149,10 +152,6 @@ def test_checkpoint_holds_the_steps_its_name_counts_where_the_reference_repeats_
     second time and leaves the uninterrupted run's losses. The port's
     ``step_N`` holds the state after N steps, and its resumed run repeats
     the uninterrupted one bit for bit."""
-    from repro.configs import get_config as jax_get_config
-    from repro.configs import reduced as jax_reduced
-    from repro.launch.train import train_loop as jax_train_loop
-
     kw = dict(steps=7, global_batch=2, seq_len=32, ckpt_every=5, log_every=100)
     runs = {"reference": (jax_train_loop, jax_reduced(jax_get_config("smollm-135m")), {}),
             "port": (train_loop, reduced(get_config("smollm-135m")), {"device": "cpu"})}
@@ -219,12 +218,27 @@ def test_train_loop_needs_a_card_unless_asked_for_the_cpu():
 @pytest.mark.parametrize("arch,kw,match", [
     ("smollm-135m", {"mesh_shape": (2, 1)}, "item 10"),
     ("smollm-135m", {"strategy": "megatron"}, "item 10"),
-    ("whisper-medium", {}, "item 9"),
-    ("llama-3.2-vision-11b", {}, "item 9"),
+    ("whisper-medium", {}, "tokens and labels only.*make_train_step with 'enc_frames'"),
+    ("llama-3.2-vision-11b", {}, "tokens and labels only.*make_train_step with 'image_embeds'"),
 ])
 def test_not_ported_configurations_name_their_roadmap_items(arch, kw, match):
+    # multi-device is ROADMAP item 10; the vision and encoder-decoder models
+    # train through make_train_step, as the reference's train_loop cannot
+    # feed them (test_reference_train_loop_cannot_feed_these_families)
     with pytest.raises(NotImplementedError, match=match):
         train_loop(reduced(get_config(arch)), steps=1, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("arch,missing", [("llama-3.2-vision-11b", "shape"),
+                                          ("whisper-medium", "astype")])
+def test_reference_train_loop_cannot_feed_these_families(arch, missing):
+    """The reference's train_loop feeds SyntheticLM's tokens and labels only:
+    its vision forward calls compute_cross_kv on image_embeds=None, its
+    encoder-decoder forward encode(params, None), and both fail, which the
+    port's refusal above follows."""
+    with pytest.raises(AttributeError, match=f"'NoneType' object has no attribute '{missing}'"):
+        jax_train_loop(jax_reduced(jax_get_config(arch)), steps=1, global_batch=2, seq_len=16,
+                       log_every=100)
 
 
 def test_hybrid_loss_is_differentiable_in_every_leaf():
