@@ -213,11 +213,13 @@ if it fails:
     layers over 1,500 frames, 24 decoder layers). Their serving main paths
     run right after phase 15's, their training main paths right after
     phase 15's training, each with the counts set to 0 just before and
-    read just after: ``serve_loop`` at full size (batch 4, prompt 128, 32
-    tokens; the image embeddings or frames drawn as serving draws them)
-    with the launches per prefill and per decode step exact by kernel and
-    variant (vision: 281 ``dos_matmul`` ``wgmma`` and 40 flash ``mma`` per
-    prefill, 265 ``skinny`` per decode step; whisper: 385 and 72, 193), and
+    read just after: ``serve_loop`` (batch 4, prompt 128, 32 tokens; the
+    image embeddings or frames drawn as serving draws them), whisper at
+    full size and the vision model at full width cut to 2 of its 8 groups
+    (``SERVE_LAYERS``: the full model's host draws take 65-91 s), with
+    the launches per prefill and per decode step exact by kernel and
+    variant (vision: 71 ``dos_matmul`` ``wgmma`` and 10 flash ``mma`` per
+    prefill, 67 ``skinny`` per decode step; whisper: 385 and 72, 193), and
     ``make_train_step`` (the reference's ``train_loop`` cannot feed these
     families) on the vision model cut to one group (5 layers; lr 3e-4: at
     1e-3 neither it nor a dense model of its width learns in 30 steps,
@@ -237,7 +239,27 @@ if it fails:
     loss and every gradient leaf (f32 within 1e-3, bf16 within 3e-2 of the
     leaf's max|g|); the serve CLI for whisper at full size and for the
     vision model at ``--smoke`` size, launches exact;
-17. prints the kernels line, the ``nvidia-smi`` line, and last
+    And a bf16 vision model (reduced) with f32 image embeddings: the
+    card's flash wrapper promotes the operands to f32 (``fma``), its
+    prefill within E2E_TOL of the CPU's logits;
+17. the (data, model) mesh (``launch/mesh.py``, ``parallel/``, the
+    layers' ``Layout``): smollm-135m's ``serve_loop`` at phase 3's size
+    with no process group, in an NCCL group of one rank under ``dos``,
+    ``megatron``, ``zero`` and ``auto``, and with no group again (one
+    device's path at (1, 1): the arguments' way through the loop, and
+    what the live group costs a decode step), and 3 ``train_loop`` steps
+    at phase 12's under
+    each, the tokens equal to phase 3's and the losses to phase 12's
+    first three, bit for bit, the serving launches exact; then the
+    sharded forward itself (a prefill and a decode step) as rank 0 of
+    each (1, 2), (1, 4) and (2, 4) mesh under ``dos`` and ``megatron``,
+    for smollm-135m and qwen2.5-3b at full width cut to one layer, in a
+    ``fake`` process group whose collectives do not communicate (the
+    multi-rank numerics are held on the CPU's gloo ranks by
+    ``tests/test_torch_sharding_ranks.py``): every GEMM shape a rank
+    launched, against its plain version with the variant it planned,
+    timed; the phase's time on its own line;
+18. prints the kernels line, the ``nvidia-smi`` line, and last
     ``{"ok": true, "device": {...}}``.
 
 ``--details PATH`` also writes every measurement to a JSON file.
@@ -298,6 +320,8 @@ from repro_torch.models.ssm import mamba_block, mamba_defs  # noqa: E402
 from repro_torch.models.xlstm import mlstm_block, mlstm_defs, slstm_block, slstm_defs  # noqa: E402
 from repro_torch.optim import OptConfig, adamw_update, init_opt_state  # noqa: E402
 from repro_torch.runtime import FaultInjector  # noqa: E402
+from repro_torch.launch.mesh import init_distributed, make_test_mesh  # noqa: E402
+from repro_torch.parallel.axes import ShardingRules  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): the bound of a call
 # is the larger of its bytes over HBM bandwidth and its operations over
@@ -313,14 +337,16 @@ PATHS = (ARCH, HYBRID)
 XLSTM = "xlstm-125m"  # phase 14's serving and training paths, at the same sizes
 MOE = "deepseek-moe-16b"  # phase 15's serving and training paths
 SCOUT = "llama4-scout-17b-a16e"  # its expert shapes, in phase 15's kernel checks
-# Serving main paths run at full size but for these, cut in depth at full
-# width: deepseek-moe-16b's 16.9 G weights are drawn on the host (130-151 s
-# of an H100 machine's run), and with phase 16 the script took 1,046-1,084 s
-# of its 1,200. Each layer's work and launches are the full model's.
-SERVE_LAYERS = {MOE: 7}
 # phase 16's serving and training paths: vision cross-attention and the
 # encoder-decoder
 VLM, WHISPER = "llama-3.2-vision-11b", "whisper-medium"
+# Serving main paths run at full size but for these, cut in depth at full
+# width: deepseek-moe-16b's 16.9 G weights are drawn on the host (130-151 s
+# of an H100 machine's run), and with phase 16 the script took 1,046-1,084 s
+# of its 1,200; the vision model's 9.8 G took 65-91 s, and with phase 17 the
+# script took 1,184 s on a slow host. Each layer's work and launches are the
+# full model's; the vision model keeps 2 of its 8 groups.
+SERVE_LAYERS = {MOE: 7, VLM: 10}
 E2E_DECODE_STEPS = 4
 # zamba2's end-to-end check against the CPU keeps full width but 2 of
 # its 9 groups (12 Mamba2 layers, 2 shared-block calls) at batch 2.
@@ -342,6 +368,7 @@ E2E_TOL = 3e-2
 E2E_F32_TOL = 1e-2
 
 RESULTS: dict = {"phases": {}, "main_paths": {}, "profile": {}}
+MAIN_TOKENS: dict = {}  # phase 3's greedy tokens by arch, for phase 17
 
 
 class Failure(Exception):
@@ -585,6 +612,7 @@ def phase_main_path(arch):
     counts = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     gen_tokens = r["generated"]
+    MAIN_TOKENS[arch] = gen_tokens.cpu()
     summary = {k: r[k] for k in ("init_s", "prefill_s", "decode_s", "decode_tok_s",
                                  "step_p50_s", "step_p99_s", "launches")}
     summary.update(launches_total=counts, peak_mem_bytes=peak, mem_before_bytes=base,
@@ -4413,6 +4441,216 @@ def phase_cross_cli():
 # ---------------------------------------------------------------------------
 
 
+def phase_vlm_mixed_dtype():
+    """Phase 16: a bf16 vision model with f32 image embeddings (the
+    reference projects the cross k, v in f32 and attends its bf16 q to
+    them). The card's flash wrapper promotes q, k, v to f32, runs the
+    ``fma`` kernel and returns bf16, as the CPU path does: the prefill's
+    logits against the CPU's within E2E_TOL of max|logits|, the vision
+    gates opened to 0.5 (at 0 no cross-attention result reaches them)."""
+    cfg = dataclasses.replace(reduced(get_config(VLM)), compute_dtype="bfloat16")
+    logits = {}
+    for dev in ("cpu", "cuda"):
+        model = build(cfg, device=dev)
+        params = model.init_compute(torch.Generator().manual_seed(0))
+        params["cross_layers"]["gate"].fill_(0.5)
+        tokens = torch.randint(0, cfg.vocab, (2, 16), generator=torch.Generator().manual_seed(1))
+        img = torch.randn(2, cfg.n_image_tokens, cfg.d_model,
+                          generator=torch.Generator().manual_seed(2))
+        before = dict(flash_attention.variants)
+        logits[dev] = model.prefill(params, {"tokens": tokens, "image_embeds": img})[0].float().cpu()
+        fma = flash_attention.variants["fma"] - before["fma"]
+    gap = ((logits["cuda"] - logits["cpu"]).abs().max() / logits["cpu"].abs().max()).item()
+    n_cross = cfg.n_layers // cfg.cross_every
+    print(f"[cross] {VLM} (reduced, bf16) with f32 image embeddings: the prefill's logits "
+          f"within {gap:.3g} of max|logits| of the CPU's; {fma} f32 flash (fma) launches "
+          f"(the {n_cross} cross layers)", flush=True)
+    RESULTS["vlm_mixed_dtype_gap"] = gap
+    check(gap <= E2E_TOL, f"vision prefill with f32 image embeddings: {gap:.3g} of max|logits|")
+    check(fma == n_cross, f"{fma} fma flash launches, expected {n_cross}")
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the (data, model) mesh's entry points in an NCCL group of one rank
+# ---------------------------------------------------------------------------
+
+MESH_STRATEGIES = ("dos", "megatron", "zero", "auto")
+MESH_TRAIN_STEPS = 3
+MESH_GEMM_MESHES = ((1, 2), (1, 4), (2, 4))
+MESH_GEMM_ARCHS = (ARCH, "qwen2.5-3b")
+
+
+def shard_local_gemms(arch, meshes=MESH_GEMM_MESHES, strategies=("dos", "megatron"),
+                      batch=BATCH, seq=PROMPT) -> dict:
+    """{(m, k, n, B transposed, out dtype): [(mesh, strategy, calls)]}: the
+    GEMMs that rank 0 of each mesh launches in one prefill (``seq`` tokens)
+    and one decode step serving ``batch`` prompts under each strategy's
+    plan, ``arch`` at full width cut to one layer (every layer launches
+    the same). The forward is the port's own (``models/layers.py`` under
+    the plan's ``Layout``), run on this card as rank 0 of a ``fake``
+    process group of the mesh's size, whose collectives return without
+    communicating: the shapes, the K-split f32 partials, the ring decode
+    and the vocab-parallel paths are those of a real rank, the values are
+    not (no sum across ranks happens), so only the shapes are kept. Each
+    ``dos_matmul`` call is recorded where the layers make it."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.parallel.axes import param_sharding, use_rules
+    from repro_torch.parallel.plan import shard_tree
+
+    cfg = cut_depth(get_config(arch), 1)
+    model = build(cfg, device="cuda")
+    full = model.init_compute(torch.Generator(device="cuda").manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab, (batch, seq), generator=gen)
+    token = torch.randint(0, cfg.vocab, (batch, 1), generator=gen)
+    seen: dict = {}
+    record = []
+
+    def recording(a, b, *, out_dtype=None):
+        record.append((a.numel() // a.shape[-1], a.shape[-1], b.shape[1], b.stride(1) != 1,
+                       out_dtype or a.dtype))
+        return dos_matmul(a, b, out_dtype=out_dtype)
+
+    layers.dos_matmul = recording
+    try:
+        for mesh_shape in meshes:
+            dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                    world_size=math.prod(mesh_shape))
+            try:
+                for strategy in strategies:
+                    rules = ShardingRules(make_test_mesh(*mesh_shape), strategy=strategy,
+                                          fsdp=False)
+                    params = shard_tree(full, param_sharding(model.defs, rules), rules.mesh)
+                    record.clear()
+                    with use_rules(rules):
+                        _, cache = model.prefill(params, {"tokens": prompts}, max_len=seq + GEN)
+                        model.decode(params, cache, {"token": token})
+                    torch.cuda.synchronize()
+                    for key in set(record):
+                        seen.setdefault(key, []).append((mesh_shape, strategy, record.count(key)))
+            finally:
+                dist.destroy_process_group()
+    finally:
+        layers.dos_matmul = dos_matmul
+    return seen
+
+
+def check_local_gemm(gen, m, k, n, b_transposed, out_dtype) -> dict:
+    """One shard-local GEMM (bf16 operands) against matmul_ref on the same
+    operands at phase 4's gate (an f32 output: 1e-5 of max|ref|, the
+    summation order; bf16: plus 2**-8 of each entry), the variant that
+    launched the one ``plan`` gives; the kernel timed on cold inputs."""
+    es = 2
+    n_sets = max(1, math.ceil(COLD_BYTES / ((m * k + k * n) * es)))
+    sets = _gemm_case(gen, m, k, n, torch.bfloat16, b_transposed, n_sets)
+    a, b = sets[0]
+    b_t = b.stride(1) != 1
+    p = dos_ops.plan(m, n, k, a.dtype, b.stride(1) if b_t else b.stride(0), b_t,
+                     (a.data_ptr() | b.data_ptr()) % 16 == 0, out_dtype,
+                     torch.cuda.get_device_properties(0).multi_processor_count)
+    before = dict(dos_matmul.variants)
+    got = dos_matmul(a, b, out_dtype=out_dtype)
+    launched = [v for v in dos_matmul.variants if dos_matmul.variants[v] != before[v]]
+    exact = matmul_ref(a, b, torch.float32)
+    err = (got.float() - exact).abs()
+    scale = exact.abs().max().item()
+    tol = (2.0**-8 * exact.abs() if out_dtype == torch.bfloat16 else 0.0) + 1e-5 * scale
+    row = {"m": m, "k": k, "n": n, "b_transposed": b_transposed,
+           "out": str(out_dtype).split(".")[-1], "variant": p.variant, "launched": launched,
+           "max_abs_err": (got.float() - matmul_ref(a, b, out_dtype).float()).abs().max().item(),
+           "max_abs_err_vs_f32": err.max().item(), "max_ref": scale,
+           "ok": bool((err <= tol).all()) and launched == [p.variant],
+           "ms": cuda_ms(lambda i: dos_matmul(*sets[i], out_dtype=out_dtype), len(sets))}
+    return row
+
+
+def phase_mesh() -> dict:
+    """Phase 17: the mesh's entry points on the card. smollm-135m's
+    ``serve_loop`` at phase 3's size with no process group, then in an
+    NCCL group of one rank under every strategy, and with no group again,
+    back to back (at (1, 1) the strategies run one device's path: they
+    check the arguments' way through the loop, and the three dos runs'
+    step times show what the live group costs); ``train_loop`` for MESH_TRAIN_STEPS steps at phase
+    12's under every strategy. The tokens equal phase 3's, the losses
+    phase 12's first three. Then the shard-local GEMMs that rank 0 of
+    each (1, 2), (1, 4) and (2, 4) mesh launches under ``dos`` and
+    ``megatron`` (``shard_local_gemms``: the port's sharded forward on
+    this card in a ``fake`` group) for smollm-135m and qwen2.5-3b at full
+    width, each against its plain version with the variant it planned.
+    Returns the GEMM rows' largest error."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    out = {"serve": {}, "train": {}}
+    cfg = serve_cfg(ARCH)
+
+    def serve(strategy, group):
+        r = serve_loop(cfg, batch=BATCH, prompt_len=PROMPT, gen_tokens=GEN, strategy=strategy,
+                       mesh_shape=(1, 1), device="cuda")
+        same = torch.equal(r["generated"].cpu(), MAIN_TOKENS[ARCH])
+        out["serve"][f"{strategy} {group}"] = {k: r[k] for k in ("prefill_s", "step_p50_s",
+                                                                 "launches")}
+        print(f"[mesh] serve_loop {ARCH} {strategy} (1, 1), {group}: tokens equal phase 3's: "
+              f"{same}; prefill {r['prefill_s']*1e3:.2f} ms, step p50 "
+              f"{r['step_p50_s']*1e3:.3f} ms", flush=True)
+        check(same, f"{strategy} ({group}): tokens differ from phase 3's")
+        check(r["launches"] == expected_launches(cfg),
+              f"{strategy} ({group}): launches {r['launches']}, expected {expected_launches(cfg)}")
+
+    serve("dos", "no process group")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    init_distributed("cuda", init_method=f"file://{tmp}/pg", rank=0, world_size=1)
+    try:
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+              f"process group {dist.get_backend()} of {dist.get_world_size()} ranks")
+        mesh = make_test_mesh(1, 1)
+        check(type(mesh).__name__ == "DeviceMesh", f"make_test_mesh(1, 1) gave {mesh!r}")
+        for strategy in MESH_STRATEGIES:
+            serve(strategy, "NCCL group of 1")
+        want = RESULTS["main_paths"]["train"]["losses"][:MESH_TRAIN_STEPS]
+        for strategy in MESH_STRATEGIES:
+            _, losses, wd = train_loop(
+                get_config(ARCH), steps=MESH_TRAIN_STEPS, global_batch=TRAIN_BATCH,
+                seq_len=TRAIN_SEQ, seed=0, log_every=0, strategy=strategy, mesh_shape=(1, 1),
+                opt_cfg=OptConfig(lr=1e-3, warmup_steps=20, total_steps=TRAIN_STEPS),
+                device="cuda")
+            out["train"][strategy] = losses
+            print(f"[mesh] train_loop {ARCH} {strategy} (1, 1): losses "
+                  f"{' '.join(f'{x:.6f}' for x in losses)} (phase 12: "
+                  f"{' '.join(f'{x:.6f}' for x in want)})", flush=True)
+            check(losses == want, f"{strategy}: losses {losses}, phase 12's {want}")
+    finally:
+        dist.destroy_process_group()
+    serve("dos", "no process group again")
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    rows = {}
+    for arch in MESH_GEMM_ARCHS:
+        for key, uses in shard_local_gemms(arch).items():
+            if key not in rows:
+                rows[key] = check_local_gemm(gen, *key)
+            rows[key].setdefault("used_by", []).extend(
+                f"{arch} {mesh} {strategy} x{calls}" for mesh, strategy, calls in uses)
+    rows = list(rows.values())
+    for row in rows:
+        print(f"[mesh] dos_matmul {row['m']}x{row['k']}x{row['n']}"
+              f"{' B^T' if row['b_transposed'] else ''} -> {row['out']} [{row['variant']}]: "
+              f"max|err| vs f32 {row['max_abs_err_vs_f32']:.3g} (max|ref| "
+              f"{row['max_ref']:.3g}), {row['ms']*1e3:.1f} us; {'; '.join(row['used_by'])}"
+              + ("" if row["ok"] else "  FAIL"), flush=True)
+        check(row["ok"], f"shard-local GEMM {row} disagrees or left its planned variant")
+    check(any(r["out"] == "float32" for r in rows), "no K-split (f32 partial) GEMM was launched")
+    out["gemms"] = rows
+    wall = time.perf_counter() - t0
+    out["wall_s"] = wall
+    RESULTS["mesh"] = out
+    print(f"[mesh] phase 17 took {wall:.1f} s ({len(rows)} shard-local GEMM shapes)", flush=True)
+    return max(r["max_abs_err"] for r in rows)
+
+
 def timed(phase, *args):
     """``phase(*args)``, its wall time added to ``RESULTS["phases"]`` under
     its name and its string arguments."""
@@ -4517,6 +4755,8 @@ def main(argv=None) -> int:
         timed(phase_cross_e2e, arch)
         timed(phase_cross_train_e2e, arch)
     timed(phase_cross_cli)
+    timed(phase_vlm_mixed_dtype)
+    mesh_err = timed(phase_mesh)  # phase 17
 
     replaces = {
         "dos_matmul": ("src/repro_torch/kernels/csrc/dos_matmul.cu",
@@ -4534,7 +4774,8 @@ def main(argv=None) -> int:
             "name": kname, "route": "cuda", "source": source, "replaces": repl,
             "launches": sum(c[kname] for c in counts.values()),
             "max_abs_err": max(main_err[kname], cal_err[kname], xlstm_err.get(kname, 0.0),
-                               cross_err.get(kname, 0.0)),
+                               cross_err.get(kname, 0.0),
+                               mesh_err if kname == "dos_matmul" else 0.0),
             "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
             "bound_by": "bytes" if by_bytes else "operations",
             "library_ms": tot["library_ms"],
@@ -4617,7 +4858,7 @@ def main(argv=None) -> int:
     print(f"[done] {RESULTS['wall_s']:.1f} s; the kernels' launches sum the twelve main paths' "
           "runs (serving and training smollm-135m, zamba2-2.7b, xlstm-125m, deepseek-moe-16b, "
           "llama-3.2-vision-11b and whisper-medium), phase 7's calibration and the front door's "
-          "calibrate Study; max_abs_err is the largest of phase 4's, 7's and 12's to 16's "
+          "calibrate Study; max_abs_err is the largest of phase 4's, 7's and 12's to 17's "
           "checks; ms, "
           "plain_ms, library_ms and bound_ms sum the calls of one prefill plus one decode step "
           "of both phase-3 serving paths (dos_matmul, flash_attention, ssm_scan), of xlstm-125m "

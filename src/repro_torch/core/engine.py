@@ -112,28 +112,28 @@ _ALL_METRICS = ("perf", "area", "power", "thermal")
 _AUTO_STREAM_CELLS = 1 << 22
 
 
-def _resolve_shards(shard, backend: str) -> int:
+def _resolve_shards(shard, backend: str, device: torch.device | None) -> int:
     """Shard request -> device count.
 
     ``'auto'`` is best-effort and portable: it means "all available
-    parallelism", which is one device on both backends until the search
-    is sharded across cards (``parallel.shard_eval``, not ported yet).
-    An *explicit* count, by contrast, is a hard request — it errors
-    rather than silently no-opping.
+    parallelism", the local devices of the search's device type on the
+    torch backend (``parallel.shard_eval``) and none (1) on numpy. An
+    *explicit* count, by contrast, is a hard request: it errors on the
+    numpy backend, and beyond the local devices, rather than silently
+    no-opping.
     """
     if shard is None or shard == "none" or shard == 1:
         return 1
-    if shard == "auto":
-        return 1
     if backend != "torch":
+        if shard == "auto":
+            return 1
         raise ValueError(
             f"shard={shard!r} requires backend='torch' (the numpy search has "
             "no device axis); use shard='auto' for best-effort portability"
         )
-    raise NotImplementedError(
-        f"shard={shard!r}: the sharded torch search (parallel.shard_eval) is "
-        "not ported yet; use shard='auto' or None"
-    )
+    from ..parallel.shard_eval import resolve_shards
+
+    return resolve_shards(shard, device)
 
 
 def _search_device(backend: str, device) -> torch.device | None:
@@ -489,9 +489,11 @@ class EvalResult:
 # ---------------------------------------------------------------------------
 
 def _search_batch(D1, D2, Tser, budget, backend: str, chunk: int,
-                  device: torch.device | None = None):
+                  device: torch.device | None = None, n_shards: int = 1):
     """Chunked dispatch of the (R, C) search. Returns (r, c, tau) int64
-    numpy arrays. ``device`` is the torch backend's (resolved) device."""
+    numpy arrays. ``device`` is the torch backend's (resolved) device;
+    ``n_shards`` > 1 splits each chunk across that many local devices of
+    its type (``parallel.shard_eval``), bit for bit the same results."""
     B = D1.shape[0]
     r_out = np.empty(B, dtype=np.int64)
     c_out = np.empty(B, dtype=np.int64)
@@ -506,6 +508,17 @@ def _search_batch(D1, D2, Tser, budget, backend: str, chunk: int,
     # back, so the output is unchanged.
     widths = np.minimum(D1, budget)
     order = np.argsort(widths, kind="stable")
+    if backend == "torch" and n_shards > 1:
+        from ..parallel.shard_eval import local_devices, sharded_search
+
+        devices = local_devices(resolve_device(device))[:n_shards]
+        step = chunk * n_shards  # ~chunk rows per device
+        for lo in range(0, B, step):
+            sel = order[lo : lo + step]
+            r_out[sel], c_out[sel], t_out[sel] = sharded_search(
+                D1[sel], D2[sel], Tser[sel], budget[sel], int(widths[sel[-1]]), n_shards,
+                devices)
+        return r_out, c_out, t_out
     if backend == "torch":
         # The batch crosses to the device once, sorted; each chunk is
         # searched there and the results come back in one copy.
@@ -628,7 +641,8 @@ def _search_from_tables(tables, sel, Tser, r_max: int):
 
 
 def _optimize_flat(M, K, N, n_macs, tiers, dataflow, mode, backend, chunk,
-                   fold: str | None = None, device: torch.device | None = None):
+                   fold: str | None = None, device: torch.device | None = None,
+                   n_shards: int = 1):
     """Batched shape optimization (flat arrays) honoring invalid budgets.
     ``device`` is the torch backend's; ``None`` there means the card."""
     budget = n_macs // tiers
@@ -638,7 +652,7 @@ def _optimize_flat(M, K, N, n_macs, tiers, dataflow, mode, backend, chunk,
     if mode == "square":
         r, c, t = _square_rc(np, D1, D2, Tser, bsafe)
     else:
-        r, c, t = _search_batch(D1, D2, Tser, bsafe, backend, chunk, device)
+        r, c, t = _search_batch(D1, D2, Tser, bsafe, backend, chunk, device, n_shards)
     t = np.where(ok, t, INVALID_CYCLES)
     return r, c, t
 
@@ -686,9 +700,11 @@ def evaluate(
 
     ``backend='torch'`` runs the (R, C) search on ``device``: ``None``
     means the card, and raises where there is none; the numpy backend
-    takes no device. ``shard``: ``'auto'`` and ``None``/``'none'`` stay
-    on one device; an explicit count > 1 raises until the sharded
-    search (``parallel.shard_eval``) is ported.
+    takes no device. ``shard``: ``None``/``'none'`` stay on one device;
+    ``'auto'`` splits the search over every local device of the search's
+    device type, an explicit count over that many (more than there are
+    raises ``ValueError``), each shard bit for bit the unsharded search
+    (``parallel.shard_eval``).
     ``stream`` caps how many design points are evaluated per pass —
     blocks are evaluated consecutively and stitched with
     ``EvalResult.concat`` so peak memory stays bounded at any grid
@@ -732,8 +748,8 @@ def evaluate(
         metrics.add("power")
     if "power" in metrics:
         metrics.add("area")
-    _resolve_shards(shard, backend)
     device = _search_device(backend, device)
+    n_shards = _resolve_shards(shard, backend, device)
     if bandwidth is not None and not isinstance(bandwidth, BandwidthSpec):
         bandwidth = BandwidthSpec.from_dict(bandwidth)
 
@@ -749,14 +765,14 @@ def evaluate(
             _evaluate_block(
                 grid.subset(lo, min(lo + block, P)), backend, metrics, chunk,
                 thermal_limit, device, bandwidth, freq_hz, vdd_v,
-                thermal, dvfs,
+                thermal, dvfs, n_shards,
             )
             for lo in range(0, P, block)
         ]
         return EvalResult.concat(grid, parts)
     return _evaluate_block(
         grid, backend, metrics, chunk, thermal_limit, device, bandwidth,
-        freq_hz, vdd_v, thermal, dvfs,
+        freq_hz, vdd_v, thermal, dvfs, n_shards,
     )
 
 
@@ -772,6 +788,7 @@ def _evaluate_block(
     vdd_v: float = C.VDD,
     thermal: str = "steady",
     dvfs: DvfsSpec | None = None,
+    n_shards: int = 1,
 ) -> EvalResult:
     """One unstreamed evaluation pass (metrics already resolved)."""
     W, P = grid.n_workloads, grid.n_points
@@ -834,7 +851,7 @@ def _evaluate_block(
         else:
             r_, c_, t_ = _optimize_flat(
                 M_, K_, N_, b_, L_, df, grid.mode, backend, chunk,
-                fold=fo, device=device,
+                fold=fo, device=device, n_shards=n_shards,
             )
             rows[sel], cols[sel], cyc[sel] = r_, c_, t_
         # Budget-matched optimized 2D baseline of the same dataflow
@@ -846,7 +863,7 @@ def _evaluate_block(
         r2, c2, t2 = _optimize_flat(
             uniq[:, 0], uniq[:, 1], uniq[:, 2], uniq[:, 3],
             np.ones(len(uniq), dtype=np.int64), df, grid.mode,
-            backend, chunk, device=device,
+            backend, chunk, device=device, n_shards=n_shards,
         )
         cyc2d[sel] = t2[inv]
         rows2d[sel], cols2d[sel] = r2[inv], c2[inv]
@@ -1078,8 +1095,8 @@ def optimal_tiers_batched(
     optimum under a finite memory system instead of peak compute.
     ``backend``, ``device`` and ``shard`` are as in ``evaluate``.
     """
-    _resolve_shards(shard, backend)
     device = _search_device(backend, device)
+    n_shards = _resolve_shards(shard, backend, device)
     wl = np.atleast_2d(np.asarray(workloads, dtype=np.int64))
     budgets = _as_1d_int(mac_budgets)
     W, B, T = wl.shape[0], budgets.shape[0], int(max_tiers)
@@ -1093,7 +1110,7 @@ def optimal_tiers_batched(
     Lf = np.tile(np.arange(1, T + 1, dtype=np.int64), W * B)
     nm = np.tile(np.repeat(budgets, T), W)
     r, c, t = _optimize_flat(
-        Mf, Kf, Nf, nm, Lf, "dos", mode, backend, chunk, device=device,
+        Mf, Kf, Nf, nm, Lf, "dos", mode, backend, chunk, device=device, n_shards=n_shards,
     )
     cyc = np.where(t != INVALID_CYCLES, t, 0).astype(np.float64)
     cyc[t == INVALID_CYCLES] = np.inf

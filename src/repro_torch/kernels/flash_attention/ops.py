@@ -182,8 +182,15 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
 
     ``window`` and ``q_offset`` are Python ints (the port runs its layers
     in a Python loop, so a layer's window is never a traced value).
-    Differentiable when an input requires grad.
+    Differentiable when an input requires grad. Operands of different
+    dtypes (bf16 queries over f32 cross-attention keys, as the reference
+    gives with f32 image embeddings in a bf16 model) run the kernel in
+    their promoted dtype and return q's, as the plain version does.
     """
+    if q.device.type == "cuda" and not q.dtype == k.dtype == v.dtype:
+        dt = torch.promote_types(torch.promote_types(q.dtype, k.dtype), v.dtype)
+        return flash_attention(q.to(dt), k.to(dt), v.to(dt), causal=causal, window=window,
+                               scale=scale, q_offset=q_offset).to(q.dtype)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return _FlashAttention.apply(q, k, v, causal, window, scale, q_offset)
     if q.device.type == "cpu":
@@ -262,11 +269,16 @@ flash_attention.variants = dict.fromkeys(VARIANTS, 0)
 
 
 def decode_attention(q, k_cache, v_cache, *, length, window: int | None = None,
-                     scale: float | None = None):
+                     scale: float | None = None, return_lse: bool = False):
     """One decode step: q (B, 1, H, D) attends to the first ``length``
     cache slots (and at most the trailing ``window`` of them, the newest
     slot ``length - 1`` included). ``length`` is an int or a per-batch
-    tensor. A row with no valid slot returns exact zeros."""
+    tensor. A row with no valid slot returns exact zeros.
+
+    ``return_lse`` returns ``(o, lse)`` instead: o in f32 (not yet cast
+    to q's dtype) and each row's log-sum-exp of its scaled scores, (B, 1,
+    H) f32, -inf for a row with no valid slot, so that the partial results
+    of a sequence-sharded cache can be merged (``models/layers.py``)."""
     b, _, h, d = q.shape
     _, s, kvh, _ = k_cache.shape
     g = h // kvh
@@ -293,4 +305,7 @@ def decode_attention(q, k_cache, v_cache, *, length, window: int | None = None,
     denom = p.sum(dim=-1, keepdim=True)
     p = p / torch.where(denom > 0.0, denom, 1.0)
     o = torch.einsum("bkgs,bksd->bkgd", p.to(v_cache.dtype).float(), vc.float())
+    if return_lse:
+        lse = torch.where(denom > 0.0, m + torch.log(denom), -math.inf)
+        return o.reshape(b, 1, h, d), lse.reshape(b, 1, h)
     return o.reshape(b, 1, h, d).to(q.dtype)

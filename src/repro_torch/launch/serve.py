@@ -18,6 +18,12 @@ package's keys, plus the device the run used.
     python -m repro_torch.launch.serve --arch llama-3.2-vision-11b --prompt-len 128 --json
     python -m repro_torch.launch.serve --arch whisper-medium --prompt-len 128 --json
     python -m repro_torch.launch.serve --smoke --device cpu
+    torchrun --nproc-per-node 4 -m repro_torch.launch.serve --strategy megatron --json
+
+Under ``torchrun`` the ranks join one process group (``nccl`` on the
+cards, ``gloo`` with ``--device cpu``) laid out as a (1, WORLD_SIZE)
+mesh: the model axis, over which ``dos`` and ``megatron`` shard the
+weights (``zero`` spreads the batch over it). Rank 0 prints.
 """
 
 from __future__ import annotations
@@ -33,7 +39,10 @@ from .._device import device_info, resolve_device
 from ..configs import get_config, reduced
 from ..kernels import launch_counts
 from ..models import build
-from ..models.zoo import MODEL_INPUTS
+from ..models.zoo import MODEL_INPUTS, spans_ranks
+from ..parallel.axes import STRATEGIES, ShardingRules, param_sharding, use_rules
+from ..parallel.plan import shard_place
+from .mesh import cli_mesh, is_first_rank, make_test_mesh
 from .steps import make_prefill_step, make_serve_step
 
 __all__ = ["serve_loop", "generate", "model_inputs"]
@@ -78,7 +87,7 @@ def generate(model, params, prompts, gen_tokens: int, inputs=None):
     _sync(dev)
     t0 = time.perf_counter()
     logits, cache = prefill(params, pf_batch)
-    tok = logits[:, -1:].argmax(dim=-1)
+    tok = model.greedy(logits[:, -1:], cache)
     _sync(dev)
     t_prefill = time.perf_counter() - t0
     c1 = launch_counts()
@@ -89,7 +98,7 @@ def generate(model, params, prompts, gen_tokens: int, inputs=None):
     for _ in range(gen_tokens - 1):
         ts = time.perf_counter()
         logits, cache = decode(params, cache, {"token": tok})
-        tok = logits.argmax(dim=-1)
+        tok = model.greedy(logits, cache)
         _sync(dev)
         step_s.append(time.perf_counter() - ts)
         out_tokens.append(tok)
@@ -123,33 +132,34 @@ def serve_loop(
     """Serve ``cfg`` with random weights and prompts made from ``seed``.
 
     Runs on ``cuda`` unless ``device="cpu"``; raises without a card.
-    ``strategy`` names the reference's sharding rules; only its default,
-    ``"dos"``, is taken. Decoding is greedy, as in the reference.
-    Weights and prompts are drawn on the CPU, so one seed gives the same
-    run on either device; ``init_s`` is the time that takes (weights
-    drawn, moved and cast), outside the prefill and decode times. The
-    weights are formed a leaf at a time (``Model.init_compute``), so the
-    card holds them in the compute dtype only (deepseek-moe-16b: 33.8 GB
-    of bf16, where the f32 tree alone is 67.5 GB); drawing its 16.9 B
-    values on the host takes minutes. The vision and encoder-decoder
-    prefills also take ``model_inputs`` (drawn after ``init_s``)."""
+    ``strategy`` (dos, megatron, zero, auto) and ``mesh_shape`` (data,
+    model) are the reference's: on a mesh of more than one rank (the
+    default process group's, ``launch.mesh``), each rank draws every
+    weight, keeps its shard under the rules (FSDP off, as serving has
+    it) and serves its part of the batch; every rank returns the whole
+    batch's tokens. At (1, 1) every strategy serves as one device does.
+    Decoding is greedy, as in the reference. Weights and prompts are
+    drawn on the CPU, so one seed gives the same run on either device;
+    ``init_s`` is the time that takes (weights drawn, cut, moved and
+    cast), outside the prefill and decode times. The weights are formed
+    a leaf at a time (``Model.init_compute``), so the card holds them in
+    the compute dtype only (deepseek-moe-16b: 33.8 GB of bf16, where the
+    f32 tree alone is 67.5 GB); drawing its 16.9 B values on the host
+    takes minutes. The vision and encoder-decoder prefills also take
+    ``model_inputs`` (drawn after ``init_s``)."""
     dev = resolve_device(device)
-    if tuple(mesh_shape) != (1, 1):
-        raise NotImplementedError(
-            "multi-device serving is not ported yet (ROADMAP queue 1 item 10)"
-        )
-    if strategy != "dos":
-        raise NotImplementedError(
-            f"sharding strategy {strategy!r} is not ported yet (ROADMAP queue 1 item 10)"
-        )
+    rules = ShardingRules(make_test_mesh(*mesh_shape), strategy=strategy, fsdp=False)
+    multi = spans_ranks(cfg, rules)
     t0 = time.perf_counter()
     model = build(cfg, device=dev)
-    params = model.init_compute(torch.Generator().manual_seed(seed))
+    place = shard_place(param_sharding(model.defs, rules), rules.mesh) if multi else None
+    params = model.init_compute(torch.Generator().manual_seed(seed), place)
     _sync(dev)
     init_s = time.perf_counter() - t0
     prompts = torch.randint(0, cfg.vocab, (batch, prompt_len),
                             generator=torch.Generator().manual_seed(seed + 1))
-    out = generate(model, params, prompts, gen_tokens, model_inputs(cfg, batch, seed))
+    with use_rules(rules if multi else None):  # one rank: one device's path, no lookups
+        out = generate(model, params, prompts, gen_tokens, model_inputs(cfg, batch, seed))
     out["init_s"] = init_s
     out["device"] = device_info(dev)
     return out
@@ -163,8 +173,8 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=64)
     ap.add_argument("--gen-tokens", type=int, default=32)
-    ap.add_argument("--strategy", default="dos",
-                    help="the reference's sharding rules; only dos is ported")
+    ap.add_argument("--strategy", default="dos", choices=STRATEGIES,
+                    help="the reference's sharding rules")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--json", action="store_true",
                     help="emit the machine-readable summary")
@@ -173,10 +183,13 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = reduced(cfg)
+    dev, mesh_shape = cli_mesh(args.device)
     r = serve_loop(
-        cfg, batch=args.batch, prompt_len=args.prompt_len,
-        gen_tokens=args.gen_tokens, strategy=args.strategy, device=args.device,
+        cfg, batch=args.batch, prompt_len=args.prompt_len, gen_tokens=args.gen_tokens,
+        strategy=args.strategy, mesh_shape=mesh_shape, device=dev,
     )
+    if not is_first_rank():
+        return
     if args.json:
         print(json.dumps({
             "arch": args.arch,

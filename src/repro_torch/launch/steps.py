@@ -10,6 +10,11 @@ the reference: the
 batch is split along its leading dim, each part's gradients are summed
 in f32, and the sums and the loss are divided by the count before the
 one update.
+
+Under sharding rules (``parallel.axes.use_rules``) on a mesh of several
+ranks the step takes this rank's shards of the params and moments and the
+global batch: the gradients are summed over the batch axes, and the clip
+reads the global norm of the shards (``optim.adamw.global_norm``).
 """
 
 from __future__ import annotations
@@ -25,7 +30,14 @@ __all__ = ["loss_and_grads", "accumulate_grads", "make_train_step", "make_prefil
 
 def loss_and_grads(model, params, batch, remat):
     """``(loss, grads)``: the loss (a 0-d f32 tensor) and its gradient
-    tree with respect to ``params``."""
+    tree with respect to ``params``. Under sharding rules (``use_rules``)
+    on a mesh, ``params`` are this rank's shards, ``batch`` the global
+    batch, and the gradients this rank's shards of the global batch's."""
+    loss, grads = _loss_and_grads(model, params, batch, remat)
+    return loss, model.layout(batch["tokens"].shape[0]).reduce_grads(grads)
+
+
+def _loss_and_grads(model, params, batch, remat):
     pairs = [(path, t.detach().requires_grad_(True)) for path, t in leaves(params)]
     with torch.enable_grad():
         loss = model.loss(unflatten(pairs), batch, remat=remat)
@@ -47,11 +59,11 @@ def accumulate_grads(model, params, batch, remat, microbatches):
                     params)
     lsum = torch.zeros((), dtype=torch.float32, device=model.device)
     for part in parts:
-        loss, grads = loss_and_grads(model, params, part, remat)
+        loss, grads = _loss_and_grads(model, params, part, remat)
         gsum = unflatten((path, a + g.float())
                          for (path, a), (_, g) in zip(leaves(gsum), leaves(grads)))
         lsum = lsum + loss
-    return lsum / mb, map_tree(lambda g: g / mb, gsum)
+    return lsum / mb, model.layout(b).reduce_grads(map_tree(lambda g: g / mb, gsum))
 
 
 def make_train_step(model, opt_cfg: OptConfig, *, remat=True, microbatches: int = 1):
@@ -65,7 +77,9 @@ def make_train_step(model, opt_cfg: OptConfig, *, remat=True, microbatches: int 
             loss, grads = loss_and_grads(model, params, batch, remat)
         else:
             loss, grads = accumulate_grads(model, params, batch, remat, microbatches)
-        new_params, new_opt, _ = adamw_update(params, grads, opt_state, opt_cfg)
+        lay = model.layout(batch["tokens"].shape[0])
+        shards = None if lay.mesh is None else (lay.mesh, lay.specs)
+        new_params, new_opt, _ = adamw_update(params, grads, opt_state, opt_cfg, shards=shards)
         return new_params, new_opt, loss
 
     return train_step

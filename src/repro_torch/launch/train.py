@@ -19,11 +19,16 @@ config's ``param_dtype`` (f32 masters) and moved to the device; each GEMM
 casts them to the compute dtype. Every step ends with a device
 synchronize, so the watchdog's step times are the device's.
 
-Runs on the card unless ``device="cpu"``; raises without one. One device
-only: a ``mesh_shape`` other than (1, 1), or a ``strategy`` other than
-``"dos"``, is ROADMAP queue 1 item 10. The dense, MoE, hybrid and SSM
-(xLSTM) families train here. The vision (vlm) and encoder-decoder
-(encdec) families raise (``check_trainable``): the loop feeds
+Runs on the card unless ``device="cpu"``; raises without one. The
+dense, MoE, hybrid and SSM (xLSTM) families train here under every
+strategy at (1, 1); the dense family on any (data, model) mesh (the
+others are ROADMAP queue 1 item 10, part 2). Under ``torchrun`` the CLI
+lays the world out as a (1, WORLD_SIZE) mesh (``launch.mesh.cli_mesh``):
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train --strategy dos --steps 30
+
+The vision (vlm) and encoder-decoder (encdec) families raise
+(``check_trainable``): the loop feeds
 ``SyntheticLM``'s tokens and labels only, as the reference's does, and
 the reference's loop fails on them too; they train through
 ``launch.steps.make_train_step`` with ``image_embeds`` / ``enc_frames``
@@ -47,6 +52,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .._device import device_info, resolve_device
 from ..checkpoint import checkpointer
@@ -54,9 +60,12 @@ from ..configs import get_config, reduced
 from ..data import DataConfig, SyntheticLM
 from ..kernels import launch_counts
 from ..models import build
-from ..models.zoo import MODEL_INPUTS
+from ..models.zoo import MODEL_INPUTS, spans_ranks
 from ..optim import OptConfig, init_opt_state
+from ..parallel.axes import STRATEGIES, ShardingRules, param_sharding, use_rules
+from ..parallel.plan import gather_tree, shard_place
 from ..runtime import FaultInjector, StragglerWatchdog, elastic_restore, run_with_restarts
+from .mesh import cli_mesh, is_first_rank, make_test_mesh
 from .steps import make_train_step
 
 __all__ = ["check_trainable", "cut_depth", "train_loop", "main"]
@@ -108,35 +117,53 @@ def train_loop(
     device=None,
 ):
     """Train ``cfg`` for ``steps`` steps. Returns ``(state, losses,
-    watchdog)``: state ``{"params", "opt"}``, the loss of every step run
-    (a restart repeats the steps after its checkpoint), and the watchdog
-    with the step times. ``strategy`` names the reference's sharding
-    rules; only its default, ``"dos"``, is taken."""
+    watchdog)``: state ``{"params", "opt"}`` (this rank's shards), the
+    loss of every step run (a restart repeats the steps after its
+    checkpoint), and the watchdog with the step times. ``strategy`` (dos,
+    megatron, zero, auto) and ``mesh_shape`` (data, model) are the
+    reference's: on a mesh of more than one rank (the default process
+    group's, ``launch.mesh``) each rank holds its shards of the f32
+    masters and AdamW moments under the rules with FSDP on, and takes
+    its part of each step's global batch. Checkpoints hold full arrays
+    (gathered; rank 0 writes them), so a run restores onto any mesh
+    (``elastic_restore``)."""
     dev = resolve_device(device)
-    if tuple(mesh_shape) != (1, 1):
-        raise NotImplementedError(
-            "multi-device training is not ported yet (ROADMAP queue 1 item 10)"
-        )
-    if strategy != "dos":
-        raise NotImplementedError(
-            f"sharding strategy {strategy!r} is not ported yet (ROADMAP queue 1 item 10)"
-        )
+    rules = ShardingRules(make_test_mesh(*mesh_shape), strategy=strategy, fsdp=True)
+    multi = spans_ranks(cfg, rules)
     check_trainable(cfg)
     model = build(cfg, device=dev)
     opt_cfg = opt_cfg or OptConfig(lr=1e-3, warmup_steps=20, total_steps=steps)
-    data = SyntheticLM(DataConfig(cfg.vocab, seq_len, global_batch, seed=seed))
+    # every rank makes the global batch (as one process does) and keeps its rows
+    data = SyntheticLM(DataConfig(cfg.vocab, seq_len, global_batch, seed=seed),
+                       process_index=0, process_count=1)
     step_fn = make_train_step(model, opt_cfg, remat=True, microbatches=microbatches)
+    specs = param_sharding(model.defs, rules) if multi else None
+    state_specs = {"params": specs, "opt": {"m": specs, "v": specs, "step": ()}}
 
     losses = []
     watchdog = StragglerWatchdog()
 
     def make_state(resume_step):
-        params = model.init(torch.Generator().manual_seed(seed))
+        place = shard_place(specs, rules.mesh) if multi else None
+        params = model.init(torch.Generator().manual_seed(seed), place=place)
         opt = init_opt_state(params)
         if resume_step is not None and ckpt_dir:
-            state = elastic_restore(ckpt_dir, resume_step, {"params": params, "opt": opt}, dev)
+            state = elastic_restore(ckpt_dir, resume_step, {"params": params, "opt": opt}, dev,
+                                    specs=state_specs if multi else None, mesh=rules.mesh)
             params, opt = state["params"], state["opt"]
         return {"params": params, "opt": opt}
+
+    def save(step, state, wait):
+        """One rank: ``save_async`` but for the last. A mesh: the full arrays
+        gathered, rank 0 writing them, every rank waiting until they are
+        on disk, so that none looks for a step that is half written."""
+        if not multi:
+            (checkpointer.save if wait else checkpointer.save_async)(ckpt_dir, step, state)
+            return
+        full = gather_tree(state, state_specs, rules.mesh)
+        if dist.get_rank() == 0:
+            checkpointer.save(ckpt_dir, step, full)
+        dist.barrier()
 
     def run(state, start_step):
         params, opt = state["params"], state["opt"]
@@ -145,17 +172,18 @@ def train_loop(
                 fault_injector.maybe_fail(step)
             watchdog.start_step()
             batch = {k: torch.from_numpy(x).to(dev) for k, x in data.batch(step).items()}
-            params, opt, loss = step_fn(params, opt, batch)
+            with use_rules(rules if multi else None):
+                params, opt, loss = step_fn(params, opt, batch)
             _sync(dev)
             watchdog.end_step(step)
             losses.append(float(loss))
-            if log_every and step % log_every == 0:
+            if log_every and step % log_every == 0 and is_first_rank():
                 print(f"step {step:5d} loss {float(loss):.4f}")
             done = step + 1  # a checkpoint is named by the steps it has taken
             if ckpt_dir and done % ckpt_every == 0 and done < steps:
-                checkpointer.save_async(ckpt_dir, done, {"params": params, "opt": opt})
+                save(done, {"params": params, "opt": opt}, wait=False)
         if ckpt_dir:
-            checkpointer.save(ckpt_dir, steps, {"params": params, "opt": opt})
+            save(steps, {"params": params, "opt": opt}, wait=True)
         return {"params": params, "opt": opt}
 
     if ckpt_dir:
@@ -176,8 +204,8 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=128)
-    ap.add_argument("--strategy", default="dos",
-                    help="the reference's sharding rules; only dos is ported")
+    ap.add_argument("--strategy", default="dos", choices=STRATEGIES,
+                    help="the reference's sharding rules")
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--lr", type=float, default=1e-3)
@@ -190,18 +218,20 @@ def main(argv=None):
         cfg = reduced(cfg)
     if args.layers:
         cfg = cut_depth(cfg, args.layers)
-    dev = resolve_device(args.device)
+    dev, mesh_shape = cli_mesh(args.device)
     c0 = launch_counts()
     t0 = time.time()
     _, losses, wd = train_loop(
         cfg, steps=args.steps, global_batch=args.batch, seq_len=args.seq,
-        strategy=args.strategy, ckpt_dir=args.ckpt_dir,
+        strategy=args.strategy, mesh_shape=mesh_shape, ckpt_dir=args.ckpt_dir,
         microbatches=args.microbatches, log_every=0 if args.json else 10,
         opt_cfg=OptConfig(lr=args.lr, warmup_steps=20, total_steps=args.steps),
         device=dev,
     )
     dt = time.time() - t0
     toks = args.steps * args.batch * args.seq
+    if not is_first_rank():
+        return
     if args.json:
         step_s = np.asarray(wd.times)
         c1 = launch_counts()

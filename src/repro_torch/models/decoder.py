@@ -23,27 +23,38 @@ recomputes each dense or vision self-attention layer, or each of the
 hybrid's Mamba2 layers, in the backward), ``prefill`` (whole prompt;
 returns the cache) and ``decode`` (one token; the cache advances in
 place).
+
+On a mesh (``layout``: this rank's ``layers.Layout`` under sharding
+rules) the dense branch runs on the rank's shards, its FSDP leaves
+gathered one layer at a time; a prefill returns the rank's shard of the
+cache under the reference's placement (``parallel.plan``). The other
+branches take one device's layout only.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..config import ArchConfig
+from ..parallel import axes as A
+from ..parallel import collectives as C
+from ..parallel import plan as P
 from .layers import (
-    attention, attn_defs, compute_cross_kv, embed_defs, embed_tokens, mlp, mlp_defs, rmsnorm,
-    rmsnorm_def, unembed,
+    ONE, Layout, attention, attn_defs, compute_cross_kv, embed_defs, embed_tokens, mlp, mlp_defs,
+    rmsnorm, rmsnorm_def, unembed,
 )
 from .moe import moe_block, moe_defs
-from .params import ParamDef, compute_cast, map_tree, stack_defs
+from .params import ParamDef, compute_cast, leaves, map_tree, stack_defs
 from .ssm import mamba_block, mamba_defs, mamba_init_state
 from .xlstm import (
     mlstm_block, mlstm_defs, mlstm_init_state, slstm_block, slstm_defs, slstm_init_state,
 )
 
-__all__ = ["decoder_defs", "decoder_forward", "init_cache", "layer_metadata", "pad_kv"]
+__all__ = ["decoder_defs", "decoder_forward", "init_cache", "layer_metadata", "layout", "pad_kv"]
 
 _GLOBAL_WINDOW = 2**30  # "window" larger than any sequence = global attn
 
@@ -121,6 +132,32 @@ def layer_metadata(cfg: ArchConfig, n: int | None = None):
     return wins, thetas
 
 
+@functools.lru_cache(maxsize=64)
+def layout(cfg: ArchConfig, rules, batch: int) -> Layout:
+    """This rank's layout of the dense family under ``rules`` (a mesh of
+    more than one rank) for a global batch of ``batch`` rows
+    (``zoo.spans_ranks`` has refused the other families)."""
+    mesh = rules.mesh
+    tp = ("model",) if "model" in rules.axis_names and rules.strategy != "zero" else ()
+    m = C.axis_size(mesh, tp)
+    bspec = P.batch_sharding(rules, {"tokens": torch.empty((batch, 1), device="meta")})
+    specs = dict(leaves(A.param_sharding(decoder_defs(cfg), rules)))
+    dims = {}
+    for path, spec in specs.items():
+        tail = spec[-2:] if len(spec) >= 2 else ()
+        if tp and "model" in tail:
+            dims[path[-2:]] = tail.index("model")
+    split = lambda n: bool(tp) and n % m == 0  # noqa: E731
+    return Layout(
+        rules=rules, mesh=mesh, specs=specs, dims=dims, tp=tp, m=m,
+        batch=A.spec_axes(bspec["tokens"][0]), all_batch=rules.batch_axes(), global_batch=batch,
+        resid=split(cfg.d_model) and rules.act_spec("residual")[-1] == "model",
+        heads=split(cfg.n_kv_heads) and split(cfg.n_heads), hidden=split(cfg.d_ff),
+        vocab=split(cfg.vocab),
+        fsdp=any(p is not None and not (tp and p == "model")
+                 for spec in specs.values() for p in spec))
+
+
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16,
                device=None):
     """Decode-ready cache and one ``length`` for all layers (the
@@ -161,20 +198,23 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=torch.bfloat16,
     }
 
 
-def _attn_mlp_block(lp, x, cfg, *, mode, cache, window, theta, cross_kv=None):
+def _attn_mlp_block(lp, x, cfg, *, mode, cache, window, theta, cross_kv=None, lay=ONE):
+    """One attention+MLP layer; on a mesh its FSDP shards are gathered
+    here, just before the layer uses them (and again in a recompute)."""
+    lp = lay.gather(lp, "layers")
     h, new_cache = attention(
-        lp["attn"], rmsnorm(x, lp["ln1"], cfg.norm_eps), cfg,
-        mode=mode, cache=cache, window=window, theta=theta, cross_kv=cross_kv,
+        lp["attn"], rmsnorm(x, lp["ln1"], cfg.norm_eps, lay, lay.resid), cfg,
+        mode=mode, cache=cache, window=window, theta=theta, cross_kv=cross_kv, lay=lay,
     )
     if "gate" in lp:  # gated cross-attention (llama-3.2-vision)
         h = torch.tanh(lp["gate"].float()).to(h.dtype) * h
     x = x + h
-    y = rmsnorm(x, lp["ln2"], cfg.norm_eps)
-    ffn = moe_block(lp["ffn"], y, cfg) if "router" in lp["ffn"] else mlp(lp["ffn"], y)
+    y = rmsnorm(x, lp["ln2"], cfg.norm_eps, lay, lay.resid)
+    ffn = moe_block(lp["ffn"], y, cfg) if "router" in lp["ffn"] else mlp(lp["ffn"], y, lay)
     return x + ffn, new_cache
 
 
-def _train_block(lp, x, cfg, *, window, theta, remat):
+def _train_block(lp, x, cfg, *, window, theta, remat, lay=ONE):
     """One attention+MLP layer in training. ``remat=True`` recomputes the
     layer in the backward (``torch.utils.checkpoint``, the reference's
     ``jax.checkpoint`` of its scanned body); ``"save_gathered"`` also
@@ -184,7 +224,7 @@ def _train_block(lp, x, cfg, *, window, theta, remat):
 
     def block(lp, x):
         return _attn_mlp_block(lp, x, cfg, mode="train", cache=None, window=window,
-                               theta=theta)[0]
+                               theta=theta, lay=lay)[0]
 
     if not remat:
         return block(lp, x)
@@ -193,9 +233,10 @@ def _train_block(lp, x, cfg, *, window, theta, remat):
     return checkpoint(block, lp, x, use_reentrant=False)
 
 
-def _dense_layers(params, x, cfg, *, mode, cache, remat=False):
+def _dense_layers(params, x, cfg, *, mode, cache, remat=False, lay=ONE):
     """The dense (and MoE) stack; prefill returns its k/v stacked (L, B, S, KVH, D),
-    train no cache."""
+    train no cache. A sequence-sharded decode cache's ``seq_lo`` and
+    ``seq_axes`` reach every layer."""
     wins, thetas = layer_metadata(cfg)
     ks, vs = [], []  # prefill: each layer's new k, v
     # one unbind per stacked leaf: in training its backward stacks the
@@ -203,17 +244,18 @@ def _dense_layers(params, x, cfg, *, mode, cache, remat=False):
     # layer's gradient as a zero-filled copy of the whole stack and sum L
     # of them
     stacked = map_tree(lambda a: a.unbind(0), params["layers"])
+    ring = {k: cache[k] for k in ("seq_lo", "seq_axes") if k in cache} if cache else {}
     for i in range(cfg.n_layers):
         lp = map_tree(lambda a: a[i], stacked)
         if mode == "train":
-            x = _train_block(lp, x, cfg, window=wins[i], theta=thetas[i], remat=remat)
+            x = _train_block(lp, x, cfg, window=wins[i], theta=thetas[i], remat=remat, lay=lay)
             continue
         cache_l = None
         if mode == "decode":
             cache_l = {"k": cache["layers"]["k"][i], "v": cache["layers"]["v"][i],
-                       "length": cache["length"]}
+                       "length": cache["length"], **ring}
         x, nc = _attn_mlp_block(lp, x, cfg, mode=mode, cache=cache_l,
-                                window=wins[i], theta=thetas[i])
+                                window=wins[i], theta=thetas[i], lay=lay)
         if mode == "prefill":
             ks.append(nc["k"])
             vs.append(nc["v"])
@@ -362,34 +404,58 @@ def _xlstm_blocks(params, x, cfg, *, mode, cache, remat=False):
 
 
 def decoder_forward(params, tokens, cfg: ArchConfig, *, mode: str, cache=None,
-                    image_embeds=None, max_len: int = 0, remat=False):
+                    image_embeds=None, max_len: int = 0, remat=False, lay: Layout = ONE):
     """tokens (B, S) int -> (logits (B, S, V) f32, new cache); ``train``
     returns no cache, and ``remat`` (False, True or ``"save_gathered"``)
     applies to it alone, as in the reference. The vision model's train and
-    prefill take ``image_embeds`` (B, n_image_tokens, E)."""
+    prefill take ``image_embeds`` (B, n_image_tokens, E). On a mesh
+    (``lay``) the dense branch takes this rank's parameter shards and
+    rows of the batch, and returns its logits (its vocab slice where the
+    vocab is sharded) and its cache (``_placed_cache``)."""
     _check_family(cfg)
-    x = embed_tokens(params["embed"], tokens, getattr(torch, cfg.compute_dtype))
+    emb = lay.gather(params["embed"], "embed")
+    x = embed_tokens(emb, tokens, getattr(torch, cfg.compute_dtype), lay)
     remat = remat if mode == "train" else False
     if cfg.family == "vlm":
         x, new_cache = _vlm_layers(params, x, cfg, mode=mode, cache=cache,
                                    image_embeds=image_embeds, remat=remat)
-    else:
-        layers = {"hybrid": _hybrid_layers, "ssm": _xlstm_blocks}.get(cfg.family, _dense_layers)
+    elif cfg.family in ("hybrid", "ssm"):
+        layers = _hybrid_layers if cfg.family == "hybrid" else _xlstm_blocks
         x, new_cache = layers(params, x, cfg, mode=mode, cache=cache, remat=remat)
+    else:
+        x, new_cache = _dense_layers(params, x, cfg, mode=mode, cache=cache, remat=remat,
+                                     lay=lay)
 
-    x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
-    logits = unembed(params["embed"], x, cfg.tie_embeddings)
+    x = rmsnorm(x, lay.gather(params["final_norm"], "final_norm"), cfg.norm_eps, lay, lay.resid)
+    logits = unembed(emb, x, cfg.tie_embeddings, lay)
 
     if mode == "train":
         return logits, None
-    if mode == "decode":
-        new_cache["length"] = cache["length"] + 1
-        return logits, new_cache
+    if mode == "decode":  # a mesh's cache keeps its placement's keys
+        return logits, {**cache, **new_cache, "length": cache["length"] + 1}
     new_cache["length"] = tokens.shape[1]
     kv = "attn" if cfg.family == "hybrid" else "layers"  # the xLSTM's states have no k/v
     if max_len and kv in new_cache:
         new_cache[kv] = pad_kv(new_cache[kv], max_len)
+    if lay.mesh is not None:
+        new_cache = _placed_cache(lay, cfg, new_cache)
     return logits, new_cache
+
+
+def _placed_cache(lay: Layout, cfg, cache):
+    """This rank's shard of a prefill's cache under ``serve_cache_specs``:
+    its rows (as the activations hold them) and KV heads (as attention ran
+    on them), and its slice of the sequence where the placement shards it
+    (``seq_lo``, ``seq_axes``); ``batch`` is the global batch."""
+    b, s_max = lay.global_batch, cache["layers"]["k"].shape[2]
+    spec = P.serve_cache_specs(lay.rules, P.abstract_cache(cfg, b, s_max), b)["layers"]["k"]
+    if (C.axis_size(lay.mesh, spec[1]) != C.axis_size(lay.mesh, lay.batch)
+            or C.axis_size(lay.mesh, spec[3]) != (lay.m if lay.heads else 1)):
+        raise AssertionError(f"cache spec {spec} and the activations' layout {lay} differ")
+    seq_axes = A.spec_axes(spec[2])
+    kv = {n: C.local_slice(t, lay.mesh, seq_axes, 2) for n, t in cache["layers"].items()}
+    lo = C.axis_index(lay.mesh, seq_axes) * kv["k"].shape[2]
+    return {**cache, "layers": kv, "seq_lo": lo, "seq_axes": seq_axes, "batch": b}
 
 
 def pad_kv(kv, max_len):

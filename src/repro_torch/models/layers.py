@@ -13,23 +13,132 @@ encoder) and cross-attention to keys and values that
 model's image embeddings, whisper's encoder output). ``mlp`` is the
 gated-silu MLP or the plain 2-layer gelu one (whisper), as its tree's
 keys say. The MoE family's expert FFN is ``models/moe.py``.
+
+**Sharding.** ``proj``, ``rmsnorm``, ``embed_tokens``, ``unembed``,
+``attention`` and ``mlp`` take a ``Layout``: what one rank of a (data,
+model) mesh holds and computes. The default, ``ONE``, is one device's;
+every collective then spans one rank and returns its input with no call,
+so the functions launch what they launched before sharding existed. The
+dense family runs on a mesh of several ranks (``decoder.layout``); the
+other families take ``ONE`` only. Each rank holds exactly the shards of
+the weights and the KV cache that the reference's placement gives it;
+FSDP shards (the batch axes' entries of a weight's spec) are gathered
+one layer at a time, just before the layer uses them, and their
+gradients leave by reduce-scatter (``Layout.gather``).
+
+Tensor parallelism runs over ``model`` (none under ``zero``, whose batch
+spans the whole mesh). Every GEMM is ``dos_matmul`` on the local
+operands (``proj``):
+
+- a weight sharded on its contraction axis (``dos``; megatron's
+  out-projections) multiplies this rank's K-slice of the input into an
+  f32 partial, and the partials are summed over ``model`` in f32 and
+  only then cast, as the reference accumulates in f32 before its cast:
+  by all-reduce, or by reduce-scatter onto the next GEMM's contraction
+  axis (the dOS "optimized pile");
+- a weight sharded on its output axis (megatron's in-projections)
+  multiplies the whole input into this rank's output columns;
+- a replicated weight (the reference's fallback where a shard does not
+  divide) multiplies the whole input.
+
+Activations take a simpler layout than the reference's ``act_spec``
+where the result is the same: the last dim of each is either whole or
+split evenly over ``model``. The residual is split on E under ``dos``
+(``act_spec("residual")``, where E divides), with ``rmsnorm``
+all-reducing its sum of squares; attention runs on this rank's heads
+when the KV heads divide ``model`` (so every local query head's KV head
+is local), else on all heads on every rank; the MLP hidden is split on F
+and the logits on the vocab where they divide. The vocab-sharded table
+looks up the rows it holds, masks the others and all-reduces. A cache
+sharded on its sequence (the "ring": the KV heads do not divide
+``model``, or the batch does not divide the data axes) is attended to
+slice by slice, and the slices' softmaxes are merged by their
+log-sum-exps.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 import torch.nn.functional as F
 
 from ..kernels import decode_attention, dos_matmul, flash_attention
-from .params import ParamDef
+from ..parallel import collectives as C
+from ..parallel.axes import spec_axes
+from .params import ParamDef, leaves, unflatten
 
 __all__ = [
-    "proj", "rmsnorm", "rmsnorm_def", "rope", "embed_defs", "embed_tokens",
+    "Layout", "ONE", "proj", "rmsnorm", "rmsnorm_def", "rope", "embed_defs", "embed_tokens",
     "unembed", "attn_defs", "compute_cross_kv", "attention", "mlp_defs", "mlp",
 ]
 
 
-def proj(x, w, b=None):
+@dataclasses.dataclass(frozen=True, eq=False)
+class Layout:
+    """What one rank holds and computes in one run (``ONE``: one device)."""
+
+    rules: object = None  # the sharding rules (None: one device)
+    mesh: object = None
+    specs: dict = dataclasses.field(default_factory=dict)  # every leaf's spec, by path
+    dims: dict = dataclasses.field(default_factory=dict)  # (group, name) -> a weight's TP dim
+    tp: tuple = ()        # the tensor-parallel axes: ("model",), or () under zero
+    m: int = 1            # ranks along them
+    batch: tuple = ()     # the axes the activations' batch is split over
+    all_batch: tuple = ()  # the rules' batch axes (the loss is averaged over them)
+    global_batch: int = 0
+    resid: bool = False   # the residual split on E
+    heads: bool = False   # attention on this rank's heads
+    hidden: bool = False  # the MLP hidden split on F
+    vocab: bool = False   # logits split on the vocab
+    fsdp: bool = False    # some leaf sharded over other axes than the TP ones
+
+    def dim(self, group, name):
+        """The dim of weight ``group/name`` that tensor parallelism shards
+        (0: contraction, 1: output), or None."""
+        return self.dims.get((group, name))
+
+    def gather(self, tree, root):
+        """``tree`` (the parameters' ``root`` subtree, or a layer's slice of
+        it, or a leaf) with its FSDP shards gathered; the tensor-parallel
+        shards stay."""
+        if not self.fsdp:
+            return tree
+
+        def one(path, t):
+            spec = self.specs[path]
+            spec = spec[len(spec) - t.ndim:] if spec else spec  # a layer's slice drops "layers"
+            for dim, part in enumerate(spec):
+                if part is not None and not (self.tp and part == "model"):
+                    t = C.gather_params(t, self.mesh, part, dim)
+            return t
+
+        if isinstance(tree, torch.Tensor):
+            return one((root,), tree)
+        return unflatten((path[1:], one(path, t)) for path, t in leaves(tree, (root,)))
+
+    def batch_slice(self, x):
+        """This rank's rows of a global batch tensor (B, ...)."""
+        return C.local_slice(x, self.mesh, self.batch, 0)
+
+    def reduce_grads(self, grads):
+        """Each gradient summed over the batch axes its leaf is not sharded
+        over (an FSDP leaf's reduce-scatter summed it already)."""
+        if self.mesh is None:
+            return grads
+
+        def one(path, g):
+            held = {a for part in self.specs[path] for a in spec_axes(part)}
+            return C.psum(g, self.mesh, tuple(a for a in self.all_batch if a not in held))
+
+        return unflatten((path, one(path, g)) for path, g in leaves(grads))
+
+
+ONE = Layout()
+
+
+def proj(x, w, b=None, lay: Layout = ONE, wdim=None, x_split: bool = False,
+         out_split: bool = False):
     """x (..., K) @ w (K, N) in compute dtype, f32 accumulation.
 
     The weight is cast to the compute dtype here, as the reference's
@@ -37,10 +146,30 @@ def proj(x, w, b=None):
     and its gradient passes back through the cast. Serving casts once at
     load (``Model.compute_params``), which gives the same values and
     saves a read, a write and a cast per call; for a weight already in
-    x's dtype ``.to`` returns it unchanged."""
-    y = dos_matmul(x, w.to(x.dtype), out_dtype=x.dtype)
+    x's dtype ``.to`` returns it unchanged.
+
+    On a mesh the operands are this rank's: ``x_split`` says that x holds
+    its slice of K's columns, ``wdim`` which dim of w is split over
+    ``lay``'s tensor-parallel ranks (None: replicated); the result holds
+    its slice of N if ``out_split``, else all of N."""
+    dt = x.dtype
+    w = w.to(dt)
+    mesh, tp = lay.mesh, lay.tp
+    if wdim == 0:  # the paper's pile: K-slice partials summed in f32
+        y = dos_matmul(x if x_split else C.split(x, mesh, tp), w, out_dtype=torch.float32)
+        y = (C.reduce_scatter(y, mesh, tp) if out_split else C.all_reduce(y, mesh, tp)).to(dt)
+    elif wdim == 1:  # column-parallel
+        xf = C.all_gather(x, mesh, tp) if x_split else x
+        y = dos_matmul(C.copy_to(xf, mesh, tp), w, out_dtype=dt)
+        if not out_split:
+            y = C.all_gather(y, mesh, tp)
+    else:
+        y = dos_matmul(C.all_gather(x, mesh, tp) if x_split else x, w, out_dtype=dt)
+        if out_split:
+            y = C.split(y, mesh, tp)
     if b is not None:
-        y = y + b.to(x.dtype)
+        b = b.to(dt)
+        y = y + (C.split(b, mesh, tp) if out_split else b)
     return y
 
 
@@ -51,10 +180,18 @@ def rmsnorm_def(dim: int, axes=("embed",)):
     return ParamDef((dim,), axes, init="ones")
 
 
-def rmsnorm(x, scale, eps: float = 1e-6):
+def rmsnorm(x, scale, eps: float = 1e-6, lay: Layout = ONE, x_split: bool = False):
+    """``x_split``: x holds this rank's slice of E (the sum of squares is
+    all-reduced over ``lay``'s tensor-parallel ranks)."""
     xf = x.float()
-    var = (xf * xf).mean(dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+    if not x_split:
+        var = (xf * xf).mean(dim=-1, keepdim=True)
+        return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+    # the sum feeds this rank's slice only: copy_to sums its gradient's parts
+    ss = C.copy_to(C.all_reduce((xf * xf).sum(dim=-1, keepdim=True), lay.mesh, lay.tp),
+                   lay.mesh, lay.tp)
+    var = ss / (xf.shape[-1] * lay.m)
+    return (xf * torch.rsqrt(var + eps) * C.split(scale, lay.mesh, lay.tp).float()).to(x.dtype)
 
 
 # --- rotary embeddings -----------------------------------------------------
@@ -91,18 +228,35 @@ def embed_defs(cfg):
     return defs
 
 
-def embed_tokens(p, tokens, compute_dtype):
+def embed_tokens(p, tokens, compute_dtype, lay: Layout = ONE):
+    """Token embeddings (B, S, E), split on E if ``lay.resid``. A
+    vocab-sharded table looks up its own rows, masks the rest and sums
+    over ``model`` (one nonzero term per entry: exact)."""
+    mesh, tp, tok = lay.mesh, lay.tp, p["tok"]
+    if lay.dim("embed", "tok") == 0:
+        rows = tok.shape[0]
+        local = tokens - C.axis_index(mesh, tp) * rows
+        mine = (local >= 0) & (local < rows)
+        e = torch.where(mine[..., None], F.embedding(torch.where(mine, local, 0), tok), 0.0)
+        e = C.reduce_scatter(e, mesh, tp) if lay.resid else C.all_reduce(e, mesh, tp)
+        return e.to(compute_dtype)
     # the backward of F.embedding (torch's embedding backward) gave the same
     # bits in two runs on the card: chip_smoke.py phase 12's restart check
     # holds the resumed losses to an uninterrupted run's bit for bit
-    return F.embedding(tokens, p["tok"]).to(compute_dtype)
+    e = F.embedding(tokens, tok).to(compute_dtype)
+    return C.split(e, mesh, tp) if lay.resid else e
 
 
-def unembed(p, x, tie: bool):
-    """Logits in f32. The tied head is the transposed embedding, passed
-    to the matmul kernel as a strided view (no copy)."""
-    w = p["tok"].T if tie else p["head"]
-    return proj(x, w).float()
+def unembed(p, x, tie: bool, lay: Layout = ONE):
+    """Logits in f32, split on the vocab if ``lay.vocab``. The tied head
+    is the transposed embedding, passed to the matmul kernel as a strided
+    view (no copy)."""
+    if tie:
+        dim = lay.dim("embed", "tok")
+        w, wdim = p["tok"].T, (None if dim is None else 1 - dim)
+    else:
+        w, wdim = p["head"], lay.dim("embed", "head")
+    return proj(x, w, None, lay, wdim, lay.resid, lay.vocab).float()
 
 
 # --- attention ---------------------------------------------------------------
@@ -139,7 +293,7 @@ def compute_cross_kv(p, kv_src, cfg):
 
 
 def attention(p, x, cfg, *, mode: str, window=None, theta=None, cache=None, cross_kv=None,
-              causal: bool = True):
+              causal: bool = True, lay: Layout = ONE):
     """The universal attention block. Returns (y, new_cache).
 
     ``mode`` is ``train`` (whole sequence, no cache: new_cache is None),
@@ -151,22 +305,34 @@ def attention(p, x, cfg, *, mode: str, window=None, theta=None, cache=None, cros
     them, every key visible (no mask, no window, no rope); q is normed if
     ``cfg.qk_norm``, k is not, as in the reference; a cross block returns
     no cache.
-    """
+
+    On a mesh (``lay``) x is split on E if ``lay.resid`` and the block
+    runs on this rank's heads if ``lay.heads``; a decode cache sharded on
+    its sequence also holds ``seq_lo`` (the first position of this rank's
+    slots) and ``seq_axes`` (the axes it is split over)."""
     b, s, _ = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode {mode!r}: one of train, prefill, decode")
+    if lay.heads:
+        h, kvh = h // lay.m, kvh // lay.m
 
-    q = proj(x, p["wq"], p.get("bq")).reshape(b, s, h, hd)
+    def qkv(name, n):
+        return proj(x, p[name], p.get("b" + name[1]), lay, lay.dim("attn", name), lay.resid,
+                    lay.heads).reshape(b, s, n, hd)
+
+    q = qkv("wq", h)
     if cross_kv is None:
-        k = proj(x, p["wk"], p.get("bk")).reshape(b, s, kvh, hd)
-        v = proj(x, p["wv"], p.get("bv")).reshape(b, s, kvh, hd)
+        k, v = qkv("wk", kvh), qkv("wv", kvh)
     else:
         k, v = cross_kv
-    if cfg.qk_norm:
-        q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
+    if cfg.qk_norm:  # one scale for every head: on local heads, its gradient sums over them
+        qn, kn = p["q_norm"], p["k_norm"]
+        if lay.heads:
+            qn, kn = C.copy_to(qn, lay.mesh, lay.tp), C.copy_to(kn, lay.mesh, lay.tp)
+        q = rmsnorm(q, qn, cfg.norm_eps)
         if cross_kv is None:
-            k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
+            k = rmsnorm(k, kn, cfg.norm_eps)
 
     new_cache = None
     if cross_kv is not None:
@@ -182,9 +348,12 @@ def attention(p, x, cfg, *, mode: str, window=None, theta=None, cache=None, cros
             q = rope(q, length, theta)
             k = rope(k, length, theta)
         kc, vc = cache["k"], cache["v"]
-        kc[:, length] = k[:, 0].to(kc.dtype)
-        vc[:, length] = v[:, 0].to(vc.dtype)
-        o = decode_attention(q, kc, vc, length=length + 1, window=window)
+        lo, seq_axes = cache.get("seq_lo", 0), cache.get("seq_axes", ())
+        slot = length - lo
+        if not seq_axes or 0 <= slot < kc.shape[1]:  # the rank holding the slot writes it
+            kc[:, slot] = k[:, 0].to(kc.dtype)
+            vc[:, slot] = v[:, 0].to(vc.dtype)
+        o = _ring_decode(lay, q, kc, vc, slot + 1, window, seq_axes)
         new_cache = {"k": kc, "v": vc, "length": length + 1}
     else:
         if theta is not None:
@@ -195,8 +364,23 @@ def attention(p, x, cfg, *, mode: str, window=None, theta=None, cache=None, cros
         if mode == "prefill":
             new_cache = {"k": k, "v": v, "length": s}
 
-    y = proj(o.reshape(b, s, h * hd), p["wo"])
+    y = proj(o.reshape(b, s, h * hd), p["wo"], None, lay, lay.dim("attn", "wo"), lay.heads,
+             lay.resid)
     return y, new_cache
+
+
+def _ring_decode(lay: Layout, q, kc, vc, length, window, seq_axes):
+    """Decode attention over this rank's cache slots (positions shifted
+    so that slot 0 is the rank's first); over a sequence-sharded cache,
+    each rank's softmax is merged with the others' by its log-sum-exp."""
+    if C.axis_size(lay.mesh, seq_axes) == 1:
+        return decode_attention(q, kc, vc, length=length, window=window)
+    o, lse = decode_attention(q, kc, vc, length=length, window=window, return_lse=True)
+    top = C.all_reduce_max(lse, lay.mesh, seq_axes)
+    w = torch.exp(lse - top)  # 0 on a rank with no visible slot
+    num = C.all_reduce(o * w[..., None], lay.mesh, seq_axes)
+    den = C.all_reduce(w, lay.mesh, seq_axes)
+    return (num / den[..., None]).to(q.dtype)
 
 
 # --- MLP -----------------------------------------------------------------------
@@ -220,13 +404,19 @@ def mlp_defs(cfg, d_ff=None, act=None):
     }
 
 
-def mlp(p, x):
+def mlp(p, x, lay: Layout = ONE):
     """The gated-silu MLP (llama family) if the tree has ``wi_gate``, else
     the plain 2-layer MLP with the tanh form of gelu (``jax.nn.gelu``'s
     default). The tree's keys pick the form, as in the reference, whose
-    ``act`` argument picks nothing."""
+    ``act`` argument picks nothing. On a mesh (``lay``) x and the result
+    are split on E if ``lay.resid``, the hidden on F if ``lay.hidden``."""
+
+    def up(name, b=None):
+        return proj(x, p[name], b, lay, lay.dim("ffn", name), lay.resid, lay.hidden)
+
+    def down(hidden, b=None):
+        return proj(hidden, p["wo"], b, lay, lay.dim("ffn", "wo"), lay.hidden, lay.resid)
+
     if "wi_gate" in p:
-        hidden = F.silu(proj(x, p["wi_gate"])) * proj(x, p["wi_up"])
-        return proj(hidden, p["wo"])
-    hidden = F.gelu(proj(x, p["wi"], p["bi"]), approximate="tanh")
-    return proj(hidden, p["wo"], p["bo"])
+        return down(F.silu(up("wi_gate")) * up("wi_up"))
+    return down(F.gelu(up("wi", p["bi"]), approximate="tanh"), p["bo"])

@@ -122,20 +122,27 @@ def _draw(d: ParamDef, generator: torch.Generator, dtype):
     raise ValueError(f"init {d.init!r} is not ported")
 
 
-def materialize(defs, generator: torch.Generator, dtype=torch.float32, device=None):
+def materialize(defs, generator: torch.Generator, dtype=torch.float32, device=None,
+                place=None):
     """Initialize real parameters for a ParamDef tree. Values are drawn
     on the generator's device, in the reference's leaf order, then moved
-    to ``device``: one seed gives the same weights on every device."""
+    to ``device``: one seed gives the same weights on every device.
+    ``place(path, leaf)``, if given, cuts each drawn leaf to what this
+    rank holds (``parallel.plan.shard_tree``'s per-leaf step) before the
+    move."""
 
-    def one(d: ParamDef):
+    def one(path, d: ParamDef):
         t = _draw(d, generator, dtype)
+        if place is not None:
+            t = place(path, t)
         return t.to(device) if device is not None else t
 
-    return unflatten((path, one(d)) for path, d in leaves(defs))  # a fixed draw order
+    return unflatten((path, one(path, d)) for path, d in leaves(defs))  # a fixed draw order
 
 
-def materialize_cast(defs, generator: torch.Generator, dtype, compute_dtype, device=None):
-    """``compute_cast(materialize(defs, generator, dtype, device),
+def materialize_cast(defs, generator: torch.Generator, dtype, compute_dtype, device=None,
+                     place=None):
+    """``compute_cast(materialize(defs, generator, dtype, device, place),
     compute_dtype)``, the same values, formed one leaf at a time: each
     leaf is drawn, moved and cast before the next is drawn, so the device
     never holds the tree in ``dtype`` (deepseek-moe-16b: 67.5 GB in f32,
@@ -143,6 +150,8 @@ def materialize_cast(defs, generator: torch.Generator, dtype, compute_dtype, dev
 
     def one(path, d: ParamDef):
         t = _draw(d, generator, dtype)
+        if place is not None:
+            t = place(path, t)
         return compute_cast(t.to(device) if device is not None else t, compute_dtype, path[-1])
 
     return unflatten((path, one(path, d)) for path, d in leaves(defs))

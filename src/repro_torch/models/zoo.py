@@ -14,6 +14,13 @@ encoder-decoder (whisper) through ``models/encdec.py``.
 The vision model's train and prefill batches also hold ``image_embeds``
 (B, n_image_tokens, E), whisper's ``enc_frames`` (B, enc_seq, E); a
 decode step reads what they gave from the cache.
+
+Under sharding rules (``parallel.axes.use_rules``) on a mesh of more
+than one rank, ``loss``, ``prefill``, ``decode`` and ``greedy`` take this
+rank's shards of the parameters and the global batch, and run the dense
+family's forward on them (``Model.layout``: the layers' ``Layout``); the
+other families raise there (ROADMAP queue 1 item 10, part 2). With no
+rules, or on a mesh of one rank, they run as one device does.
 """
 
 from __future__ import annotations
@@ -26,23 +33,64 @@ import torch.nn.functional as F
 
 from .._device import resolve_device
 from ..config import ArchConfig
+from ..launch.mesh import axis_sizes, mesh_size
+from ..parallel import collectives as C
+from ..parallel.axes import current_rules
 from .decoder import decoder_defs, decoder_forward, init_cache
+from .decoder import layout as dense_layout
 from .encdec import encdec_defs, encdec_forward, encdec_init_cache
+from .layers import ONE, Layout
 from .moe import aux_load_balance_loss
 from .params import compute_cast, materialize, materialize_cast, tree_size
 
-__all__ = ["MODEL_INPUTS", "Model", "build", "softmax_xent"]
+__all__ = ["MODEL_INPUTS", "Model", "build", "softmax_xent", "spans_ranks"]
 
 # the input that a family's train and prefill batches hold beside the
 # tokens, and the config field that gives its length
 MODEL_INPUTS = {"vlm": ("image_embeds", "n_image_tokens"), "encdec": ("enc_frames", "enc_seq")}
 
 
-def softmax_xent(logits, labels):
-    """Mean next-token cross-entropy; logits f32 (B, S, V)."""
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    ll = logp.gather(-1, labels[..., None].long())[..., 0]
-    return -ll.mean()
+def spans_ranks(cfg: ArchConfig, rules) -> bool:
+    """Whether ``rules`` span more than one rank; raises for a family
+    that this slice does not shard."""
+    if rules is None or mesh_size(rules.mesh) == 1:
+        return False
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r} ({cfg.name}) runs on a mesh of one rank only; sharding it "
+            f"over {axis_sizes(rules.mesh)} is ROADMAP queue 1 item 10 (part 2)")
+    return True
+
+
+def softmax_xent(logits, labels, lay: Layout = ONE):
+    """Mean next-token cross-entropy; logits f32 (B, S, V). On a mesh
+    (``lay``) the logits are this rank's rows (and vocab slice): the
+    log-softmax over a sharded vocab takes a max, a sum of exponentials
+    and the target's logit from its owner, each all-reduced; each rank's
+    mean is a share of the global mean, summed over the batch axes."""
+    if lay.mesh is None:
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        ll = logp.gather(-1, labels[..., None].long())[..., 0]
+        return -ll.mean()
+    labels = labels.long()
+    if lay.vocab:
+        nll = _vocab_parallel_nll(lay, logits, labels)
+    else:
+        nll = -torch.log_softmax(logits, dim=-1).gather(-1, labels[..., None])[..., 0]
+    nb = C.axis_size(lay.mesh, lay.all_batch)
+    return C.all_reduce(nll.mean() / nb, lay.mesh, lay.all_batch)
+
+
+def _vocab_parallel_nll(lay: Layout, logits, labels):
+    mesh, tp = lay.mesh, lay.tp
+    top = C.all_reduce_max(logits.amax(dim=-1), mesh, tp)
+    sumexp = C.all_reduce(torch.exp(logits - top[..., None]).sum(dim=-1), mesh, tp)
+    v = logits.shape[-1]
+    local = labels - C.axis_index(mesh, tp) * v
+    mine = (local >= 0) & (local < v)
+    picked = logits.gather(-1, torch.where(mine, local, 0)[..., None])[..., 0]
+    target = C.all_reduce(torch.where(mine, picked, 0.0), mesh, tp)
+    return torch.log(sumexp) + top - target
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,12 +100,13 @@ class Model:
     device: torch.device
 
     # ---- parameters -----------------------------------------------------
-    def init(self, generator: torch.Generator, dtype=None):
+    def init(self, generator: torch.Generator, dtype=None, place=None):
         """Parameters in ``param_dtype`` on the model's device. Drawn on
         the generator's device, so a CPU generator gives the same weights
-        on the CPU and on the card."""
+        on the CPU and on the card. ``place(path, leaf)`` cuts each leaf
+        to this rank's shard before the move (``materialize``)."""
         dtype = dtype or getattr(torch, self.cfg.param_dtype)
-        return materialize(self.defs, generator, dtype, self.device)
+        return materialize(self.defs, generator, dtype, self.device, place)
 
     def compute_params(self, params):
         """The parameter tree with every GEMM weight, bias, Mamba2's
@@ -70,22 +119,32 @@ class Model:
         call."""
         return compute_cast(params, getattr(torch, self.cfg.compute_dtype))
 
-    def init_compute(self, generator: torch.Generator):
+    def init_compute(self, generator: torch.Generator, place=None):
         """``compute_params(init(generator))``, bit for bit, formed one
-        leaf at a time (drawn on the generator's device, moved, cast), so
-        that serving never holds the f32 tree on the device."""
+        leaf at a time (drawn on the generator's device, cut by ``place``,
+        moved, cast), so that serving never holds the f32 tree on the
+        device."""
         return materialize_cast(self.defs, generator, getattr(torch, self.cfg.param_dtype),
-                                getattr(torch, self.cfg.compute_dtype), self.device)
+                                getattr(torch, self.cfg.compute_dtype), self.device, place)
 
     @property
     def n_params(self) -> int:
         return tree_size(self.defs)
 
     # ---- forward ------------------------------------------------------------
+    def layout(self, batch: int | None = None) -> Layout:
+        """This rank's layout under the active sharding rules, for a global
+        batch of ``batch`` rows: ``ONE`` with no rules or on a mesh of one
+        rank."""
+        rules = current_rules()
+        if not spans_ranks(self.cfg, rules):
+            return ONE
+        return dense_layout(self.cfg, rules, batch)
+
     def _forward(self, params, tokens, *, mode, cache=None, batch=None, max_len=0,
-                 remat=False):
+                 remat=False, lay=ONE):
         batch = batch or {}
-        tokens = tokens.to(self.device)
+        tokens = lay.batch_slice(tokens.to(self.device))
         if self.cfg.family == "encdec":
             frames = batch.get("enc_frames")
             return encdec_forward(params, tokens, self.cfg, mode=mode, cache=cache,
@@ -94,7 +153,7 @@ class Model:
         image = batch.get("image_embeds")
         return decoder_forward(params, tokens, self.cfg, mode=mode, cache=cache,
                                image_embeds=None if image is None else image.to(self.device),
-                               max_len=max_len, remat=remat)
+                               max_len=max_len, remat=remat, lay=lay)
 
     def loss(self, params, batch, *, remat=False):
         """Mean next-token cross-entropy of batch["tokens"] against
@@ -103,10 +162,18 @@ class Model:
         ``remat``: False, True (recompute each layer in the backward) or
         ``"save_gathered"`` (recompute it, keeping the cast weights). An
         MoE model adds 0.01 x the load-balance term of its first layer's
-        router on the tokens' raw embeddings, as the reference does."""
+        router on the tokens' raw embeddings, as the reference does.
+
+        On a mesh, ``params`` are this rank's shards and ``batch`` the global
+        batch: the value is the same on every rank, and each rank's
+        gradient is that of its rows' share (their mean over the batch
+        axes' rank count), so summed over the batch axes it is the global
+        mean's (``Layout.reduce_grads``)."""
         tokens = batch["tokens"].to(self.device)
-        logits, _ = self._forward(params, tokens, mode="train", batch=batch, remat=remat)
-        loss = softmax_xent(logits, batch["labels"].to(self.device))
+        lay = self.layout(tokens.shape[0])
+        logits, _ = self._forward(params, tokens, mode="train", batch=batch, remat=remat,
+                                  lay=lay)
+        loss = softmax_xent(logits, lay.batch_slice(batch["labels"].to(self.device)), lay)
         if self.cfg.family == "moe":
             x = F.embedding(tokens, params["embed"]["tok"]).float()
             router = {"router": params["layers"]["ffn"]["router"][0]}
@@ -115,13 +182,39 @@ class Model:
 
     @torch.no_grad()
     def prefill(self, params, batch, *, max_len: int = 0):
+        """The prompt's logits and the cache. On a mesh: this rank's rows
+        of the logits (and its vocab slice) and its shard of the cache."""
+        lay = self.layout(batch["tokens"].shape[0])
         return self._forward(params, batch["tokens"], mode="prefill", batch=batch,
-                             max_len=max_len)
+                             max_len=max_len, lay=lay)
 
     @torch.no_grad()
     def decode(self, params, cache, batch):
-        """One serve step: batch["token"] (B, 1) -> logits (B, 1, V)."""
-        return self._forward(params, batch["token"], mode="decode", cache=cache)
+        """One serve step: batch["token"] (B, 1) -> logits (B, 1, V); on a
+        mesh, the global batch's token -> this rank's logits."""
+        lay = self.layout(cache.get("batch"))
+        return self._forward(params, batch["token"], mode="decode", cache=cache, lay=lay)
+
+    def greedy(self, logits, cache):
+        """The greedy tokens (B, 1) of logits (B, 1, V) that ``prefill``
+        (its last position) or ``decode`` gave with ``cache``: their argmax.
+        On a mesh, the global batch's from this rank's shards: over a
+        sharded vocab each rank's first maximum and its value are
+        gathered, and the largest wins, the lowest index among equals (the
+        first index of the maximum, as ``torch.argmax``); then the batch's
+        rows are gathered."""
+        lay = self.layout(cache.get("batch"))
+        if lay.vocab and lay.m > 1:
+            mesh = lay.mesh
+            val, idx = logits.max(dim=-1)  # the first maximum of this slice
+            idx = idx + C.axis_index(mesh, lay.tp) * logits.shape[-1]
+            vals = C.gather(val[..., None], mesh, lay.tp, -1)
+            idxs = C.gather(idx[..., None], mesh, lay.tp, -1)
+            best = vals.argmax(dim=-1, keepdim=True)  # the lowest rank holding the maximum
+            tok = idxs.gather(-1, best)[..., 0]
+        else:
+            tok = logits.argmax(dim=-1)
+        return C.gather(tok, lay.mesh, lay.batch, 0)
 
     # ---- caches -----------------------------------------------------------
     def init_cache(self, batch: int, max_len: int, dtype=torch.bfloat16):

@@ -29,6 +29,8 @@ import math
 import torch
 
 from ..models.params import leaves, map_tree
+from ..parallel import collectives as C
+from ..parallel.axes import spec_axes
 
 __all__ = ["OptConfig", "schedule", "init_opt_state", "global_norm", "adamw_update"]
 
@@ -71,23 +73,36 @@ def _leaves(tree):
     return (leaf for _, leaf in leaves(tree))
 
 
-def global_norm(tree):
+def global_norm(tree, shards=None):
     """sqrt of the sum of every leaf's sum of squares, in f32, summed
-    leaf by leaf in the reference's order."""
-    total = 0
-    for x in _leaves(tree):
-        total = total + torch.sum(torch.square(x.float()))
-    return torch.sqrt(total)
+    leaf by leaf in the reference's order. ``shards`` (a mesh and every
+    leaf's spec, by path) says that the leaves are this rank's shards:
+    the leaves split over the same mesh axes are summed, and each such
+    sum all-reduced over those axes (a leaf counts once, however many
+    ranks hold it)."""
+    if shards is None:
+        total = 0
+        for x in _leaves(tree):
+            total = total + torch.sum(torch.square(x.float()))
+        return torch.sqrt(total)
+    mesh, spec_of = shards
+    by_axes: dict = {}
+    for path, x in leaves(tree):
+        axes = tuple(a for part in spec_of[path] for a in spec_axes(part))
+        by_axes[axes] = by_axes.get(axes, 0) + torch.sum(torch.square(x.float()))
+    return torch.sqrt(sum(C.psum(t, mesh, axes) for axes, t in by_axes.items()))
 
 
 @torch.no_grad()
-def adamw_update(params, grads, state, cfg: OptConfig):
+def adamw_update(params, grads, state, cfg: OptConfig, *, shards=None):
     """One AdamW step: ``(params, new state, gnorm)``, where ``params`` and
-    the new state's moments are the given f32 tensors, updated in place."""
+    the new state's moments are the given f32 tensors, updated in place.
+    With ``shards`` (``global_norm``'s) they are this rank's shards, and
+    the clip reads the global norm of the whole tree."""
     step = state["step"] + 1
     lr = schedule(cfg, step)
 
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, shards)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     b1, b2 = cfg.b1, cfg.b2
     stepf = step.float()

@@ -8,9 +8,9 @@ As in the JAX package:
   Before it looks for the latest checkpoint it waits for the async
   writes still in flight, so that a restart never reads a step that is
   half written.
-- ``elastic_restore`` loads a checkpoint onto a device (checkpoints hold
-  full arrays; placing them on a mesh of several devices is ROADMAP
-  queue 1 item 10).
+- ``elastic_restore`` loads a checkpoint onto a device, or each rank's
+  shards of it onto a mesh: checkpoints hold full arrays, so the saving
+  mesh may differ (the reference's (4, 2) to (2, 2)).
 - ``StragglerWatchdog``: a per-step deadline from a robust moving
   estimate of step time; slow steps are counted and reported. The
   caller ends each step with a device synchronize, so a step's time is
@@ -27,6 +27,7 @@ import torch
 
 from ..checkpoint import checkpointer
 from ..models.params import map_tree
+from ..parallel.plan import shard_tree
 
 log = logging.getLogger("repro_torch.runtime")
 
@@ -72,11 +73,15 @@ class StragglerWatchdog:
         return slow
 
 
-def elastic_restore(ckpt_dir, step, like, device):
+def elastic_restore(ckpt_dir, step, like, device, *, specs=None, mesh=None):
     """Restore a checkpoint into the structure of ``like`` and place it on
-    ``device`` (the saving run may have used another)."""
-    host = checkpointer.restore(ckpt_dir, step, like)
-    return map_tree(lambda x: torch.from_numpy(x).to(device), host)
+    ``device``: whole, or, given the spec tree ``specs`` of a ``mesh``,
+    this rank's shard of each leaf (the saving run may have used another
+    device or mesh: checkpoints hold full arrays)."""
+    host = map_tree(torch.from_numpy, checkpointer.restore(ckpt_dir, step, like))
+    if specs is not None:
+        host = shard_tree(host, specs, mesh)
+    return map_tree(lambda x: x.to(device), host)
 
 
 def run_with_restarts(make_state, train_steps, *, ckpt_dir, max_restarts: int = 3):

@@ -1,0 +1,242 @@
+"""Multi-rank jobs of the port on the CPU: one process per ``gloo`` rank.
+
+    python tests/_torch_ranks.py JOB RANK WORLD WORKDIR
+
+Each rank joins the process group through a file in WORKDIR (no port is
+opened), runs ``JOBS[JOB]`` and leaves; rank 0 writes the job's results
+to ``WORKDIR/JOB.json``. ``run_ranks`` starts the ranks together and
+kills them all if one fails or the job outlives its timeout, so that a
+hang fails one test. ``shared`` runs a test module's spawns once per
+session, whichever pytest-xdist worker draws its tests. The inputs of the jobs that take any (the
+reference's weights as numpy, the batches) come from the test in
+``WORKDIR/inputs.pkl``. This module
+imports torch and the port only.
+"""
+
+from __future__ import annotations
+
+import fcntl
+import json
+import os
+import pathlib
+import pickle
+import subprocess
+import sys
+import time
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+
+
+def shared(tmp_path_factory, name: str, run):
+    """``run(workdir)``'s result, made once per test session: under
+    pytest-xdist the first worker to ask makes it under a file lock in the
+    session's shared temporary folder, and the others read it there."""
+    if not os.environ.get("PYTEST_XDIST_WORKER"):
+        return run(tmp_path_factory.mktemp(name))
+    root = tmp_path_factory.getbasetemp().parent
+    done = root / f"{name}.pkl"
+    with open(root / f"{name}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not done.exists():
+            (root / name).mkdir(exist_ok=True)
+            done.write_bytes(pickle.dumps(run(root / name)))
+    return pickle.loads(done.read_bytes())
+
+
+def run_ranks(job: str, world: int, workdir, timeout: float = 300.0) -> dict:
+    """Run ``job`` on ``world`` ranks; returns rank 0's results."""
+    workdir = pathlib.Path(workdir)
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"), OMP_NUM_THREADS="1")
+    procs = [subprocess.Popen([sys.executable, __file__, job, str(r), str(world), str(workdir)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                              env=env, cwd=REPO)
+             for r in range(world)]
+    deadline = time.monotonic() + timeout
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) or time.monotonic() > deadline:
+                break
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+        logs = [p.communicate()[0] for p in procs]
+    bad = [(r, p.returncode) for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        r = bad[0][0]
+        raise AssertionError(f"{job}: ranks {bad} failed or timed out after {timeout} s; rank "
+                             f"{r}'s output:\n{logs[r][-6000:]}")
+    return json.loads((workdir / f"{job}.json").read_text())
+
+
+# --- inside a rank -----------------------------------------------------------------
+
+
+def _setup():
+    import torch
+
+    torch.set_num_threads(1)
+    torch.manual_seed(0)
+
+
+def _cfg(spec):
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+
+    arch, over = spec
+    return dataclasses.replace(reduced(get_config(arch)), **over)
+
+
+def _max_rel(got, want) -> float:
+    """The largest gap of two gradient trees, each leaf's over its max|want|."""
+    from repro_torch.models.params import leaves
+
+    worst = 0.0
+    have = dict(leaves(got))
+    for path, w in leaves(want):
+        scale = float(w.abs().max()) or 1.0
+        worst = max(worst, float((have[path] - w).abs().max()) / scale)
+    return worst
+
+
+def job_loss(rank, world, workdir, inputs):
+    """Loss and gathered gradients of every config, mesh and strategy in
+    ``inputs["loss"]`` against the port's single-device ones."""
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models import build
+    from repro_torch.models.convert import from_numpy
+    from repro_torch.parallel.axes import ShardingRules, param_sharding, use_rules
+    from repro_torch.parallel.plan import gather_tree, shard_tree
+
+    out = {}
+    for case in inputs["loss"]:
+        cfg = _cfg(case["cfg"])
+        model = build(cfg, device="cpu")
+        full = from_numpy(model, case["params"])
+        import torch
+
+        batch = {k: torch.from_numpy(case[k]) for k in ("tokens", "labels")}
+        loss1, g1 = loss_and_grads(model, full, batch, remat=False)
+        out[f"{cfg.name} single"] = float(loss1)
+        for d, m in case["meshes"]:
+            mesh = make_test_mesh(d, m)
+            for strategy in case["strategies"]:
+                rules = ShardingRules(mesh, strategy=strategy, fsdp=True)
+                specs = param_sharding(model.defs, rules)
+                with use_rules(rules):
+                    loss, g = loss_and_grads(model, shard_tree(full, specs, mesh), batch,
+                                             remat=strategy == "zero")
+                g = gather_tree(g, specs, mesh)
+                out[f"{cfg.name} ({d}, {m}) {strategy}"] = {
+                    "loss": float(loss), "grad_gap": _max_rel(g, g1)}
+    return out
+
+
+def job_train8(rank, world, workdir, inputs):
+    """``train_loop`` at (4, 2), saving its state after 2 steps."""
+    from repro_torch.launch.train import train_loop
+    from repro_torch.optim import OptConfig
+
+    t = inputs["train"]
+    _, losses, _ = train_loop(_cfg(t["cfg"]), steps=2, global_batch=t["batch"],
+                              seq_len=t["seq"], strategy="dos", mesh_shape=(4, 2),
+                              ckpt_dir=str(workdir / "ckpt"), ckpt_every=100, log_every=0,
+                              opt_cfg=OptConfig(**t["opt"]), device="cpu")
+    return {"losses": losses}
+
+
+def job_mesh4(rank, world, workdir, inputs):
+    """Serving at every mesh and strategy of ``inputs["serve"]``; training
+    at (2, 2); the (4, 2) checkpoint restored onto (2, 2)."""
+    from repro_torch.launch.serve import serve_loop
+    from repro_torch.launch.train import train_loop
+    from repro_torch.optim import OptConfig
+
+    out = {"serve": {}}
+    for case in inputs["serve"]:
+        cfg = _cfg(case["cfg"])
+        for d, m in case["meshes"]:
+            for strategy in case["strategies"]:
+                r = serve_loop(cfg, batch=case["batch"], prompt_len=case["prompt"],
+                               gen_tokens=case["gen"], strategy=strategy, mesh_shape=(d, m),
+                               device="cpu")
+                out["serve"][f"{case['name']} ({d}, {m}) {strategy}"] = \
+                    r["generated"].tolist()
+    t = inputs["train"]
+    kw = dict(global_batch=t["batch"], seq_len=t["seq"], mesh_shape=(2, 2), log_every=0,
+              opt_cfg=OptConfig(**t["opt"]), device="cpu")
+    out["train"] = {s: train_loop(_cfg(t["cfg"]), steps=3, strategy=s, **kw)[1]
+                    for s in t["strategies"]}
+    out["resumed"] = train_loop(_cfg(t["cfg"]), steps=4, strategy="dos",
+                                ckpt_dir=str(workdir / "ckpt"), ckpt_every=100, **kw)[1]
+    out["raises"] = {
+        "zamba2-2.7b": _raises(lambda: serve_loop(_cfg(("zamba2-2.7b", {})), batch=4,
+                                                  prompt_len=8, gen_tokens=2, mesh_shape=(1, 4),
+                                                  device="cpu")),
+        "xlstm-125m": _raises(lambda: train_loop(_cfg(("xlstm-125m", {})), steps=1,
+                                                 global_batch=4, seq_len=8, mesh_shape=(2, 2),
+                                                 device="cpu")),
+    }
+    return out
+
+
+def job_serve2(rank, world, workdir, inputs):
+    """``serve_loop``'s defaults at (2, 1); a hybrid model at (1, 2)."""
+    from repro_torch.launch.serve import serve_loop
+
+    tokens = serve_loop(_cfg(("smollm-135m", {})), mesh_shape=(2, 1), device="cpu")
+    return {"tokens": tokens["generated"].tolist(),
+            "raises": _raises(lambda: serve_loop(_cfg(("zamba2-2.7b", {})), mesh_shape=(1, 2),
+                                                 device="cpu"))}
+
+
+def job_train2(rank, world, workdir, inputs):
+    """``train_loop`` at (2, 1); an xLSTM model at (1, 2)."""
+    from repro_torch.launch.train import train_loop
+
+    kw = dict(steps=2, global_batch=4, seq_len=32, log_every=0, device="cpu")
+    return {"losses": train_loop(_cfg(("smollm-135m", {})), mesh_shape=(2, 1), **kw)[1],
+            "raises": _raises(lambda: train_loop(_cfg(("xlstm-125m", {})), mesh_shape=(1, 2),
+                                                 **kw))}
+
+
+def _raises(run):
+    try:
+        run()
+    except NotImplementedError as e:
+        return str(e)
+    return None
+
+
+def job_mesh8(rank, world, workdir, inputs):
+    return {"loss": job_loss(rank, world, workdir, inputs),
+            "train8": job_train8(rank, world, workdir, inputs)}
+
+
+JOBS = {"mesh8": job_mesh8, "mesh4": job_mesh4, "serve2": job_serve2, "train2": job_train2}
+
+
+def main(job, rank, world, workdir):
+    _setup()
+    sys.path.insert(0, str(REPO / "src"))
+    from repro_torch.launch.mesh import init_distributed
+
+    workdir = pathlib.Path(workdir)
+    init_distributed("cpu", init_method=f"file://{workdir / f'pg_{job}'}", rank=rank,
+                     world_size=world)
+    import torch.distributed as dist
+
+    given = workdir / "inputs.pkl"
+    inputs = pickle.loads(given.read_bytes()) if given.exists() else {}
+    out = JOBS[job](rank, world, workdir, inputs)
+    if rank == 0:
+        (workdir / f"{job}.json").write_text(json.dumps(out))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4])

@@ -992,19 +992,25 @@ def test_grouped_matmul_function_gradients(gen):
         assert bool(((got.float() - want).abs() <= tol).all())
 
 
-def test_vlm_with_image_embeds_off_the_compute_dtype_raises_naming_them(gen):
+def test_vlm_with_image_embeds_off_the_compute_dtype_matches_the_cpu(gen):
     """bf16 compute with f32 image embeddings: the reference projects the
     cross k, v in f32 and attends its bf16 q to them (tests/test_torch_vlm.py
-    pins that on the CPU). The card's flash kernel takes q, k, v of one
-    dtype, so the prefill raises, naming the dtypes, and casts nothing."""
+    pins that on the CPU). The card's flash wrapper promotes q, k, v to
+    f32, runs the kernel in f32 and returns bf16, as the CPU path does: the
+    prefill's logits within the bf16 band, 3e-2 of max|logits|, of the
+    CPU's, the vision gates opened to 0.5 (at their init of 0 no
+    cross-attention result reaches the logits)."""
     cfg = dataclasses.replace(reduced(get_config("llama-3.2-vision-11b")),
                               compute_dtype="bfloat16")
-    model = build(cfg, device="cuda")
-    params = model.init_compute(torch.Generator().manual_seed(0))
     tokens = torch.randint(0, cfg.vocab, (2, 16), generator=torch.Generator().manual_seed(1))
     img = torch.randn(2, cfg.n_image_tokens, cfg.d_model,
                       generator=torch.Generator().manual_seed(2))
-    with pytest.raises(TypeError, match="one dtype; got torch.bfloat16, torch.float32"):
-        model.prefill(params, {"tokens": tokens, "image_embeds": img})
-    logits, cache = model.prefill(params, {"tokens": tokens, "image_embeds": img.bfloat16()})
-    assert bool(torch.isfinite(logits).all()) and cache["cross"]["k"].dtype == torch.bfloat16
+    logits = {}
+    for dev in ("cpu", "cuda"):
+        model = build(cfg, device=dev)
+        params = model.init_compute(torch.Generator().manual_seed(0))
+        params["cross_layers"]["gate"].fill_(0.5)
+        logits[dev], cache = model.prefill(params, {"tokens": tokens, "image_embeds": img})
+        assert logits[dev].dtype == torch.float32 and cache["cross"]["k"].dtype == torch.float32
+    want = logits["cpu"]
+    assert (logits["cuda"].cpu() - want).abs().max() <= 3e-2 * want.abs().max()

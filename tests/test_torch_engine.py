@@ -218,7 +218,7 @@ def test_torch_backend_needs_a_card(monkeypatch):
 
 
 @pytest.mark.parametrize("shard,backend,error", [
-    (2, "numpy", ValueError), (2, "torch", NotImplementedError), ("auto", "torch", None),
+    (2, "numpy", ValueError), (2, "torch", ValueError), ("auto", "torch", None),
     ("none", "numpy", None)])
 def test_shard_requests(shard, backend, error):
     grid = engine.DesignGrid.product([(64, 256, 64)], [2**10], [1, 2])

@@ -122,10 +122,30 @@ def test_unported_families_raise():
             make(cfg)
 
 
+@pytest.fixture(scope="module")
+def on_two_ranks(tmp_path_factory):
+    """``serve_loop`` at (2, 1) on two ``gloo`` ranks (tests/_torch_ranks.py)."""
+    from _torch_ranks import run_ranks, shared
+
+    return shared(tmp_path_factory, "serve2", lambda work: run_ranks("serve2", 2, work))
+
+
 @pytest.mark.parametrize("kw", [{"mesh_shape": (2, 1)}, {"strategy": "megatron"}])
-def test_multi_device_serving_is_not_ported(kw):
-    with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-        serve_loop(reduced(get_config("smollm-135m")), device="cpu", **kw)
+def test_multi_device_serving(kw, on_two_ranks):
+    """The calls that raised before the mesh was ported: at (2, 1) each
+    rank serves half the batch; at (1, 1) megatron serves as dos does.
+    Both give one rank's greedy tokens."""
+    cfg = reduced(get_config("smollm-135m"))
+    want = serve_loop(cfg, device="cpu")["generated"].tolist()
+    if "mesh_shape" in kw:
+        assert on_two_ranks["tokens"] == want
+    else:
+        assert serve_loop(cfg, device="cpu", **kw)["generated"].tolist() == want
+
+
+def test_serving_another_family_on_a_mesh_is_part_2(on_two_ranks):
+    assert "ROADMAP queue 1 item 10 (part 2)" in on_two_ranks["raises"]
+    assert "'hybrid'" in on_two_ranks["raises"]
 
 
 def test_port_imports_no_jax_and_nothing_of_repro():

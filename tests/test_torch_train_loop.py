@@ -215,16 +215,40 @@ def test_train_loop_needs_a_card_unless_asked_for_the_cpu():
         train_loop(reduced(get_config("smollm-135m")), steps=1)
 
 
+@pytest.fixture(scope="module")
+def on_two_ranks(tmp_path_factory):
+    """``train_loop`` at (2, 1) on two ``gloo`` ranks (tests/_torch_ranks.py)."""
+    from _torch_ranks import run_ranks, shared
+
+    return shared(tmp_path_factory, "train2", lambda work: run_ranks("train2", 2, work))
+
+
+@pytest.mark.parametrize("kw", [{"mesh_shape": (2, 1)}, {"strategy": "megatron"}])
+def test_multi_device_training(kw, on_two_ranks):
+    """The calls that raised before the mesh was ported: at (2, 1) each
+    rank holds its FSDP shards and trains on half the batch; at (1, 1)
+    megatron trains as dos does. Both give one rank's losses (f32 sums in
+    another order: 1e-5)."""
+    cfg = reduced(get_config("smollm-135m"))
+    run = dict(steps=2, global_batch=4, seq_len=32, log_every=0, device="cpu")
+    want = train_loop(cfg, **run)[1]
+    got = on_two_ranks["losses"] if "mesh_shape" in kw else train_loop(cfg, **run, **kw)[1]
+    assert np.allclose(got, want, rtol=0, atol=1e-5), (got, want)
+
+
+def test_training_another_family_on_a_mesh_is_part_2(on_two_ranks):
+    assert "ROADMAP queue 1 item 10 (part 2)" in on_two_ranks["raises"]
+    assert "'ssm'" in on_two_ranks["raises"]
+
+
 @pytest.mark.parametrize("arch,kw,match", [
-    ("smollm-135m", {"mesh_shape": (2, 1)}, "item 10"),
-    ("smollm-135m", {"strategy": "megatron"}, "item 10"),
     ("whisper-medium", {}, "tokens and labels only.*make_train_step with 'enc_frames'"),
     ("llama-3.2-vision-11b", {}, "tokens and labels only.*make_train_step with 'image_embeds'"),
 ])
 def test_not_ported_configurations_name_their_roadmap_items(arch, kw, match):
-    # multi-device is ROADMAP item 10; the vision and encoder-decoder models
-    # train through make_train_step, as the reference's train_loop cannot
-    # feed them (test_reference_train_loop_cannot_feed_these_families)
+    # the vision and encoder-decoder models train through make_train_step,
+    # as the reference's train_loop cannot feed them
+    # (test_reference_train_loop_cannot_feed_these_families)
     with pytest.raises(NotImplementedError, match=match):
         train_loop(reduced(get_config(arch)), steps=1, device="cpu", **kw)
 
