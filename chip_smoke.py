@@ -204,7 +204,9 @@ if it fails:
     (the input's and every parameter's, within 3e-2), one layer's loss and
     every gradient leaf in f32 (within 1e-3), each with the routing
     agreement printed; a fault
-    and resume at one layer, every loss bit-identical to an uninterrupted
+    and resume at one layer cut to 8 experts and a 4,096-row vocabulary
+    (deepseek's expert shapes, top-6, the shared experts; every expert
+    product and dW ``wgmma``), every loss bit-identical to an uninterrupted
     run's; the train CLI ``--layers 1 --steps 3``, launches exact;
 16. vision cross-attention (llama-3.2-vision-11b, 9,775,157,256
     parameters: 8 groups of 4 self-attention layers and a gated
@@ -259,7 +261,29 @@ if it fails:
     ``tests/test_torch_sharding_ranks.py``): every GEMM shape a rank
     launched, against its plain version with the variant it planned,
     timed; the phase's time on its own line;
-18. prints the kernels line, the ``nvidia-smi`` line, and last
+18. pipeline stages, expert parallelism and the int8 gradient sync
+    (``parallel/{pipeline,moe_ep,compression}.py``), their main paths each
+    with the counts set to 0 just before and read just after. In an NCCL
+    group of one rank: ``make_gpipe_loss`` on smollm-135m at full size over
+    a one-stage mesh (phase 12's 8 x 512 batch, 4 microbatches, remat, f32
+    masters; bf16 and f32 compute): the loss and every gradient leaf
+    against ``model.loss`` plus backward on the same weights (f32: the loss
+    within 1e-5 relative, each leaf within 1e-3 of its max|g|; bf16
+    3e-2), the launches exactly 4 x one microbatch's, the step time beside
+    phase 12's; ``moe_block_ep`` on one deepseek-moe-16b layer at full width
+    at (1, 1) (a prefill 4 x 128 and a decode step 4 x 1; launches exact by
+    variant): output and prefill gradients equal ``moe_block``'s bit for bit,
+    the decode call without a sync; ``compressed_psum_grads`` over the
+    pipeline step's gradient tree (every leaf of smollm-135m, f32), two
+    steps of error feedback, q, g_hat and new_err equal to the CPU's bit
+    for bit, ms per sync beside its bound. Then ``moe_block_ep`` as rank 0
+    of (1, 4) and (2, 4) meshes in a ``fake`` group: its partial output
+    against the same code on the CPU (bf16 band), each local grouped
+    product (16 of the 64 experts: about 3/4 of the rows past the sum) and
+    its dW against the plain versions, exact zeros past the sum, the
+    planned variant, timed beside the bound; the phase's time on its own
+    line;
+19. prints the kernels line, the ``nvidia-smi`` line, and last
     ``{"ok": true, "device": {...}}``.
 
 ``--details PATH`` also writes every measurement to a JSON file.
@@ -320,8 +344,15 @@ from repro_torch.models.ssm import mamba_block, mamba_defs  # noqa: E402
 from repro_torch.models.xlstm import mlstm_block, mlstm_defs, slstm_block, slstm_defs  # noqa: E402
 from repro_torch.optim import OptConfig, adamw_update, init_opt_state  # noqa: E402
 from repro_torch.runtime import FaultInjector  # noqa: E402
-from repro_torch.launch.mesh import init_distributed, make_test_mesh  # noqa: E402
+from repro_torch.launch.mesh import init_distributed, make_stage_mesh, make_test_mesh  # noqa: E402
+from repro_torch.parallel import moe_ep  # noqa: E402
 from repro_torch.parallel.axes import ShardingRules  # noqa: E402
+from repro_torch.parallel.compression import (  # noqa: E402
+    compressed_psum_grads, init_error_state, quantize,
+)
+from repro_torch.parallel.pipeline import (  # noqa: E402
+    bubble_fraction, make_gpipe_loss, stage_params,
+)
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): the bound of a call
 # is the larger of its bytes over HBM bandwidth and its operations over
@@ -1333,13 +1364,16 @@ def serve_decode_state(arch):
 # ---------------------------------------------------------------------------
 
 
-def _profiled(run):
+def _profiled(run, host_ops=True):
     """Run ``run()`` under torch.profiler; returns the device busy us
     (kernel intervals merged), the device operations and the device us by
-    kernel name (tagged with the port's variants)."""
+    kernel name (tagged with the port's variants). ``host_ops=False``
+    records the device's activity only, which a step of tens of thousands
+    of launches processes in a fraction of the time."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] * host_ops + [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         run()
         torch.cuda.synchronize()
     spans, by_name = [], {}
@@ -2622,12 +2656,12 @@ def phase_train_profile(state, step_p50_s):
     RESULTS["profile"]["train"] = out
 
 
-def _profile_train_step(run, step_p50_s, what, kernels):
+def _profile_train_step(run, step_p50_s, what, kernels, host_ops=True):
     """``run()``, one train step, under torch.profiler: device busy ms,
     the idle share against the path's step p50, device ms by kernel
     (``kernels``: label -> a substring of the kernel's name) and by plain
     op. An empty dict where the profiler recorded no device time."""
-    busy, n_ops, by_name = _profiled(run)
+    busy, n_ops, by_name = _profiled(run, host_ops)
     if not n_ops:
         print(f"[profile] {what}: the profiler recorded no device time: idle share not measured")
         return {}
@@ -3576,9 +3610,14 @@ MOE_TRAIN_LAYERS = 4
 # a token's output by the order of its scale, and shows in the routing
 # agreement printed beside it.
 MOE_E2E_LAYERS, MOE_E2E_BATCH, MOE_F32_TOL = 2, 2, 1e-3
-# the restart check: full width, one layer (a checkpoint holds params, m
-# and v in f32: 12 GB), 6 steps, a checkpoint every 3, a fault at step 4
+# the restart check: one layer at deepseek's expert shapes (2,048 x 1,408,
+# top-6, the 2 shared experts, wgmma forward and dW), 6 steps, a checkpoint
+# every 3, a fault at step 4. A checkpoint holds params, m and v in f32:
+# 12 GB with all 64 experts and the 102,400-row vocabulary (59-81 s of the
+# script's 1,200), 1.4 GB with 8 experts and 4,096 rows (16 and 8,192:
+# 2.5 GB, 29 s against the whole layer's 81 s in one run).
 MOE_RESTART_LAYERS, MOE_RESTART_STEPS, MOE_RESTART_EVERY, MOE_RESTART_FAULT = 1, 6, 3, 4
+MOE_RESTART_EXPERTS, MOE_RESTART_VOCAB = 8, 4096
 MOE_CLI_LAYERS, MOE_CLI_STEPS = 1, 3
 
 
@@ -3894,9 +3933,10 @@ def phase_moe_kernels():
 
 
 class _RecordRoutes:
-    """Inside the ``with``, every ``moe.route`` call records its top-k
-    indices and the k-th to (k+1)-th probability gap of each token, by the
-    device it ran on (the extra router product is outside every count)."""
+    """Inside the ``with``, every ``moe.route`` call (``moe_block``'s and
+    ``moe_block_ep``'s) records its top-k indices and the k-th to (k+1)-th
+    probability gap of each token, by the device it ran on (the extra
+    router product is outside every count)."""
 
     def __init__(self):
         self.calls = {"cuda": [], "cpu": []}
@@ -3911,11 +3951,11 @@ class _RecordRoutes:
             self.calls[xt.device.type].append((top_i.cpu(), (srt[:, k - 1] - srt[:, k]).cpu()))
             return top_p, top_i
 
-        moe.route = route
+        moe.route = moe_ep.route = route
         return self
 
     def __exit__(self, *exc):
-        moe.route = self._route
+        moe.route = moe_ep.route = self._route
 
     def agreement(self) -> dict:
         """Tokens whose top-k experts agree between the card's calls and
@@ -4059,19 +4099,23 @@ def phase_moe_train_e2e():
 
 
 def phase_moe_restart():
-    """``train_loop`` on deepseek-moe-16b at full width and one layer with
-    a checkpoint every MOE_RESTART_EVERY steps and a fault at
+    """``train_loop`` on deepseek-moe-16b at full width and one layer, cut
+    to MOE_RESTART_EXPERTS experts and a MOE_RESTART_VOCAB-row vocabulary,
+    with a checkpoint every MOE_RESTART_EVERY steps and a fault at
     MOE_RESTART_FAULT: the loop resumes from the last checkpoint and its
     losses repeat an uninterrupted run's bit for bit (the grouped GEMM's
-    dW and the dispatch's backward use no atomics)."""
+    dW and the dispatch's backward use no atomics); every expert product
+    and dW of both runs ``wgmma``."""
     import shutil
     import tempfile
 
-    cfg = dataclasses.replace(get_config(MOE), n_layers=MOE_RESTART_LAYERS)
+    cfg = dataclasses.replace(get_config(MOE), n_layers=MOE_RESTART_LAYERS,
+                              n_experts=MOE_RESTART_EXPERTS, vocab=MOE_RESTART_VOCAB)
     kw = dict(steps=MOE_RESTART_STEPS, global_batch=MOE_E2E_BATCH, seq_len=PROMPT, log_every=0,
               device="cuda")
     tmp = tempfile.mkdtemp(prefix="chip_smoke_moe_ckpt_")
     resume = MOE_RESTART_FAULT // MOE_RESTART_EVERY * MOE_RESTART_EVERY
+    reset_launch_counts()
     try:
         inj = FaultInjector(fail_at_steps=(MOE_RESTART_FAULT,))
         t0 = time.perf_counter()
@@ -4082,14 +4126,19 @@ def phase_moe_restart():
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     same = losses == clean[:MOE_RESTART_FAULT] + clean[resume:]
-    print(f"[moe] restart, {MOE} {MOE_RESTART_LAYERS} layer at full width: fault at step "
+    variants = {k: dict(KERNELS[k].variants) for k in ("grouped_matmul", "grouped_matmul_dw")}
+    print(f"[moe] restart, {MOE} {MOE_RESTART_LAYERS} layer at full width, "
+          f"{MOE_RESTART_EXPERTS} experts (top-{cfg.top_k}, {cfg.n_shared_experts} shared), "
+          f"vocab {MOE_RESTART_VOCAB}: expert products by variant {variants}; fault at step "
           f"{MOE_RESTART_FAULT} fired {MOE_RESTART_FAULT in inj.fired}; resumed from step {resume} "
           f"in {wall:.2f} s with checkpoints; every loss equals an uninterrupted run's bit for "
           f"bit: {same} ({losses} vs {clean})", flush=True)
     check(MOE_RESTART_FAULT in inj.fired, "the injected fault did not fire")
     check(same, f"the resumed MoE losses {losses} differ from an uninterrupted run's {clean}")
+    check(all(v["wgmma"] == sum(v.values()) > 0 for v in variants.values()),
+          f"an expert product of the restart check left wgmma: {variants}")
     RESULTS["moe_restart"] = {"losses": losses, "clean": clean, "bit_identical": same,
-                              "wall_s": wall}
+                              "wall_s": wall, "variants": variants}
 
 
 def phase_moe_cli():
@@ -4650,6 +4699,326 @@ def phase_mesh() -> dict:
     print(f"[mesh] phase 17 took {wall:.1f} s ({len(rows)} shard-local GEMM shapes)", flush=True)
     return max(r["max_abs_err"] for r in rows)
 
+# ---------------------------------------------------------------------------
+# phase 18: GPipe stages, expert-parallel MoE and the int8 gradient sync
+# ---------------------------------------------------------------------------
+
+PIPE_MB = 4  # microbatches of phase 12's 8 x 512 batch
+PIPE_TIMED_STEPS = 3
+PIPE_LOSS_F32_TOL = 1e-5  # relative: the same f32 sums over microbatches of 2 rows
+EP_MESHES = ((1, 4), (2, 4))
+# bytes an element of the gradient tree moves through compressed_psum_grads's
+# plain passes, reads plus writes (f32 4, int8 1, int32 4, f64 8): g + err
+# 12, |g| 8, its max 4, g / scale 8, round 8, clip 8, to int8 5, to int32 5,
+# qsum to f32 8, its two scalings 16, g and q to f64 12 and 9, q * scale 16,
+# g - it 24, back to f32 12
+SYNC_PASS_BYTES = 155
+
+
+def _pipeline_run(model, params, batch, n_mb):
+    """``make_gpipe_loss`` over a one-stage mesh: the loss and the stage
+    tree's gradients (f32 masters), launches counted from 0."""
+    cfg = model.cfg
+    mesh = make_stage_mesh(1)
+    stage = map_tree(lambda t: t.detach().requires_grad_(),
+                     stage_params(params, cfg, mesh, n_stages=1))
+    loss_fn = make_gpipe_loss(cfg, mesh, n_stages=1, n_microbatches=n_mb)
+    reset_launch_counts()
+    loss = loss_fn(stage, batch)
+    loss.backward()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    return loss.detach(), map_tree(lambda t: t.grad, stage), counts
+
+
+def _pipeline_phase(out):
+    """The pipeline part of phase 18 (inside the NCCL group of one): the
+    loss and every gradient leaf against ``model.loss`` plus backward on
+    the same weights, bf16 and f32 compute; the launches of the bf16 run
+    exactly PIPE_MB times one microbatch's; step times. Returns the bf16
+    run's gradient tree (f32), which the compression part syncs."""
+    base = get_config(ARCH)
+    master = build(base, "cuda").init(torch.Generator(device="cuda").manual_seed(0))
+    data = SyntheticLM(DataConfig(base.vocab, TRAIN_SEQ, TRAIN_BATCH, seed=0))
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in data.batch(0).items()}
+    mb = {k: v[:TRAIN_BATCH // PIPE_MB] for k, v in batch.items()}
+    grads_bf16 = None
+    for dtype in ("bfloat16", "float32"):
+        model = build(dataclasses.replace(base, compute_dtype=dtype), "cuda")
+        ref_loss, ref_grads = loss_and_grads(model, master, batch, True)
+        loss, grads, counts = _pipeline_run(model, master, batch, PIPE_MB)
+        loss_rel = abs(float(loss) - float(ref_loss)) / abs(float(ref_loss))
+        worst, leaf = _grad_gap(grads, map_tree(lambda t: t.float().cpu(), ref_grads))
+        loss_tol = PIPE_LOSS_F32_TOL if dtype == "float32" else E2E_TOL
+        grad_tol = TRAIN_F32_TOL if dtype == "float32" else E2E_TOL
+        row = {"loss": float(loss), "model_loss": float(ref_loss), "loss_rel": loss_rel,
+               "worst_grad_rel": worst, "worst_leaf": leaf, "launches": counts}
+        print(f"[pipeline] make_gpipe_loss {ARCH} ({dtype} compute on f32 masters, remat), one "
+              f"stage in an NCCL group of one rank, {TRAIN_BATCH} x {TRAIN_SEQ} in {PIPE_MB} "
+              f"microbatches: loss {float(loss):.6f} vs model.loss {float(ref_loss):.6f} "
+              f"(relative {loss_rel:.3g}, band {loss_tol}); worst gradient leaf {leaf} at "
+              f"{worst:.3g} of its max|g| (band {grad_tol})", flush=True)
+        check(loss_rel <= loss_tol, f"the {dtype} pipeline loss differs by {loss_rel:.3g}")
+        check(worst <= grad_tol, f"the {dtype} pipeline gradient {leaf} differs by {worst:.3g}")
+        if dtype == "bfloat16":  # the main path's launches: PIPE_MB microbatches' worth
+            _, _, one = _pipeline_run(model, master, mb, 1)
+            want = {k: PIPE_MB * n for k, n in one.items()}
+            print(f"[pipeline] launches {counts}; one microbatch's {one}", flush=True)
+            check(counts == want and all(counts[k] > 0 for k in
+                                         ("dos_matmul", "flash_attention", "flash_attention_bwd")),
+                  f"pipeline launches {counts}, expected {PIPE_MB} x one microbatch's {one}")
+            row["one_microbatch_launches"] = one
+            grads_bf16 = grads
+            # host clock, interleaved, each ending in a synchronize; beside them
+            # phase 12's whole train step (AdamW on clones of the masters) in
+            # this process now, to set against phase 12's own p50
+            opt_cfg = OptConfig(lr=1e-3, warmup_steps=20, total_steps=TRAIN_STEPS)
+            train_step = make_train_step(model, opt_cfg)
+            state = (map_tree(torch.clone, master), init_opt_state(master))
+            runs = {"pipeline": lambda: _pipeline_run(model, master, batch, PIPE_MB),
+                    "model.loss": lambda: loss_and_grads(model, master, batch, True),
+                    "train step": lambda: train_step(*state, batch)}
+            times = {k: [] for k in runs}
+            for _ in range(PIPE_TIMED_STEPS):
+                for what, run in runs.items():
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    run()
+                    torch.cuda.synchronize()
+                    times[what].append(time.perf_counter() - t0)
+            p50 = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+            row["step_s"], row["step_p50_s"] = times, p50
+            print(f"[pipeline] loss + backward p50 {p50['pipeline']*1e3:.3f} ms over "
+                  f"{PIPE_TIMED_STEPS} steps; model.loss + backward {p50['model.loss']*1e3:.3f} "
+                  f"ms; phase 12's train step (with AdamW) here {p50['train step']*1e3:.3f} ms, "
+                  f"in phase 12 {RESULTS['main_paths']['train']['step_p50_s']*1e3:.3f} ms; "
+                  f"bubble at 1 stage {bubble_fraction(1, PIPE_MB):.3f}, at 4 stages "
+                  f"{bubble_fraction(4, PIPE_MB):.3f}", flush=True)
+            kern = {"dos_matmul": "dos_matmul", "flash forward": "flash_mma",
+                    "flash backward": "flash_bwd"}
+            t_prof = time.perf_counter()
+            row["profile"] = {what: _profile_train_step(runs[what], p50[what], f"pipeline: {what}",
+                                                        kern, host_ops=False)
+                              for what in ("pipeline", "model.loss")}
+            row["profile_wall_s"] = time.perf_counter() - t_prof
+            print(f"[pipeline] the two profiles took {row['profile_wall_s']:.1f} s", flush=True)
+            del state
+        out["pipeline"][dtype] = row
+        del ref_grads, grads
+    return grads_bf16
+
+
+def _compression_phase(out, grads):
+    """The compression part of phase 18 (inside the NCCL group of one):
+    two syncs of the pipeline step's gradient tree (the second with the
+    first's residual) on the card and on the CPU; q, g_hat and new_err
+    equal bit for bit; ms per sync beside its bound."""
+    mesh = make_test_mesh(1, 1)
+    n = sum(t.numel() for _, t in leaves(grads))
+    dev, cpu = {"grads": grads}, {"grads": map_tree(lambda t: t.cpu(), grads)}
+    for side in (dev, cpu):  # a one-rank axis: the CPU's tensors take the same mesh
+        err = init_error_state(side["grads"])
+        side["g_hat1"], err1 = compressed_psum_grads(side["grads"], err, mesh)
+        side["q2"] = {p: quantize(t.float() + e)[0] for (p, t), (_, e) in
+                      zip(leaves(side["grads"]), leaves(err1))}
+        side["g_hat2"], side["err2"] = compressed_psum_grads(side["grads"], err1, mesh)
+        side["err1"] = err1
+    same = {}
+    for key in ("g_hat1", "err1", "g_hat2", "err2"):
+        theirs = dict(leaves(cpu[key]))
+        same[key] = all(torch.equal(t.cpu(), theirs[p]) for p, t in leaves(dev[key]))
+    same["q2"] = all(torch.equal(t.cpu(), cpu["q2"][p]) for p, t in dev["q2"].items())
+    err = dev["err1"]
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    compressed_psum_grads(grads, err, mesh)
+    e0.record()
+    for _ in range(PIPE_TIMED_STEPS):
+        compressed_psum_grads(grads, err, mesh)
+    e1.record()
+    e1.synchronize()
+    ms = e0.elapsed_time(e1) / PIPE_TIMED_STEPS
+    bound = bound_ms(16.0 * n, 0.0, torch.float32)[0]  # g, err read; g_hat, new_err written
+    passes = bound_ms(float(SYNC_PASS_BYTES) * n, 0.0, torch.float32)[0]
+    out["compression"] = {"elements": n, "bit_identical": same, "ms_per_sync": ms,
+                          "bound_ms": bound, "passes_bound_ms": passes}
+    print(f"[compress] compressed_psum_grads over {ARCH}'s gradient tree ({n:,} f32 elements, "
+          f"{len(list(leaves(grads)))} leaves) in an NCCL group of one rank, two steps of error "
+          f"feedback: card equals CPU bit for bit {same}; {ms:.3f} ms per sync (plain torch), "
+          f"bound {bound:.3f} ms (one read of g and err, one write of g_hat and new_err), "
+          f"{passes:.3f} ms at its passes' {SYNC_PASS_BYTES} bytes an element", flush=True)
+    check(all(same.values()), f"the card's int8 sync differs from the CPU's: {same}")
+
+
+def _ep_inputs(cfg):
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    p = materialize_cast(moe.moe_defs(cfg), gen, torch.float32, torch.bfloat16, "cuda")
+    xs = {tag: torch.randn(BATCH, s, cfg.d_model, generator=gen, device="cuda").to(torch.bfloat16)
+          for tag, s in (("prefill", PROMPT), ("decode", 1))}
+    return p, xs
+
+
+def _ep_one_rank(out, cfg, p, xs):
+    """``moe_block_ep`` in the NCCL group of one rank at (1, 1): launches
+    counted from 0 (the EP main path: a prefill and a decode call), the
+    output of each and the prefill's gradients equal ``moe_block``'s bit
+    for bit, the decode call without a device-to-host sync."""
+    mesh = make_test_mesh(1, 1)
+    pl = moe_ep.expert_shard(p, mesh)
+    reset_launch_counts()
+    with torch.no_grad():
+        got = {tag: moe_ep.moe_block_ep(pl, x, cfg, mesh) for tag, x in xs.items()}
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    variants = {k: dict(KERNELS[k].variants) for k in ("dos_matmul", "grouped_matmul")}
+    with torch.no_grad():
+        want = {tag: moe.moe_block(p, x, cfg) for tag, x in xs.items()}
+    same = {tag: torch.equal(got[tag], want[tag]) for tag in xs}
+    gy = torch.randn_like(xs["prefill"])
+    grads = []
+    for fn, tree in ((lambda q, x: moe.moe_block(q, x, cfg), p),
+                     (lambda q, x: moe_ep.moe_block_ep(q, x, cfg, mesh), pl)):
+        q = map_tree(lambda t: t.detach().requires_grad_(), tree)
+        x = xs["prefill"].detach().requires_grad_()
+        torch.autograd.backward(fn(q, x), gy)
+        grads.append([x.grad] + [t.grad for _, t in leaves(q)])
+    same["prefill gradients"] = all(torch.equal(a, b) for a, b in zip(*grads))
+    del grads
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            moe_ep.moe_block_ep(pl, xs["decode"], cfg, mesh)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    fv = {tag: gmm_variant(cfg, x.shape[0] * x.shape[1]) for tag, x in xs.items()}
+    want_counts = dict.fromkeys(KERNELS, 0)
+    want_counts.update(dos_matmul=2 * (1 + 3 * bool(cfg.n_shared_experts)), grouped_matmul=6)
+    print(f"[moe_ep] moe_block_ep {MOE} one layer at full width in an NCCL group of one rank "
+          f"(1, 1), prefill {BATCH} x {PROMPT} and decode {BATCH} x 1: equal to moe_block bit for "
+          f"bit {same}; launches {counts}, by variant {variants} ({fv}); the decode call made "
+          "no device-to-host sync", flush=True)
+    check(all(same.values()), f"moe_block_ep at (1, 1) differs from moe_block: {same}")
+    check(counts == want_counts, f"moe_block_ep launches {counts}, expected {want_counts}")
+    want_v = {"dos_matmul": dict(dict.fromkeys(dos_matmul.variants, 0), f32=2, wgmma=3, skinny=3),
+              "grouped_matmul": dict(dict.fromkeys(grouped_matmul.variants, 0))}
+    for v in fv.values():
+        want_v["grouped_matmul"][v] += 3
+    check(variants == want_v, f"moe_block_ep launches by variant {variants}, expected {want_v}")
+    out["moe_ep"]["(1, 1)"] = {"equal": same, "launches": counts, "variants": variants}
+    return counts
+
+
+def _ep_fake_rank(out, cfg, p, xs, gen):
+    """``moe_block_ep`` as rank 0 of each EP_MESHES mesh in a ``fake``
+    process group (its all-reduce returns without communicating, so the
+    output is rank 0's partial plus the shared experts): each output
+    against the same code on the CPU in a fake group within the bf16 band,
+    and every grouped product rank 0 launched, with its dW, against the
+    plain versions (exact zeros past the sum, the planned variant, timed
+    beside the bound). Returns the rows."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    rows = {"grouped_matmul": {}, "grouped_matmul_dw": {}}
+    record = []
+
+    def recording(x, w, sizes):
+        if x.is_cuda:
+            record.append((x.shape[0], x.shape[1], w.shape[-1], sizes.clone()))
+        return grouped_matmul(x, w, sizes)
+
+    moe.grouped_matmul = recording
+    try:
+        for shape in EP_MESHES:
+            dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=math.prod(shape))
+            try:
+                mesh = make_test_mesh(*shape)
+                pl = moe_ep.expert_shard(p, mesh)
+                pl_c = map_tree(lambda t: t.cpu(), pl)
+                record.clear()
+                with torch.no_grad(), _RecordRoutes() as rec:
+                    got = {t: moe_ep.moe_block_ep(pl, x, cfg, mesh) for t, x in xs.items()}
+                    want = {t: moe_ep.moe_block_ep(pl_c, x.cpu(), cfg, mesh)
+                            for t, x in xs.items()}
+                calls = list(record)
+                del pl_c
+            finally:
+                dist.destroy_process_group()
+            gaps = {t: (got[t].float().cpu() - want[t].float()).abs().max().item()
+                    / want[t].float().abs().max().item() for t in xs}
+            agree = rec.agreement()
+            print(f"[moe_ep] {shape} rank 0 ({cfg.n_experts // shape[1]} of {cfg.n_experts} "
+                  f"experts, {BATCH // shape[0]} of {BATCH} rows) in a fake group: card vs CPU "
+                  f"{', '.join(f'{t} {g:.3g}' for t, g in gaps.items())} of the output's max "
+                  f"(band {E2E_TOL}); routes agree on {agree['agree']} of {agree['rows']} tokens",
+                  flush=True)
+            for t, gap in gaps.items():
+                check(gap <= E2E_TOL, f"moe_block_ep {shape} {t}: card and CPU differ by {gap:.3g}")
+            check(len(calls) == 6, f"moe_block_ep {shape} made {len(calls)} grouped products")
+            for (r, k, n, sizes), what in zip(calls, ("gate", "up", "down") * 2):
+                tag = "prefill" if r == BATCH // shape[0] * PROMPT * cfg.top_k else "decode"
+                name = f"{shape} {tag} {what}"
+                check(int(sizes.sum()) < r, f"{name}: no row past the sum ({sizes.tolist()})")
+                if what == "up":  # the same operands' shapes and sizes as gate
+                    continue
+                rows["grouped_matmul"][name] = check_gmm(gen, r, k, n, sizes, time_it=True,
+                                                         what=f"EP {name}")
+                if tag == "prefill":
+                    rows["grouped_matmul_dw"][name] = check_gmm_dw(gen, r, k, n, sizes,
+                                                                   time_it=True,
+                                                                   what=f"EP {name}")
+            out["moe_ep"][str(shape)] = {"card_vs_cpu": gaps, "routes": agree}
+    finally:
+        moe.grouped_matmul = grouped_matmul
+    return rows
+
+
+def phase_parallel() -> tuple[dict, dict]:
+    """Phase 18: ``parallel/pipeline.py``, ``parallel/moe_ep.py`` and
+    ``parallel/compression.py`` on the card. In an NCCL group of one rank:
+    ``make_gpipe_loss`` on smollm-135m at full size over a one-stage mesh
+    (``_pipeline_phase``), ``moe_block_ep`` on one deepseek-moe-16b layer
+    at (1, 1) (``_ep_one_rank``) and ``compressed_psum_grads`` over the
+    pipeline step's gradients (``_compression_phase``); then
+    ``moe_block_ep`` as rank 0 of the EP_MESHES meshes in a ``fake`` group
+    (``_ep_fake_rank``). Returns the main paths' launch counts and the
+    largest error of the grouped checks by kernel."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    out = {"pipeline": {}, "moe_ep": {}}
+    counts = {}
+    cfg = get_config(MOE)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    init_distributed("cuda", init_method=f"file://{tmp}/pg", rank=0, world_size=1)
+    try:
+        check(dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+              f"process group {dist.get_backend()} of {dist.get_world_size()} ranks")
+        grads = _pipeline_phase(out)
+        parts = {"pipeline": time.perf_counter() - t0}
+        counts["pipeline"] = out["pipeline"]["bfloat16"]["launches"]
+        _compression_phase(out, grads)
+        del grads
+        torch.cuda.empty_cache()
+        parts["compression"] = time.perf_counter() - t0 - sum(parts.values())
+        p, xs = _ep_inputs(cfg)
+        counts["moe_ep"] = _ep_one_rank(out, cfg, p, xs)
+    finally:
+        dist.destroy_process_group()
+    rows = _ep_fake_rank(out, cfg, p, xs, torch.Generator(device="cuda").manual_seed(19))
+    del p, xs
+    torch.cuda.empty_cache()
+    out["gmm_rows"] = rows
+    out["wall_s"] = time.perf_counter() - t0
+    parts["moe_ep"] = out["wall_s"] - sum(parts.values())
+    out["wall_s_by_part"] = parts
+    RESULTS["parallel"] = out
+    print(f"[parallel] phase 18 took {out['wall_s']:.1f} s: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()), flush=True)
+    return counts, {k: max(r["max_abs_err"] for r in rs.values()) for k, rs in rows.items()}
+
 
 def timed(phase, *args):
     """``phase(*args)``, its wall time added to ``RESULTS["phases"]`` under
@@ -4757,6 +5126,8 @@ def main(argv=None) -> int:
     timed(phase_cross_cli)
     timed(phase_vlm_mixed_dtype)
     mesh_err = timed(phase_mesh)  # phase 17
+    parallel_counts, parallel_err = timed(phase_parallel)  # phase 18
+    counts.update({f"phase 18 {k}": c for k, c in parallel_counts.items()})
 
     replaces = {
         "dos_matmul": ("src/repro_torch/kernels/csrc/dos_matmul.cu",
@@ -4839,7 +5210,7 @@ def main(argv=None) -> int:
                         + ("; its autodiff's dW" if kname == "grouped_matmul_dw" else "")
                         + "; an XLA op, not a Pallas kernel)",
             "launches": sum(c[kname] for c in counts.values()),
-            "max_abs_err": moe_err[kname],
+            "max_abs_err": max(moe_err[kname], parallel_err[kname]),
             **{k: n_layers * sum(r[k] for r in rows_k) for k in ("ms", "plain_ms", "bound_ms")},
             "bound_by": ("bytes" if n_bytes / HBM_BYTES_S >= n_ops / PEAK_OPS_S[torch.bfloat16]
                          else "operations"),
@@ -4857,8 +5228,9 @@ def main(argv=None) -> int:
             json.dump(RESULTS, f, indent=1)
     print(f"[done] {RESULTS['wall_s']:.1f} s; the kernels' launches sum the twelve main paths' "
           "runs (serving and training smollm-135m, zamba2-2.7b, xlstm-125m, deepseek-moe-16b, "
-          "llama-3.2-vision-11b and whisper-medium), phase 7's calibration and the front door's "
-          "calibrate Study; max_abs_err is the largest of phase 4's, 7's and 12's to 17's "
+          "llama-3.2-vision-11b and whisper-medium), phase 18's pipeline step and expert-parallel "
+          "calls, phase 7's calibration and the front door's "
+          "calibrate Study; max_abs_err is the largest of phase 4's, 7's and 12's to 18's "
           "checks; ms, "
           "plain_ms, library_ms and bound_ms sum the calls of one prefill plus one decode step "
           "of both phase-3 serving paths (dos_matmul, flash_attention, ssm_scan), of xlstm-125m "

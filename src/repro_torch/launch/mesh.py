@@ -9,6 +9,8 @@ axis names and sizes, and with every axis of size 1 the path issues no
 collective. ``MeshSpec`` is also how the rules of a mesh that no process
 group spans are built: ``make_production_mesh`` gives the reference's
 (16, 16) and (2, 16, 16) shapes as such descriptions.
+``make_stage_mesh(stages)`` is the pipeline's one-axis mesh, ``("pod",)``
+as the reference's GPipe test makes it, in the same two forms.
 
 ``init_distributed(device)`` joins the process group of the device's
 backend (``gloo`` on the CPU, ``nccl`` on ``cuda``, never chosen from
@@ -29,7 +31,7 @@ import torch.distributed as dist
 from .._device import resolve_device
 
 __all__ = ["MeshSpec", "axis_names", "axis_sizes", "make_production_mesh", "make_test_mesh",
-           "init_distributed", "mesh_size", "cli_mesh", "is_first_rank"]
+           "make_stage_mesh", "init_distributed", "mesh_size", "cli_mesh", "is_first_rank"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,25 +77,36 @@ def make_test_mesh(data: int = 1, model: int = 1):
     gives one mesh of each shape, made on the first call (its subgroups
     are collective to make: every rank asks for the same shapes in the
     same order)."""
+    return _mesh((data, model), ("data", "model"))
+
+
+def make_stage_mesh(stages: int = 1):
+    """The pipeline's one-axis mesh of ``stages`` ranks, ``("pod",)``, over
+    the default process group, or a one-rank ``MeshSpec`` for one stage
+    when no group is initialised."""
+    return _mesh((stages,), ("pod",))
+
+
+def _mesh(shape: tuple, names: tuple):
     if not dist.is_initialized():
-        if (data, model) != (1, 1):
-            raise RuntimeError(f"a ({data}, {model}) mesh needs a process group of "
-                               f"{data * model} ranks; none is initialised (init_distributed)")
-        return MeshSpec((1, 1), ("data", "model"))
+        if math.prod(shape) != 1:
+            raise RuntimeError(f"a {shape} mesh needs a process group of {math.prod(shape)} "
+                               "ranks; none is initialised (init_distributed)")
+        return MeshSpec(shape, names)
     world = dist.get_world_size()
-    if world != data * model:
-        raise ValueError(f"a ({data}, {model}) mesh needs {data * model} ranks; the process "
+    if world != math.prod(shape):
+        raise ValueError(f"a {shape} mesh needs {math.prod(shape)} ranks; the process "
                          f"group has {world}")
     from torch.distributed.device_mesh import DeviceMesh
 
     if _MESHES.get("world") is not dist.group.WORLD:  # a new default group
         _MESHES.clear()
         _MESHES["world"] = dist.group.WORLD
-    if (data, model) not in _MESHES:
+    if (shape, names) not in _MESHES:
         device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
-        _MESHES[data, model] = DeviceMesh(device_type, torch.arange(world).reshape(data, model),
-                                          mesh_dim_names=("data", "model"))
-    return _MESHES[data, model]
+        _MESHES[shape, names] = DeviceMesh(device_type, torch.arange(world).reshape(shape),
+                                           mesh_dim_names=names)
+    return _MESHES[shape, names]
 
 
 def init_distributed(device=None, *, init_method: str | None = None, rank: int | None = None,

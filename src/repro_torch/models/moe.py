@@ -30,7 +30,8 @@ from ..kernels import grouped_matmul
 from .layers import proj
 from .params import ParamDef
 
-__all__ = ["aux_load_balance_loss", "moe_block", "moe_defs", "route"]
+__all__ = ["add_shared", "aux_load_balance_loss", "moe_block", "moe_defs", "route",
+           "routed_experts"]
 
 
 def moe_defs(cfg):
@@ -99,19 +100,22 @@ class _Permute(torch.autograd.Function):
         return d[inv], None, None
 
 
-def moe_block(p, x, cfg):
-    """x: (B, S, E) -> (B, S, E)."""
-    b, s, e = x.shape
-    t, k, ne = b * s, cfg.top_k, cfg.n_experts
-    xt = x.reshape(t, e)
-    top_p, top_i = route(p, xt, k)
-
+def routed_experts(p, xt, top_p, top_i, n_groups: int):
+    """The routed experts' output (T, E) for the rows ``xt`` (T, E) and
+    their picks ``top_i`` (T, k), each weighted by ``top_p``: the (token,
+    k) pairs sorted by expert, three grouped GEMMs over ``n_groups``
+    groups of ``p``'s experts, the rows back in (token, k) order, weighted
+    and summed over k. Picks ``>= n_groups`` sort past the sum of the group
+    sizes, where the kernel writes zeros (``parallel.moe_ep``'s other
+    ranks' experts)."""
+    t, e = xt.shape
+    k = top_i.shape[1]
     # sort the (token, k) pairs by expert; order[j] is the pair at sorted row j
     expert, order = torch.sort(top_i.reshape(-1), stable=True)
-    pairs = torch.arange(t * k, device=x.device)
+    pairs = torch.arange(t * k, device=xt.device)
     inv = torch.empty_like(order).scatter_(0, order, pairs)
     xs = _Dispatch.apply(xt, order // k, inv, k)
-    bounds = torch.searchsorted(expert, torch.arange(ne + 1, device=x.device))
+    bounds = torch.searchsorted(expert, torch.arange(n_groups + 1, device=xt.device))
     group_sizes = bounds.diff().to(torch.int32)
 
     g = grouped_matmul(xs, p["wi_gate"].to(xs.dtype), group_sizes)
@@ -120,12 +124,25 @@ def moe_block(p, x, cfg):
     y_sorted = grouped_matmul(h, p["wo"].to(h.dtype), group_sizes)
 
     y = _Permute.apply(y_sorted, inv, order)  # (T*k, E) in (token, k) order
-    y = (y.reshape(t, k, e) * top_p[..., None].to(y.dtype)).sum(dim=1)
+    return (y.reshape(t, k, e) * top_p[..., None].to(y.dtype)).sum(dim=1)
 
-    if "shared" in p:
-        sp = p["shared"]
-        y = y + proj(F.silu(proj(xt, sp["wi_gate"])) * proj(xt, sp["wi_up"]), sp["wo"])
-    return y.reshape(b, s, e).to(x.dtype)
+
+def add_shared(p, xt, y):
+    """``y`` plus the shared experts' gated MLP of ``xt``, where ``p``
+    has them."""
+    if "shared" not in p:
+        return y
+    sp = p["shared"]
+    return y + proj(F.silu(proj(xt, sp["wi_gate"])) * proj(xt, sp["wi_up"]), sp["wo"])
+
+
+def moe_block(p, x, cfg):
+    """x: (B, S, E) -> (B, S, E)."""
+    b, s, e = x.shape
+    xt = x.reshape(b * s, e)
+    top_p, top_i = route(p, xt, cfg.top_k)
+    y = routed_experts(p, xt, top_p, top_i, cfg.n_experts)
+    return add_shared(p, xt, y).reshape(b, s, e).to(x.dtype)
 
 
 def aux_load_balance_loss(p, x, cfg):

@@ -19,7 +19,7 @@ Under sharding rules (``parallel.axes.use_rules``) on a mesh of more
 than one rank, ``loss``, ``prefill``, ``decode`` and ``greedy`` take this
 rank's shards of the parameters and the global batch, and run the dense
 family's forward on them (``Model.layout``: the layers' ``Layout``); the
-other families raise there (ROADMAP queue 1 item 10, part 2). With no
+other families raise there (ROADMAP queue 1 item 10, part 3). With no
 rules, or on a mesh of one rank, they run as one device does.
 """
 
@@ -58,7 +58,7 @@ def spans_ranks(cfg: ArchConfig, rules) -> bool:
     if cfg.family != "dense":
         raise NotImplementedError(
             f"family {cfg.family!r} ({cfg.name}) runs on a mesh of one rank only; sharding it "
-            f"over {axis_sizes(rules.mesh)} is ROADMAP queue 1 item 10 (part 2)")
+            f"over {axis_sizes(rules.mesh)} is ROADMAP queue 1 item 10 (part 3)")
     return True
 
 

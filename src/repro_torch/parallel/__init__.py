@@ -2,8 +2,9 @@
 generation blocks to (``work_queue``); the sharding rules (``axes``), the
 placement plans (``plan``) and the collectives (``collectives``) of the
 (data, model) mesh; the device-sharded design-space search
-(``shard_eval``). The JAX package's pipeline, MoE expert-parallel and
-gradient-compression modules are ROADMAP queue 1 item 10 (part 2)."""
+(``shard_eval``); GPipe pipeline stages (``pipeline``), the
+expert-parallel MoE FFN (``moe_ep``) and the int8 error-feedback
+gradient all-reduce (``compression``)."""
 
 from . import work_queue
 

@@ -26,6 +26,10 @@ of the full gradient. Hence:
 On ``gloo`` a reduce-scatter is an all-reduce and a slice, and bf16 goes
 through the collective as f32 (exact for sums of one nonzero term, and
 the partial sums here are f32 already).
+
+The pipeline's point-to-point handoffs (``send_recv``) and its loss
+``broadcast`` act outside autograd: the GPipe schedule runs its own
+backward (``parallel/pipeline.py``).
 """
 
 from __future__ import annotations
@@ -38,7 +42,7 @@ from .axes import spec_axes
 
 __all__ = ["axis_group", "axis_index", "axis_size", "all_reduce", "all_reduce_max", "copy_to",
            "reduce_scatter", "all_gather", "split", "gather_params", "psum", "gather",
-           "local_slice", "shard_of", "gather_full"]
+           "local_slice", "shard_of", "gather_full", "send_recv", "broadcast"]
 
 def axis_size(mesh, axes) -> int:
     """The rank count along ``axes`` (1 for none, whatever the mesh)."""
@@ -262,3 +266,36 @@ def gather_full(x, spec, mesh):
     for dim, part in enumerate(spec):
         x = gather(x, mesh, part, dim)
     return x
+
+
+def send_recv(mesh, axes, sends=(), recvs=()):
+    """Point-to-point along ``axes``, outside autograd: ``sends`` are
+    (tensor, index) pairs, ``recvs`` (template, index) pairs, an index a
+    rank's position along ``axes``. Every send and receive is posted at
+    once (``batch_isend_irecv``) and waited for, so two ranks that send
+    to each other never both block. Returns the received tensors, each
+    of its template's shape and dtype (bf16 crosses ``gloo`` as f32)."""
+    if not sends and not recvs:
+        return []
+    group = axis_group(mesh, axes)
+    ops = [dist.P2POp(dist.isend, _wire(x), dist.get_global_rank(group, i), group)
+           for x, i in sends]
+    bufs = [(_wire(torch.empty_like(like)), like.dtype, i) for like, i in recvs]
+    ops += [dist.P2POp(dist.irecv, buf, dist.get_global_rank(group, i), group)
+            for buf, _, i in bufs]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return [buf.to(dtype) for buf, dtype, _ in bufs]
+
+
+def broadcast(x, mesh, axes, index: int):
+    """The tensor of the rank at ``index`` along ``axes``, on every rank of
+    the group (outside autograd)."""
+    if axis_size(mesh, axes) == 1:
+        return x
+    group = axis_group(mesh, axes)
+    buf = _wire(x)
+    if buf is x:
+        buf = buf.clone()
+    dist.broadcast(buf, src=dist.get_global_rank(group, index), group=group)
+    return buf.to(x.dtype)

@@ -10,7 +10,8 @@ hang fails one test. ``shared`` runs a test module's spawns once per
 session, whichever pytest-xdist worker draws its tests. The inputs of the jobs that take any (the
 reference's weights as numpy, the batches) come from the test in
 ``WORKDIR/inputs.pkl``. This module
-imports torch and the port only.
+imports torch, numpy and the port only; ``np_one_sync`` is the int8
+sync's numpy transcription, which ``tools/mesh_nccl.py`` uses too.
 """
 
 from __future__ import annotations
@@ -216,7 +217,157 @@ def job_mesh8(rank, world, workdir, inputs):
             "train8": job_train8(rank, world, workdir, inputs)}
 
 
-JOBS = {"mesh8": job_mesh8, "mesh4": job_mesh4, "serve2": job_serve2, "train2": job_train2}
+def _gaps(got, want) -> dict:
+    """Each leaf's largest gap over its max|want| (``want`` numpy leaves)."""
+    import torch
+
+    from repro_torch.models.params import leaves
+
+    have = dict(leaves(got))
+    out = {}
+    for path, w in leaves(want):
+        w = torch.from_numpy(w)
+        out[".".join(map(str, path))] = float((have[path] - w).abs().max()) / (
+            float(w.abs().max()) or 1.0)
+    return out
+
+
+def job_pipeline(rank, world, workdir, inputs):
+    """``make_gpipe_loss`` on ``world`` stages (one rank each): every
+    rank's loss, and the whole model's gradients (the stages' layers
+    gathered) against the reference's ``jax.grad(model.loss)``."""
+    import torch
+
+    from repro_torch.launch.mesh import make_stage_mesh
+    from repro_torch.models import build
+    from repro_torch.models.convert import from_numpy
+    from repro_torch.models.params import map_tree
+    from repro_torch.parallel import collectives as C
+    from repro_torch.parallel.pipeline import make_gpipe_loss, stage_params
+
+    t = inputs["pipeline"]
+    cfg = _cfg(t["cfg"])
+    model = build(cfg, device="cpu")
+    mesh = make_stage_mesh(world)
+    params = stage_params(from_numpy(model, t["params"]), cfg, mesh, n_stages=world)
+    params = map_tree(lambda a: a.detach().clone().requires_grad_(), params)
+    batch = {k: torch.from_numpy(t[k]) for k in ("tokens", "labels")}
+    loss = make_gpipe_loss(cfg, mesh, n_stages=world, n_microbatches=t["n_mb"])(params, batch)
+    loss.backward()
+    grads = map_tree(lambda a: a.grad, params)  # the stages' layers gathered, in stage order
+    grads["layers"] = map_tree(lambda a: C.gather(a, mesh, "pod", 0), grads["layers"])
+    losses = C.gather(loss.detach().reshape(1), mesh, "pod", 0)
+    return {"losses": losses.tolist(), "grad_gaps": _gaps(grads, t["grads"])}
+
+
+def job_moe_ep(rank, world, workdir, inputs):
+    """``moe_block_ep`` on the (data, model) mesh the test gives: the output
+    rows gathered, the routing indices ``moe_block_ep`` itself routed
+    every rank's rows with, and the gradients of ``sum(y * gy)`` (each
+    rank's rows' share, summed over ``data``; the experts gathered over
+    ``model``) against the reference's."""
+    import torch
+
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.params import leaves, map_tree, unflatten
+    from repro_torch.parallel import collectives as C
+    from repro_torch.parallel import moe_ep
+
+    t = inputs["moe_ep"]
+    cfg = _cfg(t["cfg"])
+    mesh = make_test_mesh(*t["mesh"])
+    full = map_tree(lambda a: torch.from_numpy(a.copy()), t["params"])
+    p = map_tree(lambda a: a.requires_grad_(), moe_ep.expert_shard(full, mesh))
+    x = torch.from_numpy(t["x"]).requires_grad_()
+    route, routed = moe_ep.route, []
+
+    def recording(*args):  # the indices moe_block_ep routes its rows with
+        top_p, top_i = route(*args)
+        routed.append(top_i.detach())
+        return top_p, top_i
+
+    moe_ep.route = recording
+    try:
+        y = moe_ep.moe_block_ep(p, x, cfg, mesh)
+    finally:
+        moe_ep.route = route
+    gy = C.local_slice(torch.from_numpy(t["gy"]), mesh, "data", 0)
+    (y * gy).sum().backward()
+    (top_i,) = routed
+    top_i = C.gather(top_i, mesh, "data", 0)
+
+    def whole(path, g):
+        g = C.psum(g, mesh, "data")
+        return C.gather(g, mesh, "model", 0) if path in (("wi_gate",), ("wi_up",), ("wo",)) else g
+
+    grads = unflatten((path, whole(path, a.grad)) for path, a in leaves(p))
+    grads["x"] = C.psum(x.grad, mesh, "data")
+    return {"y": C.gather(y.detach(), mesh, "data", 0).tolist(),
+            "top_i_equal": bool(torch.equal(top_i, torch.from_numpy(t["top_i"]).long())),
+            "grad_gaps": _gaps(grads, t["grads"])}
+
+
+def np_one_sync(g, err):
+    """The reference's ``one_sync`` (``compressed_psum_grads`` on one
+    leaf) for every rank at once, in numpy: g and err (ranks, ...) f32 ->
+    q, g_hat, new_err. The scale and the residual are rounded once, as
+    XLA's fused multiply-adds round them; the scales are summed in rank
+    order."""
+    import numpy as np
+
+    f32, world = np.float32, g.shape[0]
+    g = (g + err).astype(f32)
+    flat = np.abs(g).reshape(world, -1).max(axis=1).astype(np.float64)
+    scale = (flat * np.float64(f32(1) / f32(127)) + np.float64(f32(1e-12))).astype(f32)
+    scale = scale.reshape(world, *([1] * (g.ndim - 1)))
+    q = np.clip(np.round(g / scale), -127, 127).astype(np.int8)
+    qsum = q.astype(np.int32).sum(axis=0).astype(f32)
+    ssum = f32(0)
+    for s in scale.reshape(-1):
+        ssum = f32(ssum + s)
+    n = f32(world)
+    g_hat = (qsum * f32(ssum / n) / n).astype(f32)
+    new_err = (g.astype(np.float64) - q.astype(np.float64) * scale.astype(np.float64)).astype(f32)
+    return q, g_hat, new_err
+
+
+def job_compress(rank, world, workdir, inputs):
+    """``compressed_psum_grads`` at (8, 1): identical gradients on every
+    rank (two steps), and each rank's own gradients (two steps); each
+    step's ``q``, ``g_hat`` and ``new_err`` of every rank, gathered."""
+    import torch
+
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models.params import leaves, map_tree
+    from repro_torch.parallel import collectives as C
+    from repro_torch.parallel.compression import (
+        compressed_psum_grads, init_error_state, quantize,
+    )
+
+    mesh = make_test_mesh(world, 1)
+    out = {}
+    for case, steps in inputs["compress"].items():
+        err = None
+        out[case] = []
+        for g in steps:  # each leaf (world, ...): rank r's gradient is [r]
+            g = map_tree(lambda a: torch.from_numpy(a[rank].copy()), g)
+            err = init_error_state(g) if err is None else err
+            q = {path: quantize(a.float() + e)[0] for (path, a), (_, e) in
+                 zip(leaves(g), leaves(err))}
+            g_hat, err = compressed_psum_grads(g, err, mesh)
+            step = {}
+            for path, gh in leaves(g_hat):
+                ne = dict(leaves(err))[path]
+                key = ".".join(path)
+                step[key] = {n: C.gather(v[None], mesh, "data", 0).tolist()
+                             for n, v in (("q", q[path].int()), ("g_hat", gh), ("new_err", ne))}
+            out[case].append(step)
+    return out
+
+
+JOBS = {"mesh8": job_mesh8, "mesh4": job_mesh4, "serve2": job_serve2, "train2": job_train2,
+        "pipeline4": job_pipeline, "pipeline2": job_pipeline, "moe_ep": job_moe_ep,
+        "compress": job_compress}
 
 
 def main(job, rank, world, workdir):

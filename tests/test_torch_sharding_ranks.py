@@ -175,4 +175,4 @@ def test_checkpoint_from_4x2_continues_on_2x2(runs):
 
 def test_other_families_raise_on_a_mesh(runs):
     for arch, msg in runs["mesh4"]["raises"].items():
-        assert msg is not None and "ROADMAP queue 1 item 10 (part 2)" in msg, (arch, msg)
+        assert msg is not None and "ROADMAP queue 1 item 10 (part 3)" in msg, (arch, msg)

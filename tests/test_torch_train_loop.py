@@ -237,7 +237,7 @@ def test_multi_device_training(kw, on_two_ranks):
 
 
 def test_training_another_family_on_a_mesh_is_part_2(on_two_ranks):
-    assert "ROADMAP queue 1 item 10 (part 2)" in on_two_ranks["raises"]
+    assert "ROADMAP queue 1 item 10 (part 3)" in on_two_ranks["raises"]
     assert "'ssm'" in on_two_ranks["raises"]
 
 
