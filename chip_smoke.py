@@ -63,8 +63,10 @@ if it fails:
    sweep (300 workloads x 3 budgets x 16 tiers through
    ``optimal_tiers_batched``), both backends timed;
 9. the grid thermal solve: Fig. 8's nine ``thermal_report`` calls on the
-   card against the CPU, with iteration counts and ms per solve; the
-   configuration that runs to the iteration cap must read 69.007 degC;
+   card against the CPU's (made in a process of their own on one CPU
+   thread, started after phase 2, while the card runs phases 3-8), with
+   iteration counts and ms per solve; the configuration that runs to the
+   iteration cap must read 69.007 degC;
 10. the systolic simulators on the card: ragged folds, tiers 1-4, ``out``
     against A @ B at 1e-4, ``cycles`` against Eq. 1 / Eq. 2;
 11. the Study front door, ``python -m repro_torch run`` in subprocesses
@@ -252,15 +254,8 @@ if it fails:
     what the live group costs a decode step), and 3 ``train_loop`` steps
     at phase 12's under
     each, the tokens equal to phase 3's and the losses to phase 12's
-    first three, bit for bit, the serving launches exact; then the
-    sharded forward itself (a prefill and a decode step) as rank 0 of
-    each (1, 2), (1, 4) and (2, 4) mesh under ``dos`` and ``megatron``,
-    for smollm-135m and qwen2.5-3b at full width cut to one layer, in a
-    ``fake`` process group whose collectives do not communicate (the
-    multi-rank numerics are held on the CPU's gloo ranks by
-    ``tests/test_torch_sharding_ranks.py``): every GEMM shape a rank
-    launched, against its plain version with the variant it planned,
-    timed; the phase's time on its own line;
+    first three, bit for bit, the serving launches exact; the phase's
+    time on its own line;
 18. pipeline stages, expert parallelism and the int8 gradient sync
     (``parallel/{pipeline,moe_ep,compression}.py``), their main paths each
     with the counts set to 0 just before and read just after. In an NCCL
@@ -283,25 +278,50 @@ if it fails:
     its dW against the plain versions, exact zeros past the sum, the
     planned variant, timed beside the bound; the phase's time on its own
     line;
-19. prints the kernels line, the ``nvidia-smi`` line, and last
+19. every family's sharded forward, each with the counts set to 0 just
+    before and read just after: smollm-135m and qwen2.5-3b (dense),
+    deepseek-moe-16b, zamba2-2.7b, xlstm-125m, llama-3.2-vision-11b and
+    whisper-medium at full width cut to one layer, group or block pair
+    (``family_cfg``), a 4 x 128 prefill and a decode step (and for the
+    MoE, hybrid and xLSTM models the loss and its backward), on this card
+    alone and as rank 0 of each (1, 2), (1, 4) and (2, 4) mesh under
+    ``dos`` and ``megatron`` in a ``fake`` process group (collectives
+    emulated as copies of rank 0's; the multi-rank numerics are held on
+    the CPU's gloo ranks by ``tests/test_torch_sharding_ranks.py`` and
+    ``tests/test_torch_sharding_families.py``): each run's launches by
+    kernel equal one card's, mode by mode, and every distinct launch (a
+    kernel at a rank's shapes, strides and flags: ``dos_matmul`` with its
+    K-split f32 partials, ``grouped_matmul`` with its f32 output,
+    ``flash_attention`` and its backward, ``ssm_scan`` and its backward,
+    ``slstm_scan`` and its backward) is replayed on copies of its
+    arguments against its plain version with the variant it launched,
+    and timed on inputs cold in L2 beside its bound; then the grouped
+    forward's f32 output on its own at deepseek-moe-16b's (1, 4) and (2, 4) K-split shard shapes,
+    against its plain version and the bf16 forward's rounding, beside
+    ``torch._grouped_mm``; the phase's time on its own line;
+20. prints the kernels line, the ``nvidia-smi`` line, and last
     ``{"ok": true, "device": {...}}``.
 
 ``--details PATH`` also writes every measurement to a JSON file.
 ``--sweep`` runs phases 1 and 2, times each dos_matmul tiling (BN, K
 split) at every bf16 GEMM shape of the main paths beside torch.matmul,
-and stops.
+and stops. ``--only front-door,families`` runs phases 1 and 2 and the
+phases named (11, 19), prints no result line and stops.
 """
 
 from __future__ import annotations
 
 import argparse
+import atexit
 import dataclasses
 import functools
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -1728,12 +1748,11 @@ FIG8 = [(m, t, tech) for m in (4096, 16384, 65536) for t, tech in ((1, "2d"), (3
 THERMAL_TOL_C = 1e-3
 
 
-def phase_thermal():
-    """Fig. 8's nine ``thermal_report`` calls on the card (the entry
-    point), each held against the same report from the CPU; the solve is
-    recorded for its iteration count and time (host clock up to a
-    synchronize)."""
-    solves, original = [], thermal._solve_stack
+def _recording_solves(solves):
+    """``thermal._solve_stack`` made to append each solve's (T, iterations,
+    seconds, host clock up to a synchronize) to ``solves``; returns the
+    original, to put back."""
+    original = thermal._solve_stack
 
     def recorded(*args, **kw):
         t0 = time.perf_counter()
@@ -1744,15 +1763,66 @@ def phase_thermal():
         return T, it
 
     thermal._solve_stack = recorded
+    return original
+
+
+def thermal_cpu_reports(path):
+    """Fig. 8's nine reports on the CPU, each with its recorded solve,
+    saved to ``path`` (``torch.save``): phase 9's references, made in a
+    process of their own while the card runs phases 3-8."""
+    solves = []
+    _recording_solves(solves)
+    out = []
+    for macs, tiers, tech in FIG8:
+        r = thermal.thermal_report(macs, tiers, tech, device="cpu")
+        T, it, secs = solves[-1]
+        out.append({"T": T, "it": it, "s": secs, "bottom": r.bottom, "middle": r.middle})
+    torch.save(out, path)
+
+
+def _stop(run):
+    """A started (process, file) run: the process killed if it still
+    runs, its folder removed."""
+    proc, path = run
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+    shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+
+
+def start_thermal_cpu(tmp):
+    """``thermal_cpu_reports`` in a subprocess on one CPU thread, so the
+    host-bound phases beside it keep their cores: (the process, its file)."""
+    path = os.path.join(tmp, "thermal_cpu.pt")
+    code = (f"import sys; sys.path.insert(0, {ROOT!r}); import chip_smoke; "
+            f"chip_smoke.torch.set_num_threads(1); chip_smoke.thermal_cpu_reports({path!r})")
+    env = {**os.environ, "OMP_NUM_THREADS": "1"}
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, env=env)
+    return proc, path
+
+
+def phase_thermal(cpu_run):
+    """Fig. 8's nine ``thermal_report`` calls on the card (the entry
+    point), each held against the same report from the CPU (made by
+    ``cpu_run``, the ``start_thermal_cpu`` process, beside phases 3-8);
+    the solve is recorded for its iteration count and time (host clock
+    up to a synchronize)."""
+    proc, path = cpu_run
+    log = proc.communicate(timeout=900)[0]
+    check(proc.returncode == 0, f"the CPU's thermal reports exited {proc.returncode}: "
+          f"{log[-2000:]}")
+    cpu_reports = torch.load(path)
+    solves = []
+    original = _recording_solves(solves)
     rows = []
     try:
-        for macs, tiers, tech in FIG8:
+        for (macs, tiers, tech), cpu in zip(FIG8, cpu_reports):
             card = thermal.thermal_report(macs, tiers, tech)
-            cpu = thermal.thermal_report(macs, tiers, tech, device="cpu")
-            (tg, it_g, s_g), (tc, it_c, s_c) = solves[-2:]
+            (tg, it_g, s_g), tc, it_c, s_c = solves[-1], cpu["T"], cpu["it"], cpu["s"]
             diff = (tg.cpu() - tc).abs().max().item()
-            stats = [abs(a - b) for x, y in ((card.bottom, cpu.bottom), (card.middle or (),
-                                                                         cpu.middle or ()))
+            stats = [abs(a - b) for x, y in ((card.bottom, cpu["bottom"]),
+                                             (card.middle or (), cpu["middle"] or ()))
                      for a, b in zip(x, y)]
             ok = diff <= THERMAL_TOL_C and max(stats) <= THERMAL_TOL_C and it_g == it_c
             tag = f"{macs} MACs x {tiers} {tech}"
@@ -1879,6 +1949,15 @@ def _paired(fn_a, fn_b, reps):
     return out, ta, tb, over
 
 
+def _catching(fn):
+    """``fn()``'s exception as text (None if it returned), for a thread."""
+    try:
+        fn()
+    except Exception as e:  # noqa: BLE001 - reported by the thread's caller
+        return f"{type(e).__name__}: {e}"
+    return None
+
+
 def phase_front_door():
     """``python -m repro_torch run`` on the card: every example-spec kind at
     ``backend="torch"`` (the templates' backend) and three full-width
@@ -1889,10 +1968,12 @@ def phase_front_door():
     preset through the CLI with a cache (launches per row counted as in
     phase 7, the resumed run launching nothing and reproducing the
     artifact bit for bit), the search at workers 1 and 2 (spawned
-    workers on the card), and the Study facade's overhead over direct
-    engine calls."""
+    workers on the card; run in a thread beside the CLI processes, from
+    the template the CLI runs, and held to the CLI's artifact after
+    both), and the Study facade's overhead over direct engine calls."""
     import shutil
     import tempfile
+    import threading
 
     from repro_torch import cli
     from repro_torch.configs import REGISTRY, SHAPES
@@ -1905,6 +1986,8 @@ def phase_front_door():
     )
 
     out = {}
+    t_start = time.perf_counter()
+    parts = {}
     tmp = tempfile.mkdtemp(prefix="repro-torch-front-door-")
     full = {
         "schedule qwen2-72b prefill_32k": Study(
@@ -1915,8 +1998,24 @@ def phase_front_door():
         "sweep fig5": dse.fig5_study(backend="torch"),
     }
     procs = {}
+    search = Study.example("search")  # the template `example-spec search` prints
+    searched = {"pays": [], "walls": []}
+
+    def run_search():
+        """The search at workers 1 and 2: two blocks per generation, the
+        second's workers spawned."""
+        for w in (1, 2):
+            s = dataclasses.replace(search, analysis=dataclasses.replace(search.analysis,
+                                                                         workers=w))
+            t = time.perf_counter()
+            r = s.run(cache=ResultCache(os.path.join(tmp, f"search-w{w}"), block_cells=64))
+            searched["walls"].append(time.perf_counter() - t)
+            searched["pays"].append(_payload_of(r))
+
+    searcher = threading.Thread(target=lambda: searched.update(error=_catching(run_search)))
     try:
         t0 = time.perf_counter()
+        searcher.start()
         procs = _start_front_door(tmp, {**{k: None for k in ANALYSIS_KINDS}, **full})
         arts = {}
         for name, (proc, path, log) in procs.items():
@@ -1929,6 +2028,10 @@ def phase_front_door():
             check(arts[name]["study"]["analysis"]["backend"] == "torch",
                   f"{name}: the artifact's backend is not torch")
         cli_wall = time.perf_counter() - t0
+        searcher.join()  # nothing below runs beside it: the calibrate part counts launches
+        check(searched.get("error") is None, f"search at workers 1 and 2: {searched.get('error')}")
+        parts["cli"] = cli_wall
+        parts["cli and search"] = time.perf_counter() - t0 - cli_wall
         print(f"[front door] {len(procs)} `python -m repro_torch run` processes in parallel, "
               f"all done in {cli_wall:.2f} s (wall, start-up included)", flush=True)
 
@@ -1965,6 +2068,7 @@ def phase_front_door():
         print(f"[front door] Fig. 5 12-tier speedup {s12:.4f}x; Fig. 7 medians {med}", flush=True)
         out["kinds"] = timing
         out["cli_parallel_wall_s"] = cli_wall
+        parts["kinds"] = time.perf_counter() - t_start - sum(parts.values())
 
         # the calibrate kind at the default preset, through the CLI with a cache
         cal_dir = os.path.join(tmp, "cache-calibrate-default")
@@ -2009,17 +2113,12 @@ def phase_front_door():
               f"{e['uncalibrated_holdout_median_rel_err']:.4f})", flush=True)
         out["calibrate_default"] = {"wall_s": wall1, "resume_wall_s": wall2, "launches": counts,
                                     "launches_by_variant": by_variant, "errors": e}
+        parts["calibrate"] = time.perf_counter() - t_start - sum(parts.values())
 
-        # the search at workers 1 and 2: two blocks per generation, spawned workers
-        search = _as_backend(Study.from_dict(arts["search"]["study"]), "torch")
-        pays, walls = [], []
-        for w in (1, 2):
-            s = dataclasses.replace(search, analysis=dataclasses.replace(search.analysis,
-                                                                         workers=w))
-            t0 = time.perf_counter()
-            r = s.run(cache=ResultCache(os.path.join(tmp, f"search-w{w}"), block_cells=64))
-            walls.append(time.perf_counter() - t0)
-            pays.append(_payload_of(r))
+        # the search at workers 1 and 2 (run beside the CLI processes)
+        pays, walls = searched["pays"], searched["walls"]
+        check(Study.from_dict(arts["search"]["study"]) == search,
+              "search: the CLI ran another spec than the template")
         check(pays[0] == pays[1] == arts["search"]["payload"],
               "search: workers 1 and 2 (and the uncached CLI run) differ")
         print(f"[front door] search at workers 1 and 2 (2 blocks per generation): bit-identical "
@@ -2056,14 +2155,20 @@ def phase_front_door():
               f"ms, Study best {min(t_s2) * 1e3:.3f} ms)", flush=True)
         out["facade"] = {"evaluate": {"direct_s": t_d, "study_s": t_s, "overhead": over_e},
                          "schedule": {"direct_s": t_d2, "study_s": t_s2, "overhead": over_s}}
+        parts["facade"] = time.perf_counter() - t_start - sum(parts.values())
     finally:
         for proc, _, log in procs.values():
             if proc.poll() is None:
                 os.killpg(proc.pid, 9)
                 proc.wait()
             log.close()
+        if searcher.is_alive():
+            searcher.join()
         shutil.rmtree(tmp, ignore_errors=True)
+    out["wall_s_by_part"] = parts
     RESULTS["front_door"] = out
+    print("[front door] phase 11 took " + f"{time.perf_counter() - t_start:.1f} s: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()), flush=True)
     return counts
 
 
@@ -3944,8 +4049,8 @@ class _RecordRoutes:
     def __enter__(self):
         self._route = moe.route
 
-        def route(p, xt, k):
-            top_p, top_i = self._route(p, xt, k)
+        def route(p, xt, k, *lay):
+            top_p, top_i = self._route(p, xt, k, *lay)
             probs = torch.softmax(layers.proj(xt.float(), p["router"].float()), dim=-1)
             srt = probs.sort(dim=-1, descending=True).values
             self.calls[xt.device.type].append((top_i.cpu(), (srt[:, k - 1] - srt[:, k]).cpu()))
@@ -4525,97 +4630,9 @@ def phase_vlm_mixed_dtype():
 
 MESH_STRATEGIES = ("dos", "megatron", "zero", "auto")
 MESH_TRAIN_STEPS = 3
-MESH_GEMM_MESHES = ((1, 2), (1, 4), (2, 4))
-MESH_GEMM_ARCHS = (ARCH, "qwen2.5-3b")
 
 
-def shard_local_gemms(arch, meshes=MESH_GEMM_MESHES, strategies=("dos", "megatron"),
-                      batch=BATCH, seq=PROMPT) -> dict:
-    """{(m, k, n, B transposed, out dtype): [(mesh, strategy, calls)]}: the
-    GEMMs that rank 0 of each mesh launches in one prefill (``seq`` tokens)
-    and one decode step serving ``batch`` prompts under each strategy's
-    plan, ``arch`` at full width cut to one layer (every layer launches
-    the same). The forward is the port's own (``models/layers.py`` under
-    the plan's ``Layout``), run on this card as rank 0 of a ``fake``
-    process group of the mesh's size, whose collectives return without
-    communicating: the shapes, the K-split f32 partials, the ring decode
-    and the vocab-parallel paths are those of a real rank, the values are
-    not (no sum across ranks happens), so only the shapes are kept. Each
-    ``dos_matmul`` call is recorded where the layers make it."""
-    import torch.distributed as dist
-    from torch.testing._internal.distributed.fake_pg import FakeStore
-
-    from repro_torch.parallel.axes import param_sharding, use_rules
-    from repro_torch.parallel.plan import shard_tree
-
-    cfg = cut_depth(get_config(arch), 1)
-    model = build(cfg, device="cuda")
-    full = model.init_compute(torch.Generator(device="cuda").manual_seed(0))
-    gen = torch.Generator().manual_seed(1)
-    prompts = torch.randint(0, cfg.vocab, (batch, seq), generator=gen)
-    token = torch.randint(0, cfg.vocab, (batch, 1), generator=gen)
-    seen: dict = {}
-    record = []
-
-    def recording(a, b, *, out_dtype=None):
-        record.append((a.numel() // a.shape[-1], a.shape[-1], b.shape[1], b.stride(1) != 1,
-                       out_dtype or a.dtype))
-        return dos_matmul(a, b, out_dtype=out_dtype)
-
-    layers.dos_matmul = recording
-    try:
-        for mesh_shape in meshes:
-            dist.init_process_group("fake", store=FakeStore(), rank=0,
-                                    world_size=math.prod(mesh_shape))
-            try:
-                for strategy in strategies:
-                    rules = ShardingRules(make_test_mesh(*mesh_shape), strategy=strategy,
-                                          fsdp=False)
-                    params = shard_tree(full, param_sharding(model.defs, rules), rules.mesh)
-                    record.clear()
-                    with use_rules(rules):
-                        _, cache = model.prefill(params, {"tokens": prompts}, max_len=seq + GEN)
-                        model.decode(params, cache, {"token": token})
-                    torch.cuda.synchronize()
-                    for key in set(record):
-                        seen.setdefault(key, []).append((mesh_shape, strategy, record.count(key)))
-            finally:
-                dist.destroy_process_group()
-    finally:
-        layers.dos_matmul = dos_matmul
-    return seen
-
-
-def check_local_gemm(gen, m, k, n, b_transposed, out_dtype) -> dict:
-    """One shard-local GEMM (bf16 operands) against matmul_ref on the same
-    operands at phase 4's gate (an f32 output: 1e-5 of max|ref|, the
-    summation order; bf16: plus 2**-8 of each entry), the variant that
-    launched the one ``plan`` gives; the kernel timed on cold inputs."""
-    es = 2
-    n_sets = max(1, math.ceil(COLD_BYTES / ((m * k + k * n) * es)))
-    sets = _gemm_case(gen, m, k, n, torch.bfloat16, b_transposed, n_sets)
-    a, b = sets[0]
-    b_t = b.stride(1) != 1
-    p = dos_ops.plan(m, n, k, a.dtype, b.stride(1) if b_t else b.stride(0), b_t,
-                     (a.data_ptr() | b.data_ptr()) % 16 == 0, out_dtype,
-                     torch.cuda.get_device_properties(0).multi_processor_count)
-    before = dict(dos_matmul.variants)
-    got = dos_matmul(a, b, out_dtype=out_dtype)
-    launched = [v for v in dos_matmul.variants if dos_matmul.variants[v] != before[v]]
-    exact = matmul_ref(a, b, torch.float32)
-    err = (got.float() - exact).abs()
-    scale = exact.abs().max().item()
-    tol = (2.0**-8 * exact.abs() if out_dtype == torch.bfloat16 else 0.0) + 1e-5 * scale
-    row = {"m": m, "k": k, "n": n, "b_transposed": b_transposed,
-           "out": str(out_dtype).split(".")[-1], "variant": p.variant, "launched": launched,
-           "max_abs_err": (got.float() - matmul_ref(a, b, out_dtype).float()).abs().max().item(),
-           "max_abs_err_vs_f32": err.max().item(), "max_ref": scale,
-           "ok": bool((err <= tol).all()) and launched == [p.variant],
-           "ms": cuda_ms(lambda i: dos_matmul(*sets[i], out_dtype=out_dtype), len(sets))}
-    return row
-
-
-def phase_mesh() -> dict:
+def phase_mesh():
     """Phase 17: the mesh's entry points on the card. smollm-135m's
     ``serve_loop`` at phase 3's size with no process group, then in an
     NCCL group of one rank under every strategy, and with no group again,
@@ -4623,12 +4640,8 @@ def phase_mesh() -> dict:
     check the arguments' way through the loop, and the three dos runs'
     step times show what the live group costs); ``train_loop`` for MESH_TRAIN_STEPS steps at phase
     12's under every strategy. The tokens equal phase 3's, the losses
-    phase 12's first three. Then the shard-local GEMMs that rank 0 of
-    each (1, 2), (1, 4) and (2, 4) mesh launches under ``dos`` and
-    ``megatron`` (``shard_local_gemms``: the port's sharded forward on
-    this card in a ``fake`` group) for smollm-135m and qwen2.5-3b at full
-    width, each against its plain version with the variant it planned.
-    Returns the GEMM rows' largest error."""
+    phase 12's first three. (What rank 0 of a larger mesh launches is
+    phase 19's, the dense family's included.)"""
     import tempfile
 
     import torch.distributed as dist
@@ -4675,29 +4688,11 @@ def phase_mesh() -> dict:
     finally:
         dist.destroy_process_group()
     serve("dos", "no process group again")
-    gen = torch.Generator(device="cuda").manual_seed(17)
-    rows = {}
-    for arch in MESH_GEMM_ARCHS:
-        for key, uses in shard_local_gemms(arch).items():
-            if key not in rows:
-                rows[key] = check_local_gemm(gen, *key)
-            rows[key].setdefault("used_by", []).extend(
-                f"{arch} {mesh} {strategy} x{calls}" for mesh, strategy, calls in uses)
-    rows = list(rows.values())
-    for row in rows:
-        print(f"[mesh] dos_matmul {row['m']}x{row['k']}x{row['n']}"
-              f"{' B^T' if row['b_transposed'] else ''} -> {row['out']} [{row['variant']}]: "
-              f"max|err| vs f32 {row['max_abs_err_vs_f32']:.3g} (max|ref| "
-              f"{row['max_ref']:.3g}), {row['ms']*1e3:.1f} us; {'; '.join(row['used_by'])}"
-              + ("" if row["ok"] else "  FAIL"), flush=True)
-        check(row["ok"], f"shard-local GEMM {row} disagrees or left its planned variant")
-    check(any(r["out"] == "float32" for r in rows), "no K-split (f32 partial) GEMM was launched")
-    out["gemms"] = rows
     wall = time.perf_counter() - t0
     out["wall_s"] = wall
     RESULTS["mesh"] = out
-    print(f"[mesh] phase 17 took {wall:.1f} s ({len(rows)} shard-local GEMM shapes)", flush=True)
-    return max(r["max_abs_err"] for r in rows)
+    print(f"[mesh] phase 17 took {wall:.1f} s", flush=True)
+
 
 # ---------------------------------------------------------------------------
 # phase 18: GPipe stages, expert-parallel MoE and the int8 gradient sync
@@ -4922,10 +4917,10 @@ def _ep_fake_rank(out, cfg, p, xs, gen):
     rows = {"grouped_matmul": {}, "grouped_matmul_dw": {}}
     record = []
 
-    def recording(x, w, sizes):
+    def recording(x, w, group_sizes, *, out_dtype=None):
         if x.is_cuda:
-            record.append((x.shape[0], x.shape[1], w.shape[-1], sizes.clone()))
-        return grouped_matmul(x, w, sizes)
+            record.append((x.shape[0], x.shape[1], w.shape[-1], group_sizes.clone()))
+        return grouped_matmul(x, w, group_sizes, out_dtype=out_dtype)
 
     moe.grouped_matmul = recording
     try:
@@ -5020,6 +5015,468 @@ def phase_parallel() -> tuple[dict, dict]:
     return counts, {k: max(r["max_abs_err"] for r in rs.values()) for k, rs in rows.items()}
 
 
+# ---------------------------------------------------------------------------
+# phase 19: every family's sharded forward, as rank 0 of (data, model) meshes
+# ---------------------------------------------------------------------------
+
+# the dense family (smollm-135m; qwen2.5-3b, whose 2 KV heads split at 2
+# ranks) and every other family
+FAMILY_ARCHS = (ARCH, "qwen2.5-3b", MOE, HYBRID, XLSTM, VLM, WHISPER)
+FAMILY_MESHES = ((1, 2), (1, 4), (2, 4))
+FAMILY_STRATEGIES = ("dos", "megatron")
+FAMILY_TRAIN = (MOE, HYBRID, XLSTM)  # also the loss and its backward
+FAMILY_TIME_ITERS = 20  # graph-replayed calls a timed launch, at least
+FAMILY_COLD_SETS = 64  # copies of a launch's arguments, at most, to time it cold
+# kernel: (the module of its private launcher, the launcher's name)
+FAMILY_LAUNCHERS = {
+    "dos_matmul": (dos_ops, "_launch_kernel"), "flash_attention": (flash_ops, "_forward"),
+    "flash_attention_bwd": (flash_ops, "_backward"), "ssm_scan": (ssm_ops, "_forward"),
+    "ssm_scan_bwd": (ssm_ops, "_backward"), "slstm_scan": (slstm_ops, "_forward"),
+    "slstm_scan_bwd": (slstm_ops, "_backward"), "grouped_matmul": (gmm_ops, "_launch_forward"),
+    "grouped_matmul_dw": (gmm_ops, "_launch_dw"),
+}
+
+
+def family_cfg(arch):
+    """``arch`` at full width, cut in depth to one repeating unit: one
+    layer of a dense model, one deepseek-moe-16b layer, one zamba2-2.7b
+    group (6 Mamba2 layers and the shared block), one xlstm-125m mLSTM
+    and one sLSTM block, one
+    llama-3.2-vision-11b group (4 self layers and the cross layer), one
+    whisper-medium encoder and one decoder layer (1,500 frames)."""
+    cfg = get_config(arch)
+    if cfg.family == "ssm":
+        return dataclasses.replace(cfg, n_layers=2, slstm_at=(1,))
+    if cfg.family == "encdec":
+        return dataclasses.replace(cfg, n_layers=1, n_enc_layers=1)
+    return cut_depth(cfg, cfg.attn_every or cfg.cross_every or 1)
+
+
+def _sig(x):
+    """A launch argument as its planning sees it: a tensor's shape,
+    strides, dtype and base alignment; nested tuples; anything else as is."""
+    if isinstance(x, torch.Tensor):
+        return ("T", tuple(x.shape), tuple(x.stride()), str(x.dtype), x.data_ptr() % 16)
+    if isinstance(x, (tuple, list)):
+        return tuple(_sig(v) for v in x)
+    return x if x is None or isinstance(x, (int, float, bool, str)) else str(x)
+
+
+def _tensors(x):
+    """The tensors of a launch's (nested) arguments."""
+    if isinstance(x, (tuple, list)):
+        return [t for v in x for t in _tensors(v)]
+    return [x] if isinstance(x, torch.Tensor) else []
+
+
+def _clone(x):
+    """A copy of a launch argument with the same strides and base alignment
+    (a broadcast dim stays a view of one copy)."""
+    if isinstance(x, (tuple, list)):
+        return type(x)(_clone(v) for v in x)
+    if not isinstance(x, torch.Tensor):
+        return x
+    base = x
+    for d in range(x.dim()):
+        if x.stride(d) == 0 and x.shape[d] > 1:
+            base = base.narrow(d, 0, 1)
+    off = (base.data_ptr() % 256) // base.element_size()
+    span = 1 + sum((s - 1) * st for s, st in zip(base.shape, base.stride()) if s > 0)
+    out = torch.empty(off + span, dtype=x.dtype, device=x.device).as_strided(
+        base.shape, base.stride(), off)
+    out.copy_(base)
+    return out.expand(x.shape) if base is not x else out
+
+
+class _LaunchRecorder:
+    """Inside the ``with``, every launch of every kernel keeps, by its
+    signature (``_sig`` of its arguments), a copy of its first arguments,
+    the variants it launched, its calls and the runs that made it."""
+
+    def __init__(self):
+        self.seen = {}
+        self.run = None
+
+    def __enter__(self):
+        self._orig = {k: getattr(mod, name) for k, (mod, name) in FAMILY_LAUNCHERS.items()}
+        for kname, (mod, name) in FAMILY_LAUNCHERS.items():
+            setattr(mod, name, self._wrap(kname, self._orig[kname]))
+        return self
+
+    def __exit__(self, *exc):
+        for kname, (mod, name) in FAMILY_LAUNCHERS.items():
+            setattr(mod, name, self._orig[kname])
+
+    def _wrap(self, kname, fn):
+        wrapper = KERNELS[kname]
+
+        def launcher(*args, **kw):
+            key = (kname, _sig(args), _sig(tuple(sorted(kw.items()))))
+            row = self.seen.get(key)
+            if row is None:
+                row = self.seen[key] = {"kernel": kname, "args": _clone(args), "kw": dict(kw),
+                                        "variants": set(), "calls": 0, "runs": set()}
+            before = dict(wrapper.variants)
+            out = fn(*args, **kw)
+            row["variants"] |= {v for v in wrapper.variants if wrapper.variants[v] != before[v]}
+            row["calls"] += 1
+            row["runs"].add(self.run)
+            return out
+
+        return launcher
+
+
+def _emulated_collectives():
+    """Rank 0's collectives in a group whose other ranks hold what it
+    holds: a sum is the rank's own tensor, a gather its copies side by
+    side, a reduce-scatter its slice (``fake``'s collectives return
+    without filling their outputs, which the replayed launches would then
+    read). Returns the originals, to put back."""
+    from repro_torch.parallel import collectives as C
+
+    orig = (C._reduce, C._gather, C._scatter)
+
+    def gather(x, mesh, axes, dim):
+        return torch.cat([x] * C.axis_size(mesh, axes), dim=dim)
+
+    C._reduce = lambda x, mesh, axes, op=None: x.clone()
+    C._gather, C._scatter = gather, C._slice
+    return orig
+
+
+def _family_gate(kname, args, kw, got, dtype):
+    """(ok, max|err| against the f32 plain version of the same operands,
+    max|ref|, the largest share of the order-of-sum term that an entry's
+    error uses past its rounding, or None) of one replayed launch, at the
+    gate of its kernel's own phase: f32 sums in another order within 1e-5 (GEMMs, the flash
+    forward), 1e-4 (the scans' and the recurrence's outputs) or
+    SSM_BWD_TOL of the largest entry, plus, for a bf16 output, one
+    rounding of each entry (2**-8 of it). A GEMM's 1e-5 grows linearly
+    with the depth of its sum past 8,192 terms, as phase 12's dA and dB
+    gate has it (the tensor cores' f32 adds truncate: the unembedding's
+    dA sums 102,400), and its bf16 output may be one bf16 ulp (2**-7 of
+    each entry) off: its f32 sum in another order may fall on the other
+    side of a rounding tie."""
+    f = lambda t: t.float() if isinstance(t, torch.Tensor) else t  # noqa: E731
+    ulps = 2.0**-8
+    if kname == "dos_matmul":
+        a, b, out_dtype = args
+        exact, outs, ulps = [matmul_ref(a, b, torch.float32)], [got], 2.0**-7
+        rel = 1e-5 * max(1.0, a.shape[-1] / 8192)
+    elif kname == "grouped_matmul":
+        x, w, sizes = args[:3]
+        exact, outs, rel = [grouped_matmul_ref(f(x), f(w), sizes)], [got], GMM_TOL
+    elif kname == "grouped_matmul_dw":
+        x, dy, sizes = args[:3]
+        exact, outs, rel = [grouped_matmul_dw_ref(x, dy, sizes)], [got], GMM_TOL
+    elif kname == "flash_attention":
+        q, k, v = args
+        o, lse = attention_fwd_ref(f(q), f(k), f(v), causal=kw["causal"], window=kw["window"],
+                                   scale=kw["scale"], q_offset=kw["q_offset"])
+        exact, outs, rel = [o] + ([lse] if kw["with_lse"] else []), [t for t in got if
+                                                                     t is not None], 1e-5
+    elif kname == "flash_attention_bwd":
+        q, k, v, o, do, lse = args
+        exact = attention_bwd_ref(f(q), f(k), f(v), f(o), f(do), lse, causal=kw["causal"],
+                                  window=kw["window"], scale=kw["scale"],
+                                  q_offset=kw["q_offset"])
+        ok, errs, ref_max, used = _bwd_gate(got, exact, dtype)
+        return ok, max(errs), ref_max, used
+    elif kname == "ssm_scan":
+        u, ld, B, C, chunk = args[:5]
+        exact, outs, rel = list(ssm_scan_chunked(f(u), ld, f(B), f(C), chunk)), list(got[:2]), 1e-4
+    elif kname == "ssm_scan_bwd":
+        u, ld, B, C, dy, d_state, _, chunk = args[:8]
+        exact = list(ssm_scan_bwd_ref(f(u), ld, f(B), f(C), f(dy), d_state, chunk))
+        if args[8] if len(args) > 8 else kw.get("shared", False):
+            exact[2:] = [t.sum(2, keepdim=True) for t in exact[2:]]
+        ok, errs, _ = _ssm_bwd_gate(got, exact, dtype)
+        return ok, max(errs), max(t.abs().max().item() for t in exact), None
+    elif kname == "slstm_scan":
+        store = args[8] if len(args) > 8 else kw.get("store", False)
+        ref = slstm_scan_ref(*args[:8], store=store)
+        exact = list(ref[0]) + list(ref[1]) if store else list(ref)
+        outs, rel = list(got[:4]) + (list(got[4]) if store else []), SLSTM_TOL
+    else:  # slstm_scan_bwd
+        exact, outs, rel = [t for t in slstm_scan_bwd_ref(*args[:11]) if t is not None], [
+            t for t in got if t is not None], SLSTM_BWD_TOL
+    ok, err, ref_max, used = True, 0.0, 0.0, -math.inf
+    for g, x in zip(outs, exact):
+        x = x.float()
+        e = (g.float() - x).abs()
+        scale = max(x.abs().max().item(), 1e-30)
+        rounding = ulps * x.abs() if g.dtype == torch.bfloat16 else 0.0
+        ok = ok and g.shape == x.shape and bool((e <= rel * scale + rounding).all())
+        err, ref_max = max(err, e.max().item()), max(ref_max, scale)
+        used = max(used, ((e - rounding) / (rel * scale)).max().item())
+    return ok and len(outs) == len(exact), err, ref_max, used
+
+
+def _family_work(kname, args, kw):
+    """(bytes, operations, the operands' dtype) of one launch, counted as
+    its kernel's phase counts them (each input read once, each output
+    written once; what these inputs need)."""
+    t0 = args[0]
+    es = t0.element_size()
+    if kname == "dos_matmul":
+        a, b, out_dtype = args
+        m, k, n = a.numel() // a.shape[-1], a.shape[-1], b.shape[1]
+        out_es = torch.finfo(out_dtype).bits // 8
+        return (m * k + k * n) * es + m * n * out_es, 2.0 * m * k * n, a.dtype
+    if kname in ("grouped_matmul", "grouped_matmul_dw"):
+        x, w, sizes = args[:3]
+        sizes = sizes.cpu()
+        if kname == "grouped_matmul_dw":
+            out_dtype = kw.get("out_dtype", args[4] if len(args) > 4 else torch.float32)
+            return (*gmm_dw_work(x.shape[0], x.shape[1], w.shape[1], sizes, es,
+                                 torch.finfo(out_dtype).bits // 8), x.dtype)
+        n_bytes, n_ops = gmm_work(x.shape[0], x.shape[1], w.shape[2], sizes, es)
+        out_es = torch.finfo(kw.get("out_dtype") or x.dtype).bits // 8
+        return n_bytes + (out_es - es) * x.shape[0] * w.shape[2], n_ops, x.dtype
+    if kname in ("flash_attention", "flash_attention_bwd"):
+        q, k = args[0], args[1]
+        b, sq, h, d = q.shape
+        skv, kvh = k.shape[1], k.shape[2]
+        if kname == "flash_attention_bwd":
+            return (*_bwd_work(b, sq, skv, h, kvh, d, es, kw["causal"], kw["window"],
+                               kw["q_offset"]), q.dtype)
+        pairs = _visible_pairs(sq, skv, kw["causal"], kw["window"], kw["q_offset"])
+        return ((2 * b * sq * h + 2 * b * skv * kvh) * d * es + 4 * b * h * sq * kw["with_lse"],
+                4.0 * b * h * d * pairs, q.dtype)
+    if kname in ("ssm_scan", "ssm_scan_bwd"):
+        u, B = args[0], args[2]
+        bt, s, h, p = u.shape
+        shared = B.stride(2) == 0
+        chunk = args[4] if kname == "ssm_scan" else args[7]
+        if kname == "ssm_scan":
+            return (*ssm_work(bt, s, h, p, B.shape[-1], es, shared, chunk), u.dtype)
+        return (*ssm_bwd_work(bt, s, h, p, B.shape[-1], es, shared, chunk,
+                              args[5] is not None), u.dtype)
+    z, r = (args[0], args[4]) if kname == "slstm_scan" else (args[7], args[3])
+    b, s, e = z.shape
+    h, d = r.shape[0], r.shape[1]
+    if kname == "slstm_scan":
+        return (*slstm_work(b, s, h, d, args[8] if len(args) > 8 else kw.get("store", False)),
+                torch.float32)
+    return (*slstm_bwd_work(b, s, h, d), torch.float32)
+
+
+def _check_family_launch(row) -> dict:
+    """One recorded launch replayed: the kernel on copies of its first
+    arguments against its plain version (``_family_gate``), the variant it
+    launched the one its plan gives again, timed (CUDA-graph replay) on
+    inputs cold in L2 beside its bound: the calls cycle over copies of
+    the arguments, COLD_BYTES of them in all, or FAMILY_COLD_SETS where
+    an argument set is smaller than COLD_BYTES / FAMILY_COLD_SETS."""
+    kname, args, kw = row["kernel"], row["args"], row["kw"]
+    mod, name = FAMILY_LAUNCHERS[kname]
+    launch = getattr(mod, name)
+    wrapper = KERNELS[kname]
+    before = dict(wrapper.variants)
+    got = launch(*args, **kw)
+    launched = {v for v in wrapper.variants if wrapper.variants[v] != before[v]}
+    dtype = args[0].dtype if kname not in ("slstm_scan", "slstm_scan_bwd") else torch.float32
+    ok, err, ref_max, used = _family_gate(kname, args, kw, got, dtype)
+    n_bytes, n_ops, op_dtype = _family_work(kname, args, kw)
+    bound, by = bound_ms(n_bytes, n_ops, op_dtype if op_dtype in PEAK_OPS_S else torch.float32)
+    in_bytes = sum(t.numel() * t.element_size() for t in _tensors(args))
+    sets = [args] + [_clone(args) for _ in range(
+        min(FAMILY_COLD_SETS, math.ceil(COLD_BYTES / max(in_bytes, 1))) - 1)]
+    ms = cuda_ms(lambda i: launch(*sets[i], **kw), len(sets), max(FAMILY_TIME_ITERS, len(sets)))
+    del sets
+    shapes = [tuple(a.shape) for a in args if isinstance(a, torch.Tensor)][:3]
+    out = got[0] if isinstance(got, tuple) else got
+    return {"kernel": kname, "shapes": shapes, "dtype": str(dtype).split(".")[-1],
+            "out": str(out.dtype).split(".")[-1],
+            "variant": sorted(row["variants"]), "replayed": sorted(launched),
+            "calls": row["calls"], "runs": sorted(row["runs"]), "max_abs_err": err,
+            "max_ref": ref_max, "gate_used": used, "ms": ms, "bound_ms": bound, "bound_by": by,
+            "ok": ok and launched == row["variants"] and len(launched) == 1}
+
+
+def _family_runs(arch, rec, cfg=None, device="cuda") -> dict:
+    """The launches of ``arch``'s cut config (``cfg``: another) by kernel
+    on one card (no group), then as rank 0 of each FAMILY_MESHES mesh under
+    each FAMILY_STRATEGIES plan (``rec`` recording them); each sharded
+    run's launches checked equal to one card's, mode by mode. Returns the
+    launches by run. ``device="cpu"`` rehearses the runs on the plain
+    versions (no launch to count)."""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.parallel.axes import param_sharding, use_rules
+    from repro_torch.parallel.plan import shard_tree
+
+    cfg = cfg or family_cfg(arch)
+    model = build(cfg, device=device)
+    master = model.init(torch.Generator(device=device).manual_seed(0))
+    serve = model.compute_params(master)
+    gen = torch.Generator().manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab, (BATCH, PROMPT), generator=gen)
+    token = torch.randint(0, cfg.vocab, (BATCH, 1), generator=gen)
+    extra = {k: v.to(device) for k, v in model_inputs(cfg, BATCH, 0).items()}
+    train = arch in FAMILY_TRAIN
+    batch = {"tokens": prompts, "labels": prompts.roll(-1, 1)} if train else None
+
+    def modes(params, master_params):
+        counts = {}
+        c0 = launch_counts()
+        with torch.no_grad():
+            _, cache = model.prefill(params, {"tokens": prompts, **extra}, max_len=PROMPT + 1)
+        c1 = launch_counts()
+        with torch.no_grad():
+            model.decode(params, cache, {"token": token})
+        c2 = launch_counts()
+        counts["prefill"] = {k: c1[k] - c0[k] for k in c1 if c1[k] != c0[k]}
+        counts["decode"] = {k: c2[k] - c1[k] for k in c2 if c2[k] != c1[k]}
+        if master_params is not None:
+            loss_and_grads(model, master_params, batch, remat=True)
+            c3 = launch_counts()
+            counts["train"] = {k: c3[k] - c2[k] for k in c3 if c3[k] != c2[k]}
+        if device == "cuda":
+            torch.cuda.synchronize()
+        return counts
+
+    one = modes(serve, master if train else None)
+    out = {"one card": one}
+    orig = _emulated_collectives()
+    try:
+        for mesh_shape in FAMILY_MESHES:
+            dist.init_process_group("fake", store=FakeStore(), rank=0,
+                                    world_size=math.prod(mesh_shape))
+            try:
+                for strategy in FAMILY_STRATEGIES:
+                    mesh = make_test_mesh(*mesh_shape)
+                    s_rules = ShardingRules(mesh, strategy=strategy, fsdp=False)
+                    t_rules = ShardingRules(mesh, strategy=strategy, fsdp=True)
+                    params = shard_tree(serve, param_sharding(model.defs, s_rules), mesh)
+                    shards = (shard_tree(master, param_sharding(model.defs, t_rules), mesh)
+                              if train else None)
+                    rec.run = f"{mesh_shape} {strategy}"
+                    with rec, use_rules(s_rules):
+                        counts = modes(params, None)
+                    if train:
+                        with rec, use_rules(t_rules):
+                            c0 = launch_counts()
+                            loss_and_grads(model, shards, batch, remat=True)
+                            c1 = launch_counts()
+                        counts["train"] = {k: c1[k] - c0[k] for k in c1 if c1[k] != c0[k]}
+                    out[rec.run] = counts
+                    check(counts == one, f"{arch} as rank 0 of {rec.run}: launches {counts}, one "
+                          f"card's {one}")
+                    del params, shards
+            finally:
+                dist.destroy_process_group()
+    finally:
+        from repro_torch.parallel import collectives as C
+
+        C._reduce, C._gather, C._scatter = orig
+    return out
+
+
+def check_gmm_f32(gen, rows, k, n, sizes, what) -> dict:
+    """The grouped forward's f32 output (a mesh's K-split or row-parallel
+    partial) on x (rows, k) and w (G, k, n) bf16: against the plain version
+    on the f32 result of the same operands (GMM_TOL of the largest entry),
+    its rounding to bf16 bit for bit the bf16 forward's (the same f32
+    accumulators, rounded once), rows past the sum zero; timed beside the
+    bf16 forward, its bound and ``torch._grouped_mm`` (bf16 out)."""
+    sizes = torch.as_tensor(sizes, dtype=torch.int32, device="cuda")
+    x = torch.randn(rows, k, generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn(len(sizes), k, n, generator=gen, device="cuda") / k**0.5).to(torch.bfloat16)
+    want = gmm_ops.plan(rows, len(sizes), torch.bfloat16, True).variant
+    f32 = _count_one(grouped_matmul, want, lambda: grouped_matmul(x, w, sizes,
+                                                                out_dtype=torch.float32), what)
+    bf16 = grouped_matmul(x, w, sizes)
+    exact = grouped_matmul_ref(x.float(), w.float(), sizes)
+    err = (f32 - exact).abs()
+    used = int(sizes.sum())
+    ok = (f32.dtype == torch.float32 and bool((err <= GMM_TOL * exact.abs().max()).all())
+          and torch.equal(f32.to(torch.bfloat16), bf16) and not f32[used:].any())
+    n_bytes, n_ops = gmm_work(rows, k, n, sizes.cpu(), 2)
+    row = {"what": what, "rows": rows, "K": k, "N": n, "variant": want,
+           "max_abs_err": err.max().item(), "max_ref": exact.abs().max().item(), "ok": ok,
+           "ms_f32": cuda_ms(lambda i: grouped_matmul(x, w, sizes, out_dtype=torch.float32), 1),
+           "ms_bf16": cuda_ms(lambda i: grouped_matmul(x, w, sizes), 1)}
+    row["bound_ms"], row["bound_by"] = bound_ms(n_bytes + 2 * rows * n, n_ops, torch.bfloat16)
+    offs = sizes.cumsum(0).to(torch.int32)
+    row["library_ms"] = _library_ms(lambda i: torch._grouped_mm(x, w, offs=offs), what)
+    lib = "none" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms"
+    print(f"[families] grouped_matmul f32 out {what}: ({rows}, {k}) x ({len(sizes)}, {k}, {n}) "
+          f"[{want}]: {row['ms_f32']:.4f} ms (bf16 out {row['ms_bf16']:.4f} ms, bound "
+          f"{row['bound_ms']:.4f} ms with the f32 output, torch._grouped_mm {lib}); max|err| "
+          f"{row['max_abs_err']:.3g} of max|ref| {row['max_ref']:.3g}; bf16 rounding of it equal "
+          "to the bf16 forward: " + str(torch.equal(f32.to(torch.bfloat16), bf16))
+          + ("" if ok else "  FAIL"), flush=True)
+    check(ok, f"grouped_matmul f32 out {what} disagrees")
+    return row
+
+
+def phase_mesh_families() -> dict:
+    """Phase 19: every family's sharded forward on the card (FAMILY_ARCHS),
+    as rank 0 of
+    each FAMILY_MESHES mesh under dos and megatron (a ``fake`` group whose
+    other ranks are taken to hold what rank 0 holds:
+    ``_emulated_collectives``), at full width cut in depth
+    (``family_cfg``): a prefill of BATCH x PROMPT (with the vision
+    model's image embeddings, whisper's 1,500 frames) and one decode
+    step, and for the MoE, hybrid and xLSTM models the loss and its
+    backward on the same rows (FSDP on, remat). Each run's launches by
+    kernel equal one card's exactly, mode by mode; every distinct launch
+    (a kernel at a rank's shapes, strides and flags) is replayed against
+    its plain version with the variant it launched, and timed beside its
+    bound. Then the grouped forward's f32 output on its own at the (1, 4)
+    and (2, 4) shard shapes of deepseek-moe-16b's K-split products.
+    Returns the largest error by kernel."""
+    t0 = time.perf_counter()
+    out = {"launches": {}, "rows": []}
+    errs = {}
+    for arch in FAMILY_ARCHS:
+        ta = time.perf_counter()
+        rec = _LaunchRecorder()
+        out["launches"][arch] = _family_runs(arch, rec)
+        runs = time.perf_counter() - ta
+        rows = [_check_family_launch(r) for r in rec.seen.values()]
+        del rec
+        torch.cuda.empty_cache()
+        for row in rows:
+            row["arch"] = arch
+            errs[row["kernel"]] = max(errs.get(row["kernel"], 0.0), row["max_abs_err"])
+            print(f"[families] {arch} {row['kernel']} {row['shapes']} {row['dtype']} "
+                  f"[{'/'.join(row['variant'])}] x{row['calls']} in {len(row['runs'])} runs: "
+                  f"max|err| {row['max_abs_err']:.3g} (max|ref| {row['max_ref']:.3g}), "
+                  f"{row['ms']*1e3:.1f} us cold, bound {row['bound_ms']*1e3:.2f} us "
+                  f"({row['bound_by']})" + ("" if row["ok"] else "  FAIL"), flush=True)
+            check(row["ok"], f"{arch}: {row['kernel']} at a rank's shapes disagrees with its "
+                  f"plain version or left its variant: {row}")
+        out["rows"] += rows
+        one = out["launches"][arch]["one card"]
+        print(f"[families] {arch} ({family_cfg(arch).n_layers} layers): every rank-0 run's "
+              f"launches equal one card's, {one}; {len(rows)} distinct launches checked; runs "
+              f"{runs:.1f} s, checks {time.perf_counter() - ta - runs:.1f} s", flush=True)
+    check(any(r["kernel"] == "dos_matmul" and r["dtype"] == "bfloat16" and r["out"] == "float32"
+              for r in out["rows"]), "no K-split (f32 partial) GEMM was launched")
+    cfg = get_config(MOE)
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    gmm_rows = []
+    for d, m in ((1, 4), (2, 4)):
+        tokens = BATCH * PROMPT // d
+        sizes = moe_routes(gen, cfg, tokens)
+        e, f = cfg.d_model, cfg.expert_d_ff
+        gmm_rows.append(check_gmm_f32(gen, tokens * cfg.top_k, e // m, f, sizes,
+                                      f"dos ({d}, {m}) gate/up, K-split over E"))
+        gmm_rows.append(check_gmm_f32(gen, tokens * cfg.top_k, f // m, e, sizes,
+                                      f"({d}, {m}) down, K-split over expert_ff"))
+    out["gmm_f32"] = gmm_rows
+    errs["grouped_matmul"] = max(errs.get("grouped_matmul", 0.0),
+                                 *(r["max_abs_err"] for r in gmm_rows))
+    out["wall_s"] = time.perf_counter() - t0
+    RESULTS["families"] = out
+    print(f"[families] phase 19 took {out['wall_s']:.1f} s ({len(out['rows'])} distinct "
+          "launches)", flush=True)
+    return errs
+
+
 def timed(phase, *args):
     """``phase(*args)``, its wall time added to ``RESULTS["phases"]`` under
     its name and its string arguments."""
@@ -5030,22 +5487,36 @@ def timed(phase, *args):
     return out
 
 
+ONLY = {"front-door": phase_front_door, "families": phase_mesh_families}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description="Drive the PyTorch/CUDA port on one GPU.")
     ap.add_argument("--details", metavar="PATH", help="write every measurement as JSON")
     ap.add_argument("--sweep", action="store_true",
                     help="only time every dos_matmul tiling at the main paths' shapes, and stop")
+    ap.add_argument("--only", metavar="PHASES",
+                    help="only phases 1-2 and these, comma-separated (front-door: 11, families: "
+                         "19), and stop (no result line)")
     args = ap.parse_args(argv)
     details = args.details
     t0 = time.perf_counter()
     name, count, smi_line = timed(phase_device)
     timed(phase_build)
-    if args.sweep:
-        RESULTS["dos_matmul_sweep"] = sweep_dos_matmul()
+    if args.sweep or args.only:
+        if args.sweep:
+            RESULTS["dos_matmul_sweep"] = sweep_dos_matmul()
+        else:
+            for phase in args.only.split(","):
+                timed(ONLY[phase])
+            print("[done] wall s by phase: " + ", ".join(f"{k[:-2]} {v:.1f}"
+                                                         for k, v in RESULTS["phases"].items()))
         if details:
             with open(details, "w") as f:
                 json.dump(RESULTS, f, indent=1)
         return 0
+    thermal_cpu = start_thermal_cpu(tempfile.mkdtemp(prefix="chip_smoke_thermal_"))
+    atexit.register(_stop, thermal_cpu)
     counts, step_p50_s = {}, {}
     # first, so nothing else holds memory; XLSTM: phase 14's, MOE: phase 15's, VLM and
     # WHISPER: phase 16's
@@ -5088,7 +5559,7 @@ def main(argv=None) -> int:
     check(all(counts["calibration"][k] > 0 for k in ("dos_matmul", "flash_attention", "ssm_scan")),
           f"a kernel calibration never launched: {counts['calibration']}")
     timed(phase_engine)
-    timed(phase_thermal)
+    timed(phase_thermal, thermal_cpu)
     timed(phase_systolic)
     counts["front door calibration"] = timed(phase_front_door)
     bwd_row, bwd_err = timed(phase_train_kernels)
@@ -5125,8 +5596,9 @@ def main(argv=None) -> int:
         timed(phase_cross_train_e2e, arch)
     timed(phase_cross_cli)
     timed(phase_vlm_mixed_dtype)
-    mesh_err = timed(phase_mesh)  # phase 17
+    timed(phase_mesh)  # phase 17
     parallel_counts, parallel_err = timed(phase_parallel)  # phase 18
+    family_err = timed(phase_mesh_families)  # phase 19
     counts.update({f"phase 18 {k}": c for k, c in parallel_counts.items()})
 
     replaces = {
@@ -5145,8 +5617,7 @@ def main(argv=None) -> int:
             "name": kname, "route": "cuda", "source": source, "replaces": repl,
             "launches": sum(c[kname] for c in counts.values()),
             "max_abs_err": max(main_err[kname], cal_err[kname], xlstm_err.get(kname, 0.0),
-                               cross_err.get(kname, 0.0),
-                               mesh_err if kname == "dos_matmul" else 0.0),
+                               cross_err.get(kname, 0.0), family_err.get(kname, 0.0)),
             "ms": tot["ms"], "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"],
             "bound_by": "bytes" if by_bytes else "operations",
             "library_ms": tot["library_ms"],
@@ -5158,7 +5629,8 @@ def main(argv=None) -> int:
         "replaces": "src/repro/kernels/flash_attention/chunked.py:112 (_bwd_rule; a jnp custom "
                     "VJP, not a Pallas kernel)",
         "launches": sum(c["flash_attention_bwd"] for c in counts.values()),
-        "max_abs_err": max(bwd_err, cross_err["flash_attention_bwd"]),
+        "max_abs_err": max(bwd_err, cross_err["flash_attention_bwd"],
+                           family_err.get("flash_attention_bwd", 0.0)),
         **{k: n_layers * bwd_row[k] for k in ("ms", "plain_ms", "bound_ms", "library_ms")},
         "bound_by": bwd_row["bound_by"],
     })
@@ -5169,7 +5641,8 @@ def main(argv=None) -> int:
         "replaces": "src/repro/kernels/ssm_scan/ops.py:26 (autodiff of ssm_scan_chunked_jnp; the "
                     "reference has no backward kernel)",
         "launches": sum(c["ssm_scan_bwd"] for c in counts.values()),
-        "max_abs_err": max(ssm_bwd_err, xlstm_err["ssm_scan_bwd"]),
+        "max_abs_err": max(ssm_bwd_err, xlstm_err["ssm_scan_bwd"],
+                           family_err.get("ssm_scan_bwd", 0.0)),
         **{k: n_mamba * ssm_bwd_row[k] for k in ("ms", "plain_ms", "bound_ms")},
         "bound_by": ssm_bwd_row["bound_by"], "library_ms": None,
     })
@@ -5185,7 +5658,7 @@ def main(argv=None) -> int:
                         + ("; its autodiff" if kname == "slstm_scan_bwd" else "")
                         + "; jnp, not a Pallas kernel)",
             "launches": sum(c[kname] for c in counts.values()),
-            "max_abs_err": xlstm_err[kname],
+            "max_abs_err": max(xlstm_err[kname], family_err.get(kname, 0.0)),
             **{k: n_slstm * sum(r[k] for r in rows_k) for k in ("ms", "plain_ms", "bound_ms")},
             "bound_by": ("bytes" if n_bytes / HBM_BYTES_S >= n_ops / PEAK_OPS_S[torch.float32]
                          else "operations"),
@@ -5210,7 +5683,7 @@ def main(argv=None) -> int:
                         + ("; its autodiff's dW" if kname == "grouped_matmul_dw" else "")
                         + "; an XLA op, not a Pallas kernel)",
             "launches": sum(c[kname] for c in counts.values()),
-            "max_abs_err": max(moe_err[kname], parallel_err[kname]),
+            "max_abs_err": max(moe_err[kname], parallel_err[kname], family_err.get(kname, 0.0)),
             **{k: n_layers * sum(r[k] for r in rows_k) for k in ("ms", "plain_ms", "bound_ms")},
             "bound_by": ("bytes" if n_bytes / HBM_BYTES_S >= n_ops / PEAK_OPS_S[torch.bfloat16]
                          else "operations"),
@@ -5230,7 +5703,7 @@ def main(argv=None) -> int:
           "runs (serving and training smollm-135m, zamba2-2.7b, xlstm-125m, deepseek-moe-16b, "
           "llama-3.2-vision-11b and whisper-medium), phase 18's pipeline step and expert-parallel "
           "calls, phase 7's calibration and the front door's "
-          "calibrate Study; max_abs_err is the largest of phase 4's, 7's and 12's to 18's "
+          "calibrate Study; max_abs_err is the largest of phase 4's, 7's and 12's to 19's "
           "checks; ms, "
           "plain_ms, library_ms and bound_ms sum the calls of one prefill plus one decode step "
           "of both phase-3 serving paths (dos_matmul, flash_attention, ssm_scan), of xlstm-125m "

@@ -6,10 +6,12 @@
 // rows of x sorted by expert, group g owning rows [off_g, off_g + size_g)
 // (off_g the sum of the sizes before it, formed here on the device):
 //
-//   forward  out[r] = x[r] @ w[g]            out (R, N) in x's type
+//   forward  out[r] = x[r] @ w[g]            out (R, N) in x's type or f32
 //   dw       dw[g]  = x[rows of g]^T @ dy    (G, K, N) f32 or bf16
 //
-// every product summed in f32 (a bf16 dw is each f32 sum rounded once).
+// every product summed in f32 (a bf16 out or dw is each f32 sum rounded
+// once; an f32 out is a mesh's K-split or row-parallel partial, which the
+// ranks sum before its cast).
 // Rows past sum(size) are zero in out, as in ragged_dot; an empty group's
 // dw is zero. The sizes stay on the device: no launch waits for the host.
 //
@@ -88,6 +90,7 @@ struct GmmArgs {
   int dtype;                // 0 f32, 1 bf16
   int variant;              // 0 fma, 1 wgmma
   int bm;                   // wgmma: 64 or 128
+  int out_dtype;            // out: 0 f32, 1 bf16 (x's type or f32)
 };
 
 struct DwArgs {
@@ -179,10 +182,10 @@ __device__ void find_tile(const int* __restrict__ sizes, int G, int R, int bm, i
 // forward, fma
 // ---------------------------------------------------------------------------
 
-template <typename T>
+template <typename T, typename TOut>
 __global__ void __launch_bounds__(NT) gmm_fwd_fma(const T* __restrict__ x, const T* __restrict__ w,
                                                   const int* __restrict__ sizes,
-                                                  T* __restrict__ out, GmmArgs a) {
+                                                  TOut* __restrict__ out, GmmArgs a) {
   __shared__ float As[F_BK][F_BM + 4];
   __shared__ float Bs[F_BK][F_BN + 4];
   __shared__ int info[3];
@@ -430,12 +433,13 @@ struct FwdCfg {
 };
 
 // BT: w is K-major (unit stride along k: dX's transposed view); else
-// row-major, MN-major.
-template <int BM, int BN, bool BT>
+// row-major, MN-major. TOut: bf16, or f32 (a mesh's K-split partial),
+// which every tile stores from registers (two floats a store).
+template <int BM, int BN, bool BT, typename TOut>
 __global__ void __launch_bounds__(FwdCfg<BM, BN>::NT, 1)
 gmm_fwd_wgmma(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CUtensorMap tw,
               const __grid_constant__ CUtensorMap tout, const int* __restrict__ sizes,
-              bf16* __restrict__ out, GmmArgs a) {
+              TOut* __restrict__ out, GmmArgs a) {
   using C = FwdCfg<BM, BN>;
   constexpr int ST = C::STAGES, IN = C::IN, NI = C::NI, RG = IN / 2;
   extern __shared__ uint8_t dyn_smem[];
@@ -489,7 +493,8 @@ gmm_fwd_wgmma(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CU
     const int row_w = (warp % 4) * 16 + lane / 4, row_l = wgi * 64 + row_w;
     const int col_l = 2 * (lane % 4);
     const bool issuer = threadIdx.x % 128 == 0;  // the warpgroup's TMA stores
-    const bool tma_out = N % 8 == 0;  // out's rows on 16 bytes: a tensor map (tout) describes it
+    // bf16 out with its rows on 16 bytes: a tensor map (tout) describes it
+    const bool tma_out = sizeof(TOut) == 2 && N % 8 == 0;
     uint8_t* stg = smem + ST * C::STAGE + wgi * C::STAGING;
     float acc[NI][RG];
     int it = 0;
@@ -500,7 +505,7 @@ gmm_fwd_wgmma(const __grid_constant__ CUtensorMap tx, const __grid_constant__ CU
         const int rows = min(R, r0 + BM) - r0;
         for (int i = threadIdx.x; i < rows * BN; i += C::CONS * 128) {
           const int n = n0 + i % BN;
-          if (n < N) out[(long long)(r0 + i / BN) * N + n] = __float2bfloat16(0.f);
+          if (n < N) store(out + (long long)(r0 + i / BN) * N + n, 0.f);
         }
         continue;
       }
@@ -720,13 +725,13 @@ int set_smem(K_ kernel, int bytes) {
   return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-template <typename T>
+template <typename T, typename TOut>
 int launch_fwd_fma(const void* x, const void* w, const int* sizes, void* out, const GmmArgs& a,
                    cudaStream_t s) {
   const long long tiles = (a.R + F_BM - 1) / F_BM + a.G;
   if (tiles > 65535) return (int)cudaErrorInvalidValue;
   dim3 grid((unsigned)((a.N + F_BN - 1) / F_BN), (unsigned)tiles);
-  gmm_fwd_fma<T><<<grid, NT, 0, s>>>((const T*)x, (const T*)w, sizes, (T*)out, a);
+  gmm_fwd_fma<T, TOut><<<grid, NT, 0, s>>>((const T*)x, (const T*)w, sizes, (TOut*)out, a);
   return (int)cudaGetLastError();
 }
 
@@ -744,13 +749,13 @@ long long tma_stride(long long extent, long long stride, long long fallback) {
   return extent > 1 ? stride : fallback;
 }
 
-template <int BM, int BN, bool BT>
+template <int BM, int BN, bool BT, typename TOut>
 int launch_fwd_wgmma(const void* x, const void* w, const int* sizes, void* out, const GmmArgs& a,
                      cudaStream_t s) {
   using C = FwdCfg<BM, BN>;
   static_assert(C::SMEM + sizeof(TileList) + 2 * C::STAGES * 8 <= 232448,
                 "shared memory of one block exceeds 227 KB");
-  auto kernel = gmm_fwd_wgmma<BM, BN, BT>;
+  auto kernel = gmm_fwd_wgmma<BM, BN, BT, TOut>;
   static thread_local bool configured = false;  // the cap, once per host thread
   if (!configured) {
     const int e = set_smem(kernel, C::SMEM);
@@ -769,14 +774,14 @@ int launch_fwd_wgmma(const void* x, const void* w, const int* sizes, void* out, 
     const long long sk = tma_stride(a.K, a.swk, (a.N + 7) / 8 * 8);
     ok = ok && encode3d(enc, &tw, w, a.N, a.K, a.G, sk, tma_stride(a.G, a.swg, sk * a.K), 64, W_BK);
   }
-  // out (R, N) contiguous: boxes of 64 x 64, where its rows lie on 16 bytes
-  // (the kernel stores from registers where they do not, and never reads
-  // the map)
+  // a bf16 out (R, N) contiguous: boxes of 64 x 64, where its rows lie on
+  // 16 bytes (the kernel stores from registers where they do not, and an
+  // f32 out always, and never reads the map)
   CUtensorMap tout = tx;
-  if (a.N % 8 == 0) ok = ok && encode2d(enc, &tout, out, a.N, a.R, a.N, 64, 64);
+  if (sizeof(TOut) == 2 && a.N % 8 == 0) ok = ok && encode2d(enc, &tout, out, a.N, a.R, a.N, 64, 64);
   if (!ok) return (int)cudaErrorInvalidValue;
   const long long bound = ((a.R + BM - 1) / BM + a.G) * ((a.N + BN - 1) / BN);  // tiles at most
-  kernel<<<persistent_grid(bound), C::NT, C::SMEM, s>>>(tx, tw, tout, sizes, (bf16*)out, a);
+  kernel<<<persistent_grid(bound), C::NT, C::SMEM, s>>>(tx, tw, tout, sizes, (TOut*)out, a);
   return (int)cudaGetLastError();
 }
 
@@ -833,8 +838,8 @@ extern "C" {
 
 const char* kernel_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// out (R, N) contiguous in x's type; x (R, K) and w (G, K, N) strided as
-// the args say, one dtype. sizes: G int32 on the device. wgmma takes
+// out (R, N) contiguous in x's type or f32 (out_dtype); x (R, K) and w (G,
+// K, N) strided as the args say, one dtype. sizes: G int32 on the device. wgmma takes
 // bf16 with x's rows on 16 bytes (sxk 1, sxr a multiple of 8) and w with
 // a unit stride along n (swn 1) or along k (swk 1), its other strides
 // multiples of 8, every base 16-byte aligned, K > 0 and at most W_MAX_G
@@ -842,23 +847,32 @@ const char* kernel_error_string(int err) { return cudaGetErrorString((cudaError_
 int grouped_matmul_launch(const void* x, const void* w, const void* sizes, void* out,
                           const GmmArgs* a, void* stream) {
   if (a->R <= 0 || a->N <= 0 || a->G <= 0 || a->K < 0 || a->R > 2147483647LL ||
-      a->K > 2147483647LL || a->N > 2147483647LL)
+      a->K > 2147483647LL || a->N > 2147483647LL || (a->out_dtype != 0 && a->out_dtype != a->dtype))
     return (int)cudaErrorInvalidValue;
   const int* sz = (const int*)sizes;
   cudaStream_t s = (cudaStream_t)stream;
+  const bool f32_out = a->out_dtype == 0;
   if (a->variant == 0)
-    return a->dtype == 0 ? launch_fwd_fma<float>(x, w, sz, out, *a, s)
-                         : launch_fwd_fma<bf16>(x, w, sz, out, *a, s);
+    return a->dtype == 0 ? launch_fwd_fma<float, float>(x, w, sz, out, *a, s)
+           : f32_out     ? launch_fwd_fma<bf16, float>(x, w, sz, out, *a, s)
+                         : launch_fwd_fma<bf16, bf16>(x, w, sz, out, *a, s);
   const bool bt = a->swk == 1 && a->swn != 1;
   if (a->variant != 1 || a->dtype != 1 || a->sxk != 1 || (!bt && a->swn != 1) || a->K == 0 ||
       a->G > W_MAX_G || (a->bm != 64 && a->bm != 128) ||
       ((a->R + a->bm - 1) / a->bm + a->G) * ((a->N + W_BN - 1) / W_BN) > 2147483647LL)
     return (int)cudaErrorInvalidValue;
+  if (f32_out) {
+    if (a->bm == 64)
+      return bt ? launch_fwd_wgmma<64, W_BN, true, float>(x, w, sz, out, *a, s)
+                : launch_fwd_wgmma<64, W_BN, false, float>(x, w, sz, out, *a, s);
+    return bt ? launch_fwd_wgmma<128, W_BN, true, float>(x, w, sz, out, *a, s)
+              : launch_fwd_wgmma<128, W_BN, false, float>(x, w, sz, out, *a, s);
+  }
   if (a->bm == 64)
-    return bt ? launch_fwd_wgmma<64, W_BN, true>(x, w, sz, out, *a, s)
-              : launch_fwd_wgmma<64, W_BN, false>(x, w, sz, out, *a, s);
-  return bt ? launch_fwd_wgmma<128, W_BN, true>(x, w, sz, out, *a, s)
-            : launch_fwd_wgmma<128, W_BN, false>(x, w, sz, out, *a, s);
+    return bt ? launch_fwd_wgmma<64, W_BN, true, bf16>(x, w, sz, out, *a, s)
+              : launch_fwd_wgmma<64, W_BN, false, bf16>(x, w, sz, out, *a, s);
+  return bt ? launch_fwd_wgmma<128, W_BN, true, bf16>(x, w, sz, out, *a, s)
+            : launch_fwd_wgmma<128, W_BN, false, bf16>(x, w, sz, out, *a, s);
 }
 
 // dw (G, K, N) contiguous, f32 or bf16 (out_dtype); x (R, K) and dy (R,

@@ -4,7 +4,10 @@ gradient, dispatched by the device of their operands.
 ``grouped_matmul(x, w, group_sizes)`` is the reference's
 ``jax.lax.ragged_dot``: x (R, K) with its rows sorted by group, w (G, K,
 N), group_sizes (G,) int32; rows of group g multiply w[g], rows past the
-sum of the sizes are zero; f32 sums, output in x's type.
+sum of the sizes are zero; f32 sums, output in x's type or in the
+``out_dtype`` asked for (f32: a mesh's K-split or row-parallel partial,
+summed over ranks before its cast; every variant writes it from its f32
+accumulators, ``wgmma`` from registers).
 ``grouped_matmul_dw(x, dy, group_sizes, out_dtype)`` is its weight
 gradient, (G, K, N), each f32 sum rounded once to ``out_dtype`` (f32 by
 default).
@@ -45,7 +48,8 @@ counts each op's launches and ``.variants`` counts them by variant.
 Training: when an operand requires grad, ``grouped_matmul`` runs through
 an autograd ``Function`` on either device: dX is the same op on
 ``w.transpose(-1, -2)`` (a strided view: no copy), dW is
-``grouped_matmul_dw`` in w's dtype.
+``grouped_matmul_dw`` in w's dtype. The incoming gradient of an f32
+output is cast to x's dtype first, as ``dos_matmul``'s is.
 """
 
 from __future__ import annotations
@@ -174,7 +178,7 @@ class _Args(ctypes.Structure):
 
     _fields_ = [(f, ctypes.c_longlong)
                 for f in ("R", "K", "N", "G", "sxr", "sxk", "swg", "swk", "swn")] + [
-        (f, ctypes.c_int) for f in ("dtype", "variant", "bm")]
+        (f, ctypes.c_int) for f in ("dtype", "variant", "bm", "out_dtype")]
 
 
 class _DwArgs(ctypes.Structure):
@@ -222,17 +226,21 @@ def _check_force(force, dtype, tma, what):
                          f"most {WGMMA_MAX_GROUPS} groups")
 
 
-def _launch_forward(x, w, group_sizes, force=None, bm=0):
-    """The forward kernel on CUDA tensors; ``force`` launches that variant
-    whatever ``plan`` says (to check and time every variant on the same
-    inputs), ``bm`` its block rows other than the plan's (wgmma 64 or 128;
-    0: the plan's)."""
+def _launch_forward(x, w, group_sizes, force=None, bm=0, out_dtype=None):
+    """The forward kernel on CUDA tensors, out in ``out_dtype`` (f32 or
+    x's dtype; default x's); ``force`` launches that variant whatever
+    ``plan`` says (to check and time every variant on the same inputs),
+    ``bm`` its block rows other than the plan's (wgmma 64 or 128; 0: the
+    plan's)."""
     if x.dim() != 2 or w.dim() != 3 or x.shape[1] != w.shape[1]:
         raise ValueError(f"grouped_matmul: shapes {tuple(x.shape)} @ {tuple(w.shape)}")
     _check_operands(x, w, "grouped_matmul")
     (r, k), (g, _, n) = x.shape, w.shape
     _check_sizes(group_sizes, g, x.device, "grouped_matmul")
-    out = torch.empty((r, n), dtype=x.dtype, device=x.device)
+    out_dtype = out_dtype or x.dtype
+    if out_dtype not in (x.dtype, torch.float32):
+        raise TypeError(f"grouped_matmul writes f32 or x's {x.dtype}; got {out_dtype}")
+    out = torch.empty((r, n), dtype=out_dtype, device=x.device)
     if r == 0 or n == 0:
         return out
     tma = k > 0 and _tma(x, 1, [0]) and _w_tma(w)
@@ -240,7 +248,8 @@ def _launch_forward(x, w, group_sizes, force=None, bm=0):
     p = _forced(force, r, g) if force else plan(r, g, x.dtype, tma)
     p = p._replace(bm=bm or p.bm)
     dev = x.device.index
-    args = _Args(r, k, n, g, *x.stride(), *w.stride(), _DTYPES[x.dtype], _CODES[p.variant], p.bm)
+    args = _Args(r, k, n, g, *x.stride(), *w.stride(), _DTYPES[x.dtype], _CODES[p.variant], p.bm,
+                 _DTYPES[out_dtype])
     lib = _lib()
     err = lib.grouped_matmul_launch(x.data_ptr(), w.data_ptr(), group_sizes.data_ptr(),
                                     out.data_ptr(), args, torch._C._cuda_getCurrentRawStream(dev))
@@ -285,19 +294,21 @@ def _launch_dw(x, dy, group_sizes, force=None, out_dtype=torch.float32):
     return dw
 
 
-def _forward(x, w, group_sizes):
+def _forward(x, w, group_sizes, out_dtype=None):
     if x.device.type == "cpu":
-        return grouped_matmul_ref(x, w, group_sizes)
-    return _launch_forward(x, w, group_sizes)
+        return grouped_matmul_ref(x, w, group_sizes, out_dtype)
+    return _launch_forward(x, w, group_sizes, out_dtype=out_dtype)
 
 
-def grouped_matmul(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor) -> torch.Tensor:
+def grouped_matmul(x: torch.Tensor, w: torch.Tensor, group_sizes: torch.Tensor, *,
+                   out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """``x (R, K)`` rows of group g times ``w[g]`` (w (G, K, N), any
-    strides), group_sizes (G,) int32 on x's device -> (R, N) in x's
-    dtype. Differentiable in x and w."""
+    strides), group_sizes (G,) int32 on x's device -> (R, N) in
+    ``out_dtype`` (x's dtype, the default, or f32). Differentiable in x
+    and w."""
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-        return _GroupedMatmul.apply(x, w, group_sizes)
-    return _forward(x, w, group_sizes)
+        return _GroupedMatmul.apply(x, w, group_sizes, out_dtype)
+    return _forward(x, w, group_sizes, out_dtype)
 
 
 def grouped_matmul_dw(x: torch.Tensor, dy: torch.Tensor, group_sizes: torch.Tensor,
@@ -314,20 +325,21 @@ class _GroupedMatmul(torch.autograd.Function):
     view) and dW on ``grouped_matmul_dw``."""
 
     @staticmethod
-    def forward(ctx, x, w, group_sizes):
+    def forward(ctx, x, w, group_sizes, out_dtype):
         ctx.save_for_backward(x, w, group_sizes)
-        return _forward(x, w, group_sizes)
+        return _forward(x, w, group_sizes, out_dtype)
 
     @staticmethod
     def backward(ctx, dy):
         x, w, group_sizes = ctx.saved_tensors
+        # the kernels take operands of one dtype: an f32 output's gradient in x's
         dy = dy.to(x.dtype).contiguous()
         dx = dw = None
         if ctx.needs_input_grad[0]:
             dx = _forward(dy, w.transpose(-1, -2), group_sizes)
         if ctx.needs_input_grad[1]:
             dw = grouped_matmul_dw(x, dy, group_sizes, w.dtype)
-        return dx, dw, None
+        return dx, dw, None, None
 
 
 grouped_matmul.launches = 0

@@ -6,7 +6,9 @@ rows ``[off_g, off_g + size_g)`` (off_g the sum of the sizes before it),
 
     out[r] = x[r] @ w[g]       for r in group g; rows past the sum are 0
 
-summed in f32 and returned in x's type. Its gradients in closed form:
+summed in f32 and returned in x's type, or in the ``out_dtype`` asked
+for (f32: a K-split partial that a mesh sums before its cast). Its
+gradients in closed form:
 dx is the same product on ``w.transpose(-1, -2)`` (``grouped_matmul_ref``
 again) and dw[g] = x[rows of g]^T dy[rows of g] summed in f32 and cast
 to the dtype asked for (``grouped_matmul_dw_ref``; an empty group's is
@@ -32,13 +34,15 @@ def group_bounds(group_sizes, rows: int) -> list[tuple[int, int]]:
     return out
 
 
-def grouped_matmul_ref(x: torch.Tensor, w: torch.Tensor, group_sizes) -> torch.Tensor:
-    """x (R, K), w (G, K, N), group_sizes (G,) -> (R, N) in x's dtype."""
+def grouped_matmul_ref(x: torch.Tensor, w: torch.Tensor, group_sizes,
+                       out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """x (R, K), w (G, K, N), group_sizes (G,) -> (R, N) in ``out_dtype``
+    (default x's dtype)."""
     out = torch.zeros((x.shape[0], w.shape[-1]), dtype=torch.float32, device=x.device)
     for g, (a, b) in enumerate(group_bounds(group_sizes, x.shape[0])):
         if b > a:
             out[a:b] = x[a:b].float() @ w[g].float()
-    return out.to(x.dtype)
+    return out.to(out_dtype or x.dtype)
 
 
 def grouped_matmul_dw_ref(x: torch.Tensor, dy: torch.Tensor, group_sizes,

@@ -21,11 +21,11 @@ synchronize, so the watchdog's step times are the device's.
 
 Runs on the card unless ``device="cpu"``; raises without one. The
 dense, MoE, hybrid and SSM (xLSTM) families train here under every
-strategy at (1, 1); the dense family on any (data, model) mesh (the
-others are ROADMAP queue 1 item 10, part 3). Under ``torchrun`` the CLI
-lays the world out as a (1, WORLD_SIZE) mesh (``launch.mesh.cli_mesh``):
+strategy on any (data, model) mesh. Under ``torchrun`` the CLI lays the
+world out as a (1, WORLD_SIZE) mesh (``launch.mesh.cli_mesh``):
 
     torchrun --nproc-per-node 4 -m repro_torch.launch.train --strategy dos --steps 30
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch zamba2-2.7b --steps 30
 
 The vision (vlm) and encoder-decoder (encdec) families raise
 (``check_trainable``): the loop feeds

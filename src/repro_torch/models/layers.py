@@ -15,16 +15,16 @@ gated-silu MLP or the plain 2-layer gelu one (whisper), as its tree's
 keys say. The MoE family's expert FFN is ``models/moe.py``.
 
 **Sharding.** ``proj``, ``rmsnorm``, ``embed_tokens``, ``unembed``,
-``attention`` and ``mlp`` take a ``Layout``: what one rank of a (data,
-model) mesh holds and computes. The default, ``ONE``, is one device's;
-every collective then spans one rank and returns its input with no call,
-so the functions launch what they launched before sharding existed. The
-dense family runs on a mesh of several ranks (``decoder.layout``); the
-other families take ``ONE`` only. Each rank holds exactly the shards of
-the weights and the KV cache that the reference's placement gives it;
-FSDP shards (the batch axes' entries of a weight's spec) are gathered
-one layer at a time, just before the layer uses them, and their
-gradients leave by reduce-scatter (``Layout.gather``).
+``attention``, ``compute_cross_kv`` and ``mlp`` take a ``Layout``: what
+one rank of a (data, model) mesh holds and computes. The default,
+``ONE``, is one device's; every collective then spans one rank and
+returns its input with no call, so the functions launch what they
+launched before sharding existed. Every family runs on a mesh of several
+ranks (``decoder.layout``). Each rank holds exactly the shards of the
+weights and the cache that the reference's placement gives it; FSDP
+shards (the batch axes' entries of a weight's spec) are gathered one
+layer at a time, just before the layer uses them, and their gradients
+leave by reduce-scatter (``Layout.gather``).
 
 Tensor parallelism runs over ``model`` (none under ``zero``, whose batch
 spans the whole mesh). Every GEMM is ``dos_matmul`` on the local
@@ -53,7 +53,14 @@ looks up the rows it holds, masks the others and all-reduces. A cache
 sharded on its sequence (the "ring": the KV heads do not divide
 ``model``, or the batch does not divide the data axes) is attended to
 slice by slice, and the slices' softmaxes are merged by their
-log-sum-exps.
+log-sum-exps; so is a cross-attention cache placed that way (the vision
+model's one KV head).
+
+Autograd: a tensor that is the same on every rank of the group but that
+a rank uses for its own slice only (B and C of Mamba2 beside its local
+heads, a bias or a gate on the E-split residual) passes through
+``collectives.copy_to`` or ``split``, so its gradient is summed over the
+group.
 """
 
 from __future__ import annotations
@@ -91,6 +98,8 @@ class Layout:
     heads: bool = False   # attention on this rank's heads
     hidden: bool = False  # the MLP hidden split on F
     vocab: bool = False   # logits split on the vocab
+    ssm_heads: bool = False  # Mamba2 on this rank's heads (and its Di channels)
+    expert_hidden: bool = False  # the routed experts' hidden split on expert_ff
     fsdp: bool = False    # some leaf sharded over other axes than the TP ones
 
     def dim(self, group, name):
@@ -98,12 +107,18 @@ class Layout:
         (0: contraction, 1: output), or None."""
         return self.dims.get((group, name))
 
+    def splits(self, n: int) -> bool:
+        """Whether a dim of ``n`` splits evenly over the tensor-parallel
+        ranks (False under ``zero`` and on one device)."""
+        return bool(self.tp) and n % self.m == 0
+
     def gather(self, tree, root):
-        """``tree`` (the parameters' ``root`` subtree, or a layer's slice of
-        it, or a leaf) with its FSDP shards gathered; the tensor-parallel
-        shards stay."""
+        """``tree`` (the parameters' subtree at path ``root``, a key or a
+        tuple of keys, or a layer's slice of it, or a leaf) with its FSDP
+        shards gathered; the tensor-parallel shards stay."""
         if not self.fsdp:
             return tree
+        root = root if isinstance(root, tuple) else (root,)
 
         def one(path, t):
             spec = self.specs[path]
@@ -114,8 +129,8 @@ class Layout:
             return t
 
         if isinstance(tree, torch.Tensor):
-            return one((root,), tree)
-        return unflatten((path[1:], one(path, t)) for path, t in leaves(tree, (root,)))
+            return one(root, tree)
+        return unflatten((path[len(root):], one(path, t)) for path, t in leaves(tree, root))
 
     def batch_slice(self, x):
         """This rank's rows of a global batch tensor (B, ...)."""
@@ -138,8 +153,10 @@ ONE = Layout()
 
 
 def proj(x, w, b=None, lay: Layout = ONE, wdim=None, x_split: bool = False,
-         out_split: bool = False):
-    """x (..., K) @ w (K, N) in compute dtype, f32 accumulation.
+         out_split: bool = False, mm=None):
+    """x (..., K) @ w (K, N) in compute dtype, f32 accumulation, by
+    ``mm(x, w, out_dtype=...)``: ``dos_matmul`` (the default), or the MoE
+    experts' ``grouped_matmul`` with its group sizes bound (w (G, K, N)).
 
     The weight is cast to the compute dtype here, as the reference's
     ``astype`` does on every call: in training ``w`` is the f32 master
@@ -154,17 +171,17 @@ def proj(x, w, b=None, lay: Layout = ONE, wdim=None, x_split: bool = False,
     its slice of N if ``out_split``, else all of N."""
     dt = x.dtype
     w = w.to(dt)
-    mesh, tp = lay.mesh, lay.tp
+    mesh, tp, mm = lay.mesh, lay.tp, mm or dos_matmul
     if wdim == 0:  # the paper's pile: K-slice partials summed in f32
-        y = dos_matmul(x if x_split else C.split(x, mesh, tp), w, out_dtype=torch.float32)
+        y = mm(x if x_split else C.split(x, mesh, tp), w, out_dtype=torch.float32)
         y = (C.reduce_scatter(y, mesh, tp) if out_split else C.all_reduce(y, mesh, tp)).to(dt)
     elif wdim == 1:  # column-parallel
         xf = C.all_gather(x, mesh, tp) if x_split else x
-        y = dos_matmul(C.copy_to(xf, mesh, tp), w, out_dtype=dt)
+        y = mm(C.copy_to(xf, mesh, tp), w, out_dtype=dt)
         if not out_split:
             y = C.all_gather(y, mesh, tp)
     else:
-        y = dos_matmul(C.all_gather(x, mesh, tp) if x_split else x, w, out_dtype=dt)
+        y = mm(C.all_gather(x, mesh, tp) if x_split else x, w, out_dtype=dt)
         if out_split:
             y = C.split(y, mesh, tp)
     if b is not None:
@@ -280,20 +297,28 @@ def attn_defs(cfg):
     return defs
 
 
-def compute_cross_kv(p, kv_src, cfg):
+def compute_cross_kv(p, kv_src, cfg, lay: Layout = ONE, group: str = "attn"):
     """Project a cross-attention source (image embeddings, encoder
     output) (B, Skv, E) to ``(k, v)``, each (B, Skv, KVH, D): once at
     prefill, read from the cache by every decode step. ``proj`` casts the
-    weights to the source's dtype, as the reference's does."""
+    weights to the source's dtype, as the reference's does. On a mesh
+    (``lay``) the source is split on E as the residual is, and k and v
+    hold this rank's KV heads if attention runs on them; ``group`` names
+    the weights' subtree (``attn``, whisper's ``xattn``)."""
     b, skv, _ = kv_src.shape
     kvh, hd = cfg.n_kv_heads, cfg.head_dim_
-    k = proj(kv_src, p["wk"], p.get("bk")).reshape(b, skv, kvh, hd)
-    v = proj(kv_src, p["wv"], p.get("bv")).reshape(b, skv, kvh, hd)
-    return k, v
+    if lay.heads:
+        kvh //= lay.m
+
+    def kv(name):
+        return proj(kv_src, p[name], p.get("b" + name[1]), lay, lay.dim(group, name), lay.resid,
+                    lay.heads).reshape(b, skv, kvh, hd)
+
+    return kv("wk"), kv("wv")
 
 
 def attention(p, x, cfg, *, mode: str, window=None, theta=None, cache=None, cross_kv=None,
-              causal: bool = True, lay: Layout = ONE):
+              causal: bool = True, lay: Layout = ONE, group: str = "attn"):
     """The universal attention block. Returns (y, new_cache).
 
     ``mode`` is ``train`` (whole sequence, no cache: new_cache is None),
@@ -309,7 +334,10 @@ def attention(p, x, cfg, *, mode: str, window=None, theta=None, cache=None, cros
     On a mesh (``lay``) x is split on E if ``lay.resid`` and the block
     runs on this rank's heads if ``lay.heads``; a decode cache sharded on
     its sequence also holds ``seq_lo`` (the first position of this rank's
-    slots) and ``seq_axes`` (the axes it is split over)."""
+    slots) and ``seq_axes`` (the axes it is split over). A cross decode
+    step's ``cache`` may hold ``seq_axes`` alone: the axes its cross k, v
+    are split over on their sequence. ``group`` names the weights'
+    subtree (``attn``, whisper's ``xattn``)."""
     b, s, _ = x.shape
     h, kvh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
     if mode not in ("train", "prefill", "decode"):
@@ -318,7 +346,7 @@ def attention(p, x, cfg, *, mode: str, window=None, theta=None, cache=None, cros
         h, kvh = h // lay.m, kvh // lay.m
 
     def qkv(name, n):
-        return proj(x, p[name], p.get("b" + name[1]), lay, lay.dim("attn", name), lay.resid,
+        return proj(x, p[name], p.get("b" + name[1]), lay, lay.dim(group, name), lay.resid,
                     lay.heads).reshape(b, s, n, hd)
 
     q = qkv("wq", h)
@@ -337,7 +365,7 @@ def attention(p, x, cfg, *, mode: str, window=None, theta=None, cache=None, cros
     new_cache = None
     if cross_kv is not None:
         if mode == "decode":
-            o = decode_attention(q, k, v, length=k.shape[1], window=None)
+            o = _ring_decode(lay, q, k, v, k.shape[1], None, (cache or {}).get("seq_axes", ()))
         else:
             o = flash_attention(q, k, v, causal=False, window=None)
     elif mode == "decode":
@@ -364,7 +392,7 @@ def attention(p, x, cfg, *, mode: str, window=None, theta=None, cache=None, cros
         if mode == "prefill":
             new_cache = {"k": k, "v": v, "length": s}
 
-    y = proj(o.reshape(b, s, h * hd), p["wo"], None, lay, lay.dim("attn", "wo"), lay.heads,
+    y = proj(o.reshape(b, s, h * hd), p["wo"], None, lay, lay.dim(group, "wo"), lay.heads,
              lay.resid)
     return y, new_cache
 
@@ -404,18 +432,22 @@ def mlp_defs(cfg, d_ff=None, act=None):
     }
 
 
-def mlp(p, x, lay: Layout = ONE):
+def mlp(p, x, lay: Layout = ONE, group: str = "ffn", hidden: bool | None = None):
     """The gated-silu MLP (llama family) if the tree has ``wi_gate``, else
     the plain 2-layer MLP with the tanh form of gelu (``jax.nn.gelu``'s
     default). The tree's keys pick the form, as in the reference, whose
     ``act`` argument picks nothing. On a mesh (``lay``) x and the result
-    are split on E if ``lay.resid``, the hidden on F if ``lay.hidden``."""
+    are split on E if ``lay.resid``, the hidden on F if ``hidden``
+    (default ``lay.hidden``; the MoE's shared experts give their own F's);
+    ``group`` names the weights' subtree. The gelu MLP's ``bo`` is added
+    once, after the row-parallel or K-split sum (``proj``)."""
+    hidden = lay.hidden if hidden is None else hidden
 
     def up(name, b=None):
-        return proj(x, p[name], b, lay, lay.dim("ffn", name), lay.resid, lay.hidden)
+        return proj(x, p[name], b, lay, lay.dim(group, name), lay.resid, hidden)
 
-    def down(hidden, b=None):
-        return proj(hidden, p["wo"], b, lay, lay.dim("ffn", "wo"), lay.hidden, lay.resid)
+    def down(h, b=None):
+        return proj(h, p["wo"], b, lay, lay.dim(group, "wo"), hidden, lay.resid)
 
     if "wi_gate" in p:
         return down(F.silu(up("wi_gate")) * up("wi_up"))

@@ -23,11 +23,14 @@ one bit for bit.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
 from ..kernels import grouped_matmul
-from .layers import proj
+from ..parallel import collectives as C
+from .layers import ONE, Layout, mlp, proj
 from .params import ParamDef
 
 __all__ = ["add_shared", "aux_load_balance_loss", "moe_block", "moe_defs", "route",
@@ -52,16 +55,20 @@ def moe_defs(cfg):
     return defs
 
 
-def _router_probs(p, xt):
-    return torch.softmax(proj(xt.float(), p["router"].float()), dim=-1)
+def _router_probs(p, xt, lay: Layout = ONE):
+    """Softmax of the f32 router logits of the rows ``xt`` (T, E; split on
+    E if ``lay.resid``): the whole (T, n_experts) on every rank."""
+    logits = proj(xt.float(), p["router"].float(), None, lay, lay.dim("ffn", "router"),
+                  lay.resid)
+    return torch.softmax(logits, dim=-1)
 
 
-def route(p, xt, k: int):
+def route(p, xt, k: int, lay: Layout = ONE):
     """The top-k experts of each row of ``xt`` (T, E) and their
     renormalised probabilities, both (T, k), in the order ``lax.top_k``
     gives them: by probability, ties to the lower expert index (a stable
     sort, where ``torch.topk`` leaves ties in no stated order)."""
-    probs = _router_probs(p, xt)
+    probs = _router_probs(p, xt, lay)
     top_p, top_i = torch.sort(probs, dim=-1, descending=True, stable=True)
     if k == 1:  # p / p: 1 exactly, and its derivative 0 exactly
         return torch.ones_like(top_p[:, :1]), top_i[:, :1]
@@ -100,14 +107,15 @@ class _Permute(torch.autograd.Function):
         return d[inv], None, None
 
 
-def routed_experts(p, xt, top_p, top_i, n_groups: int):
+def routed_experts(p, xt, top_p, top_i, n_groups: int, lay: Layout = ONE):
     """The routed experts' output (T, E) for the rows ``xt`` (T, E) and
     their picks ``top_i`` (T, k), each weighted by ``top_p``: the (token,
     k) pairs sorted by expert, three grouped GEMMs over ``n_groups``
     groups of ``p``'s experts, the rows back in (token, k) order, weighted
     and summed over k. Picks ``>= n_groups`` sort past the sum of the group
     sizes, where the kernel writes zeros (``parallel.moe_ep``'s other
-    ranks' experts)."""
+    ranks' experts). On a mesh (``lay``) xt and the output are split on E
+    if ``lay.resid``, the hidden on expert_ff if ``lay.expert_hidden``."""
     t, e = xt.shape
     k = top_i.shape[1]
     # sort the (token, k) pairs by expert; order[j] is the pair at sorted row j
@@ -118,39 +126,58 @@ def routed_experts(p, xt, top_p, top_i, n_groups: int):
     bounds = torch.searchsorted(expert, torch.arange(n_groups + 1, device=xt.device))
     group_sizes = bounds.diff().to(torch.int32)
 
-    g = grouped_matmul(xs, p["wi_gate"].to(xs.dtype), group_sizes)
-    u = grouped_matmul(xs, p["wi_up"].to(xs.dtype), group_sizes)
+    mm = functools.partial(grouped_matmul, group_sizes=group_sizes)
+
+    def gmm(a, name, a_split, out_split):  # laid out as a dense GEMM (layers.proj)
+        return proj(a, p[name], None, lay, lay.dim("ffn", name), a_split, out_split, mm)
+
+    g = gmm(xs, "wi_gate", lay.resid, lay.expert_hidden)
+    u = gmm(xs, "wi_up", lay.resid, lay.expert_hidden)
     h = F.silu(g) * u
-    y_sorted = grouped_matmul(h, p["wo"].to(h.dtype), group_sizes)
+    y_sorted = gmm(h, "wo", lay.expert_hidden, lay.resid)
 
     y = _Permute.apply(y_sorted, inv, order)  # (T*k, E) in (token, k) order
-    return (y.reshape(t, k, e) * top_p[..., None].to(y.dtype)).sum(dim=1)
+    if lay.resid:  # the weights, the same on every rank, meet this rank's slice of E
+        top_p = C.copy_to(top_p, lay.mesh, lay.tp)
+    return (y.reshape(t, k, -1) * top_p[..., None].to(y.dtype)).sum(dim=1)
 
 
-def add_shared(p, xt, y):
+def add_shared(p, xt, y, lay: Layout = ONE, hidden: bool = False):
     """``y`` plus the shared experts' gated MLP of ``xt``, where ``p``
-    has them."""
+    has them (on a mesh, ``layers.mlp``'s layout; ``hidden``: their
+    hidden split over the tensor-parallel ranks)."""
     if "shared" not in p:
         return y
-    sp = p["shared"]
-    return y + proj(F.silu(proj(xt, sp["wi_gate"])) * proj(xt, sp["wi_up"]), sp["wo"])
+    return y + mlp(p["shared"], xt, lay, "shared", hidden)
 
 
-def moe_block(p, x, cfg):
-    """x: (B, S, E) -> (B, S, E)."""
+def moe_block(p, x, cfg, lay: Layout = ONE):
+    """x: (B, S, E) -> (B, S, E); on a mesh, this rank's rows, split on E
+    if ``lay.resid``."""
     b, s, e = x.shape
     xt = x.reshape(b * s, e)
-    top_p, top_i = route(p, xt, cfg.top_k)
-    y = routed_experts(p, xt, top_p, top_i, cfg.n_experts)
-    return add_shared(p, xt, y).reshape(b, s, e).to(x.dtype)
+    top_p, top_i = route(p, xt, cfg.top_k, lay)
+    y = routed_experts(p, xt, top_p, top_i, cfg.n_experts, lay)
+    y = add_shared(p, xt, y, lay, lay.splits(cfg.expert_d_ff * cfg.n_shared_experts))
+    return y.reshape(b, s, e).to(x.dtype)
 
 
-def aux_load_balance_loss(p, x, cfg):
+def aux_load_balance_loss(p, x, cfg, lay: Layout = ONE):
     """Switch-style load-balance term: n_experts * sum over experts of
     (share of tokens whose top-1 it is) x (mean router probability).
     The top-1 shares carry no gradient; it flows through the mean
-    probabilities."""
+    probabilities. On a mesh x holds this rank's rows (split on E if
+    ``lay.resid``): the term is not linear in the batch, so the top-1
+    counts are summed over the batch axes before their product; the value
+    is the global batch's on every rank, and each rank's gradient is its
+    rows' share, as ``zoo.softmax_xent``'s."""
     b, s, e = x.shape
-    probs = _router_probs(p, x.reshape(b * s, e))
-    frac_tokens = F.one_hot(probs.argmax(dim=-1), cfg.n_experts).float().mean(dim=0)
-    return cfg.n_experts * (frac_tokens * probs.mean(dim=0)).sum()
+    probs = _router_probs(p, x.reshape(b * s, e), lay)
+    top1 = F.one_hot(probs.argmax(dim=-1), cfg.n_experts).float()
+    mesh = lay.mesh
+    rows = b * s * C.axis_size(mesh, lay.batch)  # the global batch's
+    # a batch that the data axes do not split is on every rank of them once
+    copies = C.axis_size(mesh, lay.all_batch) // C.axis_size(mesh, lay.batch)
+    frac = C.psum(top1.sum(dim=0), mesh, lay.batch) / rows
+    local = cfg.n_experts * (frac * (probs.sum(dim=0) / rows)).sum() / copies
+    return C.all_reduce(local, mesh, lay.all_batch)

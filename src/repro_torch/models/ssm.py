@@ -17,6 +17,23 @@ does (it has no kernel for the step either), carrying (ssm state, conv
 state). B and C are broadcast over the heads as views (stride 0), never
 copied: the scan takes them with a head dim of 1, so that its backward
 sums their gradient over the heads in f32.
+
+On a mesh (a ``layers.Layout`` with ``ssm_heads``) the block runs on
+this rank's heads and their Di channels: ``wx``, ``wz`` and ``wdt`` give
+them (column-parallel under ``megatron``; under ``dos`` K-split f32
+partials reduce-scattered onto Di and onto the heads), the conv runs on
+the local channels (``conv_w`` cut to them), ``dt_bias``, ``A`` and ``D``
+are cut to the local heads, the gated rmsnorm over all of Di all-reduces
+its sum of squares, and ``wo`` is row-parallel (or K-split) into the
+residual. B and C (N wide) serve every head: under ``megatron`` ``wB``
+and ``wC`` are split on N and their columns are all-gathered (the
+gradient reduce-scattered back, as every rank's heads used all of N),
+under ``dos`` their K-split partials are all-reduced (the gradient summed
+over the ranks). Collectives per block: ``dos`` 3 reduce-scatters
+(wx, wz, wdt), 2 all-reduces (wB, wC), 1 for the norm and 1
+reduce-scatter or all-reduce out of ``wo``; ``megatron`` 2 all-gathers
+(B, C), 1 all-reduce for the norm and 1 out of ``wo``. Where the heads do
+not divide ``model`` the block runs whole on every rank.
 """
 
 from __future__ import annotations
@@ -25,7 +42,8 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ssm_scan, ssm_step_ref
-from .layers import proj, rmsnorm
+from ..parallel import collectives as C
+from .layers import ONE, Layout, proj, rmsnorm
 from .params import ParamDef
 
 __all__ = ["mamba_defs", "mamba_block", "mamba_init_state"]
@@ -76,26 +94,37 @@ def mamba_init_state(cfg, batch, dtype=torch.float32, device=None):
     }
 
 
-def mamba_block(p, x, cfg, *, mode: str, state=None):
+def mamba_block(p, x, cfg, *, mode: str, state=None, lay: Layout = ONE):
     """Returns (y, new_state). ``state`` is required for decode; prefill
     starts from zeros and returns the state for the decode loop; train
-    starts from zeros and returns no state."""
+    starts from zeros and returns no state. On a mesh (``lay``) x and y
+    are split on E if ``lay.resid``; the state holds this rank's heads
+    (``ssm``) and Di channels (``conv``) if ``lay.ssm_heads``."""
     b, s, e = x.shape
-    di = cfg.ssm_expand * e
+    di = cfg.ssm_expand * cfg.d_model
     hd = cfg.ssm_head_dim
     h = di // hd
     n = cfg.ssm_state
+    mesh, tp, heads = lay.mesh, lay.tp, lay.ssm_heads
+    if heads:
+        di, h = di // lay.m, h // lay.m
 
-    x_in = proj(x, p["wx"])  # (B, S, Di)
-    z = proj(x, p["wz"])
-    Bm = proj(x, p["wB"])  # (B, S, N)
-    Cm = proj(x, p["wC"])
-    dt = F.softplus(proj(x, p["wdt"]).float() + p["dt_bias"].float())  # (B, S, H)
+    def inproj(name, out_split):
+        return proj(x, p[name], None, lay, lay.dim("layers", name), lay.resid, out_split)
 
-    x_c, new_conv = _causal_conv(x_in, p["conv_w"], state["conv"] if mode == "decode" else None)
+    def local(t, dim=-1):  # a replicated per-channel or per-head leaf cut to this rank's
+        return C.split(t, mesh, tp, dim) if heads else t
+
+    x_in = inproj("wx", heads)  # (B, S, Di)
+    z = inproj("wz", heads)
+    Bm, Cm = _whole_n(inproj, "wB", lay), _whole_n(inproj, "wC", lay)  # (B, S, N)
+    dt = F.softplus(inproj("wdt", heads).float() + local(p["dt_bias"]).float())  # (B, S, H)
+
+    x_c, new_conv = _causal_conv(x_in, local(p["conv_w"]),
+                                 state["conv"] if mode == "decode" else None)
     xh = F.silu(x_c).reshape(b, s, h, hd)
 
-    A = p["A"].float()
+    A = local(p["A"]).float()
     u = (dt[..., None] * xh.float()).to(x.dtype)
     ld = dt * A  # (B, S, H) log-decay, f32
     if mode == "decode":
@@ -110,9 +139,22 @@ def mamba_block(p, x, cfg, *, mode: str, state=None):
     else:
         raise ValueError(f"mamba_block: unknown mode {mode!r}")
 
-    y = y + p["D"].to(x.dtype)[None, None, :, None] * xh
-    y = rmsnorm(y.reshape(b, s, di), p["norm"], cfg.norm_eps) * F.silu(z)
-    out = proj(y.to(x.dtype), p["wo"])
+    y = y + local(p["D"]).to(x.dtype)[None, None, :, None] * xh
+    y = rmsnorm(y.reshape(b, s, di), p["norm"], cfg.norm_eps, lay, heads) * F.silu(z)
+    out = proj(y.to(x.dtype), p["wo"], None, lay, lay.dim("layers", "wo"), heads, lay.resid)
     if mode == "train":
         return out, None
     return out, {"ssm": new_ssm, "conv": new_conv}
+
+
+def _whole_n(inproj, name, lay: Layout):
+    """B or C (B, S, N), all of N on every rank. On local heads every
+    rank reads all of N for its own heads, so the gradient is summed over
+    the tensor-parallel ranks: a column-parallel weight's columns are
+    gathered with a reduce-scatter backward (``gather_params``), a K-split
+    or replicated one's result passes ``copy_to``."""
+    if not lay.ssm_heads:
+        return inproj(name, False)
+    if lay.dim("layers", name) == 1:
+        return C.gather_params(inproj(name, True), lay.mesh, lay.tp, -1)
+    return C.copy_to(inproj(name, False), lay.mesh, lay.tp)

@@ -19,6 +19,17 @@ inputs and r in f32.
 The reference's ``max(|yn|, 1)`` and ``min(i, 10)`` split their
 gradient in halves at a tie (``jnp.maximum``, ``jnp.minimum``); so do
 ``torch.maximum`` and ``torch.minimum`` here.
+
+On a mesh (a ``layers.Layout`` with ``heads``: the 4 heads divide
+``model``) both blocks run on this rank's heads: every in-projection
+gives the rank's columns (column-parallel under ``megatron``, K-split
+partials reduce-scattered onto them under ``dos``), the mLSTM's ``bf``,
+the sLSTM's ``bf`` and ``r`` are cut to the local heads, the norms over
+all heads (the mLSTM's over ``heads_flat``, the sLSTM's over E)
+all-reduce their sums of squares, and ``wo`` is row-parallel (or
+K-split) into the residual. Where the heads do not divide ``model`` the
+blocks run whole on every rank. The states are the local heads' (the
+decoder moves them to and from the cache's placement).
 """
 
 from __future__ import annotations
@@ -27,7 +38,8 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import slstm_scan, ssm_scan, ssm_step_ref
-from .layers import proj, rmsnorm
+from ..parallel import collectives as C
+from .layers import ONE, Layout, proj, rmsnorm
 from .params import ParamDef
 
 __all__ = [
@@ -70,18 +82,36 @@ def _f32_scalar(value, like):
     return torch.full((), value, dtype=torch.float32, device=like.device)
 
 
-def mlstm_block(p, x, cfg, *, mode: str, state=None):
+def _inproj(p, x, name, lay: Layout, group: str):
+    """An in-projection's columns of this rank's heads (all of them where
+    the heads do not split)."""
+    return proj(x, p[name], None, lay, lay.dim(group, name), lay.resid, lay.heads)
+
+
+def _heads_of(t, lay: Layout, dim: int = 0):
+    """A replicated per-head leaf cut to this rank's heads."""
+    return C.split(t, lay.mesh, lay.tp, dim) if lay.heads else t
+
+
+def mlstm_block(p, x, cfg, *, mode: str, state=None, lay: Layout = ONE):
     """Returns (y, new_state). ``state`` is required for decode; prefill
     and train start from zeros (train's final state is returned and
-    dropped by the decoder, as in the reference)."""
+    dropped by the decoder, as in the reference). On a mesh (``lay``) x
+    and y are split on E if ``lay.resid``, and the state holds this
+    rank's heads if ``lay.heads``."""
     b, s, e = x.shape
     h, n, p_ = cfg.n_heads, cfg.ssm_state, cfg.ssm_head_dim
+    if lay.heads:
+        h //= lay.m
 
-    q = proj(x, p["wq"]).reshape(b, s, h, n)
-    k = proj(x, p["wk"]).reshape(b, s, h, n) / (n**0.5)
-    v = proj(x, p["wv"]).reshape(b, s, h, p_)
-    i_pre = proj(x, p["wi"]).float()  # (B, S, H)
-    f_pre = proj(x, p["wf"]).float() + p["bf"].float()
+    def inproj(name):
+        return _inproj(p, x, name, lay, "kind_mlstm")
+
+    q = inproj("wq").reshape(b, s, h, n)
+    k = inproj("wk").reshape(b, s, h, n) / (n**0.5)
+    v = inproj("wv").reshape(b, s, h, p_)
+    i_pre = inproj("wi").float()  # (B, S, H)
+    f_pre = inproj("wf").float() + _heads_of(p["bf"], lay).float()
 
     # stabilized exponential gating: the input gate folded into B, log f
     # the decay
@@ -104,10 +134,11 @@ def mlstm_block(p, x, cfg, *, mode: str, state=None):
 
     denom = torch.maximum(yn.float().abs(), _f32_scalar(1.0, x))
     y = (yc.float() / denom).reshape(b, s, h * p_)
-    y = rmsnorm(y.to(x.dtype), p["norm"], cfg.norm_eps)
-    o_gate = torch.sigmoid(proj(x, p["wo_gate"]).float())
+    y = rmsnorm(y.to(x.dtype), p["norm"], cfg.norm_eps, lay, lay.heads)
+    o_gate = torch.sigmoid(inproj("wo_gate").float())
     y = (y.float() * o_gate).to(x.dtype)
-    return proj(y, p["wo"]), {"C": new_c, "n": new_n}
+    out = proj(y, p["wo"], None, lay, lay.dim("kind_mlstm", "wo"), lay.heads, lay.resid)
+    return out, {"C": new_c, "n": new_n}
 
 
 # --- sLSTM --------------------------------------------------------------------
@@ -139,22 +170,27 @@ def slstm_init_state(cfg, batch, device=None):
     }
 
 
-def slstm_block(p, x, cfg, *, mode: str, state=None):
+def slstm_block(p, x, cfg, *, mode: str, state=None, lay: Layout = ONE):
     """Scalar-memory LSTM with a recurrent (previous-output) term, walked
     over time by ``slstm_scan``. Returns (y, new_state); ``state`` (the
-    cache in decode) or zeros is the initial state."""
+    cache in decode) or zeros is the initial state. On a mesh (``lay``)
+    x and y are split on E if ``lay.resid``; the recurrence runs at this
+    rank's heads (E / m wide) if ``lay.heads``, and so does the state."""
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"slstm_block: unknown mode {mode!r}")
     b = x.shape[0]
-    z_in = proj(x, p["wz"]).float()
-    i_in = proj(x, p["wi"]).float()
-    f_in = proj(x, p["wf"]).float() + p["bf"].float()
-    o_in = proj(x, p["wo_gate"]).float()
+
+    def inproj(name):
+        return _inproj(p, x, name, lay, "kind_slstm").float()
+
+    z_in, i_in, o_in = inproj("wz"), inproj("wi"), inproj("wo_gate")
+    f_in = inproj("wf") + _heads_of(p["bf"], lay).float()
     if state is None:
         if mode == "decode":
             raise ValueError("decode takes one token and a state")
-        state = slstm_init_state(cfg, b, x.device)
-    ys, c, n, h_last = slstm_scan(z_in, i_in, f_in, o_in, p["r"].float(), state["c"],
-                                  state["n"], state["h"])
-    y = rmsnorm(ys.to(x.dtype), p["norm"], cfg.norm_eps)
-    return proj(y, p["wo"]), {"c": c, "n": n, "h": h_last}
+        state = {k: _heads_of(t, lay, 1) for k, t in slstm_init_state(cfg, b, x.device).items()}
+    ys, c, n, h_last = slstm_scan(z_in, i_in, f_in, o_in, _heads_of(p["r"], lay).float(),
+                                  state["c"], state["n"], state["h"])
+    y = rmsnorm(ys.to(x.dtype), p["norm"], cfg.norm_eps, lay, lay.heads)
+    out = proj(y, p["wo"], None, lay, lay.dim("kind_slstm", "wo"), lay.heads, lay.resid)
+    return out, {"c": c, "n": n, "h": h_last}

@@ -17,10 +17,10 @@ decode step reads what they gave from the cache.
 
 Under sharding rules (``parallel.axes.use_rules``) on a mesh of more
 than one rank, ``loss``, ``prefill``, ``decode`` and ``greedy`` take this
-rank's shards of the parameters and the global batch, and run the dense
-family's forward on them (``Model.layout``: the layers' ``Layout``); the
-other families raise there (ROADMAP queue 1 item 10, part 3). With no
-rules, or on a mesh of one rank, they run as one device does.
+rank's shards of the parameters and the global batch (its image
+embeddings or frames too), and run every family's forward on them
+(``Model.layout``: the layers' ``Layout``). With no rules, or on a mesh
+of one rank, they run as one device does.
 """
 
 from __future__ import annotations
@@ -29,17 +29,15 @@ import dataclasses
 from typing import Any
 
 import torch
-import torch.nn.functional as F
 
 from .._device import resolve_device
 from ..config import ArchConfig
-from ..launch.mesh import axis_sizes, mesh_size
+from ..launch.mesh import mesh_size
 from ..parallel import collectives as C
 from ..parallel.axes import current_rules
-from .decoder import decoder_defs, decoder_forward, init_cache
-from .decoder import layout as dense_layout
+from .decoder import decoder_defs, decoder_forward, init_cache, layout
 from .encdec import encdec_defs, encdec_forward, encdec_init_cache
-from .layers import ONE, Layout
+from .layers import ONE, Layout, embed_tokens
 from .moe import aux_load_balance_loss
 from .params import compute_cast, materialize, materialize_cast, tree_size
 
@@ -51,15 +49,10 @@ MODEL_INPUTS = {"vlm": ("image_embeds", "n_image_tokens"), "encdec": ("enc_frame
 
 
 def spans_ranks(cfg: ArchConfig, rules) -> bool:
-    """Whether ``rules`` span more than one rank; raises for a family
-    that this slice does not shard."""
-    if rules is None or mesh_size(rules.mesh) == 1:
-        return False
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"family {cfg.family!r} ({cfg.name}) runs on a mesh of one rank only; sharding it "
-            f"over {axis_sizes(rules.mesh)} is ROADMAP queue 1 item 10 (part 3)")
-    return True
+    """Whether ``rules`` span more than one rank (every family of the zoo
+    runs sharded there)."""
+    del cfg
+    return rules is not None and mesh_size(rules.mesh) > 1
 
 
 def softmax_xent(logits, labels, lay: Layout = ONE):
@@ -139,21 +132,23 @@ class Model:
         rules = current_rules()
         if not spans_ranks(self.cfg, rules):
             return ONE
-        return dense_layout(self.cfg, rules, batch)
+        return layout(self.cfg, rules, batch)
 
     def _forward(self, params, tokens, *, mode, cache=None, batch=None, max_len=0,
                  remat=False, lay=ONE):
         batch = batch or {}
         tokens = lay.batch_slice(tokens.to(self.device))
+        extra = None
+        if self.cfg.family in MODEL_INPUTS and MODEL_INPUTS[self.cfg.family][0] in batch:
+            # this rank's rows, split on E as the residual is
+            extra = lay.batch_slice(batch[MODEL_INPUTS[self.cfg.family][0]].to(self.device))
+            if lay.resid:
+                extra = C.local_slice(extra, lay.mesh, lay.tp, -1)
         if self.cfg.family == "encdec":
-            frames = batch.get("enc_frames")
             return encdec_forward(params, tokens, self.cfg, mode=mode, cache=cache,
-                                  enc_frames=None if frames is None else frames.to(self.device),
-                                  max_len=max_len, remat=remat)
-        image = batch.get("image_embeds")
+                                  enc_frames=extra, max_len=max_len, remat=remat, lay=lay)
         return decoder_forward(params, tokens, self.cfg, mode=mode, cache=cache,
-                               image_embeds=None if image is None else image.to(self.device),
-                               max_len=max_len, remat=remat, lay=lay)
+                               image_embeds=extra, max_len=max_len, remat=remat, lay=lay)
 
     def loss(self, params, batch, *, remat=False):
         """Mean next-token cross-entropy of batch["tokens"] against
@@ -175,9 +170,12 @@ class Model:
                                   lay=lay)
         loss = softmax_xent(logits, lay.batch_slice(batch["labels"].to(self.device)), lay)
         if self.cfg.family == "moe":
-            x = F.embedding(tokens, params["embed"]["tok"]).float()
-            router = {"router": params["layers"]["ffn"]["router"][0]}
-            loss = loss + 0.01 * aux_load_balance_loss(router, x, self.cfg)
+            # this rank's rows, from its shard of the table
+            x = embed_tokens(lay.gather(params["embed"], "embed"), lay.batch_slice(tokens),
+                             torch.float32, lay)
+            router = {"router": lay.gather(params["layers"]["ffn"]["router"][0],
+                                           ("layers", "ffn", "router"))}
+            loss = loss + 0.01 * aux_load_balance_loss(router, x, self.cfg, lay)
         return loss
 
     @torch.no_grad()

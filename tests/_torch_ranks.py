@@ -102,9 +102,57 @@ def _max_rel(got, want) -> float:
     return worst
 
 
-def job_loss(rank, world, workdir, inputs):
+BATCH_KEYS = ("tokens", "labels", "image_embeds", "enc_frames")
+
+
+def _routes():
+    """``(restore, calls)``: ``models.moe.route`` made to record each call's
+    top-k indices and layout until ``restore()``."""
+    from repro_torch.models import moe
+
+    route, calls = moe.route, []
+
+    def recording(p, xt, k, *lay):
+        top_p, top_i = route(p, xt, k, *lay)
+        calls.append((top_i.detach().clone(), lay[0] if lay else None))
+        return top_p, top_i
+
+    moe.route = recording
+
+    def restore():
+        moe.route = route
+
+    return restore, calls
+
+
+def _routes_differ(calls, one, n_layers) -> int:
+    """Routes of this rank's rows (its forward's first ``n_layers`` calls)
+    that differ from one device's, summed over every rank."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.parallel import collectives as C
+
+    bad = 0
+    for (top_i, lay), (want, _) in zip(calls[:n_layers], one[:n_layers]):
+        rows = top_i.shape[0]
+        lo = C.axis_index(lay.mesh, lay.batch) * rows
+        bad += int((top_i != want[lo:lo + rows]).any(dim=-1).sum())
+    total = torch.tensor([bad])
+    dist.all_reduce(total)
+    return int(total)
+
+
+def job_loss(rank, world, workdir, inputs, key="loss"):
     """Loss and gathered gradients of every config, mesh and strategy in
-    ``inputs["loss"]`` against the port's single-device ones."""
+    ``inputs[key]`` against the port's single-device ones (a case's
+    ``image_embeds`` or ``enc_frames`` go into its batch); an MoE case's
+    routes of every rank's rows against one device's. Rank 0, whose
+    results are read, runs the single device; the other ranks get its
+    routes by broadcast."""
+    import torch
+    import torch.distributed as dist
+
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.launch.steps import loss_and_grads
     from repro_torch.models import build
@@ -113,26 +161,37 @@ def job_loss(rank, world, workdir, inputs):
     from repro_torch.parallel.plan import gather_tree, shard_tree
 
     out = {}
-    for case in inputs["loss"]:
+    for case in inputs[key]:
         cfg = _cfg(case["cfg"])
         model = build(cfg, device="cpu")
         full = from_numpy(model, case["params"])
-        import torch
-
-        batch = {k: torch.from_numpy(case[k]) for k in ("tokens", "labels")}
-        loss1, g1 = loss_and_grads(model, full, batch, remat=False)
-        out[f"{cfg.name} single"] = float(loss1)
+        batch = {k: torch.from_numpy(case[k]) for k in BATCH_KEYS if k in case}
+        one = [None]
+        if rank == 0:
+            restore, one[0] = _routes()
+            try:
+                loss1, g1 = loss_and_grads(model, full, batch, remat=False)
+            finally:
+                restore()
+            out[f"{cfg.name} single"] = float(loss1)
+        dist.broadcast_object_list(one, src=0)
+        one = one[0]
         for d, m in case["meshes"]:
             mesh = make_test_mesh(d, m)
             for strategy in case["strategies"]:
                 rules = ShardingRules(mesh, strategy=strategy, fsdp=True)
                 specs = param_sharding(model.defs, rules)
-                with use_rules(rules):
-                    loss, g = loss_and_grads(model, shard_tree(full, specs, mesh), batch,
-                                             remat=strategy == "zero")
+                restore, calls = _routes()
+                try:
+                    with use_rules(rules):
+                        loss, g = loss_and_grads(model, shard_tree(full, specs, mesh), batch,
+                                                 remat=strategy == "zero")
+                finally:
+                    restore()
                 g = gather_tree(g, specs, mesh)
                 out[f"{cfg.name} ({d}, {m}) {strategy}"] = {
-                    "loss": float(loss), "grad_gap": _max_rel(g, g1)}
+                    "loss": float(loss), "grad_gap": _max_rel(g, g1) if rank == 0 else None,
+                    "routes_differ": _routes_differ(calls, one, cfg.n_layers) if one else None}
     return out
 
 
@@ -173,15 +232,19 @@ def job_mesh4(rank, world, workdir, inputs):
                     for s in t["strategies"]}
     out["resumed"] = train_loop(_cfg(t["cfg"]), steps=4, strategy="dos",
                                 ckpt_dir=str(workdir / "ckpt"), ckpt_every=100, **kw)[1]
-    out["raises"] = {
-        "zamba2-2.7b": _raises(lambda: serve_loop(_cfg(("zamba2-2.7b", {})), batch=4,
-                                                  prompt_len=8, gen_tokens=2, mesh_shape=(1, 4),
-                                                  device="cpu")),
-        "xlstm-125m": _raises(lambda: train_loop(_cfg(("xlstm-125m", {})), steps=1,
-                                                 global_batch=4, seq_len=8, mesh_shape=(2, 2),
-                                                 device="cpu")),
+    out["families"] = {  # the two families that raised on a mesh before they were sharded
+        "zamba2-2.7b": serve_loop(_cfg(("zamba2-2.7b", {})), **OTHER_SERVE, mesh_shape=(1, 4),
+                                  device="cpu")["generated"].tolist(),
+        "xlstm-125m": train_loop(_cfg(("xlstm-125m", {})), **OTHER_TRAIN, mesh_shape=(2, 2),
+                                 device="cpu")[1],
     }
     return out
+
+
+# the other families' runs of ``job_mesh4``, ``job_serve2`` and ``job_train2``
+# (the tests make one rank's with the same arguments)
+OTHER_SERVE = {"batch": 4, "prompt_len": 8, "gen_tokens": 4}
+OTHER_TRAIN = {"steps": 2, "global_batch": 4, "seq_len": 16, "log_every": 0}
 
 
 def job_serve2(rank, world, workdir, inputs):
@@ -190,8 +253,8 @@ def job_serve2(rank, world, workdir, inputs):
 
     tokens = serve_loop(_cfg(("smollm-135m", {})), mesh_shape=(2, 1), device="cpu")
     return {"tokens": tokens["generated"].tolist(),
-            "raises": _raises(lambda: serve_loop(_cfg(("zamba2-2.7b", {})), mesh_shape=(1, 2),
-                                                 device="cpu"))}
+            "hybrid": serve_loop(_cfg(("zamba2-2.7b", {})), **OTHER_SERVE, mesh_shape=(1, 2),
+                                 device="cpu")["generated"].tolist()}
 
 
 def job_train2(rank, world, workdir, inputs):
@@ -200,16 +263,127 @@ def job_train2(rank, world, workdir, inputs):
 
     kw = dict(steps=2, global_batch=4, seq_len=32, log_every=0, device="cpu")
     return {"losses": train_loop(_cfg(("smollm-135m", {})), mesh_shape=(2, 1), **kw)[1],
-            "raises": _raises(lambda: train_loop(_cfg(("xlstm-125m", {})), mesh_shape=(1, 2),
-                                                 **kw))}
+            "xlstm": train_loop(_cfg(("xlstm-125m", {})), **OTHER_TRAIN, mesh_shape=(1, 2),
+                                device="cpu")[1]}
 
 
-def _raises(run):
+def _local_shape(shape, spec, mesh) -> list:
+    from repro_torch.parallel import collectives as C
+
+    return [d // C.axis_size(mesh, part) for d, part in zip(shape, spec)]
+
+
+def _served_with_cache_gaps(cfg, case, mesh_shape, strategy):
+    """``serve_loop``'s greedy tokens of ``case`` on ``mesh_shape`` under
+    ``strategy``, and each cache leaf whose shape on this rank differs from
+    its shard under ``plan.serve_cache_specs``, after the run's prefill and
+    after its first decode step."""
+    import torch
+
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.serve import serve_loop
+    from repro_torch.models.params import leaves
+    from repro_torch.models.zoo import Model
+    from repro_torch.parallel.axes import ShardingRules
+    from repro_torch.parallel.plan import abstract_cache, serve_cache_specs
+
+    b, max_len = case["batch"], case["prompt"] + case["gen"]
+    rules = ShardingRules(make_test_mesh(*mesh_shape), strategy=strategy, fsdp=False)
+    full = dict(leaves(abstract_cache(cfg, b, max_len)))
+    specs = dict(leaves(serve_cache_specs(rules, abstract_cache(cfg, b, max_len), b)))
+    gaps, seen = [], set()
+
+    def check(cache, when):
+        if when in seen:
+            return
+        seen.add(when)
+        for path, t in leaves(cache):
+            if path in full and isinstance(t, torch.Tensor):
+                want = _local_shape(full[path].shape, specs[path], rules.mesh)
+                if list(t.shape) != want:
+                    gaps.append(f"{when} {'.'.join(map(str, path))}: {list(t.shape)}, spec "
+                                f"{specs[path]} gives {want}")
+
+    prefill, decode = Model.prefill, Model.decode
+
+    def checked_prefill(self, params, batch, **kw):
+        logits, cache = prefill(self, params, batch, **kw)
+        check(cache, "prefill")
+        return logits, cache
+
+    def checked_decode(self, params, cache, batch):
+        logits, cache = decode(self, params, cache, batch)
+        check(cache, "decode")
+        return logits, cache
+
+    Model.prefill, Model.decode = checked_prefill, checked_decode
     try:
-        run()
-    except NotImplementedError as e:
-        return str(e)
-    return None
+        tokens = serve_loop(cfg, batch=b, prompt_len=case["prompt"], gen_tokens=case["gen"],
+                            strategy=strategy, mesh_shape=mesh_shape,
+                            device="cpu")["generated"].tolist()
+    finally:
+        Model.prefill, Model.decode = prefill, decode
+    if seen != {"prefill", "decode"}:
+        gaps.append(f"the run made no {sorted({'prefill', 'decode'} - seen)}")
+    return tokens, gaps
+
+
+def job_families4(rank, world, workdir, inputs):
+    """Every family of ``inputs["families_serve"]`` served at each (mesh,
+    strategy) it lists (greedy tokens, and the cache's shards after a
+    prefill and a decode step); ``train_loop`` for each config of
+    ``inputs["families_train_loop"]``, ``make_train_step`` for each of
+    ``inputs["families_train_step"]`` (their batches given), all at (2, 2)."""
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.train import train_loop
+    from repro_torch.optim import OptConfig
+
+    out = {"serve": {}, "cache": {}, "train": {}}
+    for case in inputs["families_serve"]:
+        cfg = _cfg(case["cfg"])
+        for d, m, strategy in case["runs"]:
+            key = f"{case['name']} ({d}, {m}) {strategy}"
+            out["serve"][key], out["cache"][key] = _served_with_cache_gaps(cfg, case, (d, m),
+                                                                           strategy)
+    for t in inputs["families_train_loop"]:
+        out["train"][t["name"]] = train_loop(
+            _cfg(t["cfg"]), steps=t["steps"], global_batch=t["batch"], seq_len=t["seq"],
+            strategy=t["strategy"], mesh_shape=(2, 2), log_every=0,
+            opt_cfg=OptConfig(**t["opt"]), device="cpu")[1]
+    for t in inputs["families_train_step"]:
+        out["train"][t["name"]] = train_steps(_cfg(t["cfg"]), t, make_test_mesh(2, 2))
+    return out
+
+
+def train_steps(cfg, t, mesh=None) -> list:
+    """The losses of ``make_train_step`` over ``t["batches"]`` (numpy), from
+    the weights ``init`` draws from seed 0: on one device, or on ``mesh``
+    under ``t["strategy"]`` with each rank's shards."""
+    import torch
+
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build
+    from repro_torch.optim import OptConfig, init_opt_state
+    from repro_torch.parallel.axes import ShardingRules, param_sharding, use_rules
+    from repro_torch.parallel.plan import shard_place
+
+    model = build(cfg, device="cpu")
+    rules = None if mesh is None else ShardingRules(mesh, strategy=t["strategy"], fsdp=True)
+    place = None if rules is None else shard_place(param_sharding(model.defs, rules), mesh)
+    params = model.init(torch.Generator().manual_seed(0), place=place)
+    opt = init_opt_state(params)
+    step = make_train_step(model, OptConfig(**t["opt"]), remat=True)
+    losses = []
+    for b in t["batches"]:
+        batch = {k: torch.from_numpy(v) for k, v in b.items()}
+        with use_rules(rules):
+            params, opt, loss = step(params, opt, batch)
+        losses.append(float(loss))
+    return losses
+
+
+def job_families8(rank, world, workdir, inputs):
+    return job_loss(rank, world, workdir, inputs, key="families_loss")
 
 
 def job_mesh8(rank, world, workdir, inputs):
@@ -366,6 +540,7 @@ def job_compress(rank, world, workdir, inputs):
 
 
 JOBS = {"mesh8": job_mesh8, "mesh4": job_mesh4, "serve2": job_serve2, "train2": job_train2,
+        "families8": job_families8, "families4": job_families4,
         "pipeline4": job_pipeline, "pipeline2": job_pipeline, "moe_ep": job_moe_ep,
         "compress": job_compress}
 

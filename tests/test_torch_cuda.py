@@ -972,6 +972,36 @@ def test_grouped_matmul_dw_kernel(gen, case, dtype):
         assert low.dtype == torch.bfloat16 and torch.equal(low, got.to(torch.bfloat16)), variant
 
 
+@pytest.mark.parametrize("case", _GMM_CASES)
+@pytest.mark.parametrize("transposed", [False, True])
+def test_grouped_matmul_f32_output(gen, case, transposed):
+    """The f32 output a mesh's K-split and row-parallel partials take:
+    every variant the bf16 operands allow within 1e-5 of max|ref| of the
+    plain version, rows past the sum zero, and rounded to bf16 bit for bit
+    the same variant's bf16 output (the same f32 accumulators, rounded
+    once); through the wrapper the variant its plan picks."""
+    from repro_torch.kernels import grouped_matmul
+    from repro_torch.kernels.grouped_matmul import grouped_matmul_ref
+    from repro_torch.kernels.grouped_matmul import ops as gmm_ops
+
+    rows, k, n, sizes = case
+    x, w, gs = _gmm_inputs(gen, rows, k, n, sizes, torch.bfloat16, transposed)
+    want = gmm_ops.plan(rows, len(sizes), torch.bfloat16, True).variant
+    before = dict(grouped_matmul.variants)
+    out = grouped_matmul(x, w, gs, out_dtype=torch.float32)
+    assert grouped_matmul.variants == dict(before, **{want: before[want] + 1})
+    exact = grouped_matmul_ref(x.float(), w.float(), gs)
+    for variant, bm in [(None, 0)] + _gmm_variants(torch.bfloat16):
+        f = dict(force=variant, bm=bm)
+        got = out if variant is None else gmm_ops._launch_forward(x, w, gs, out_dtype=torch.float32,
+                                                                  **f)
+        assert got.dtype == torch.float32
+        assert bool(((got - exact).abs() <= 1e-5 * exact.abs().max()).all()), (variant, bm)
+        assert not got[sum(sizes):].any(), (variant, bm)
+        low = gmm_ops._launch_forward(x, w, gs, **(f if variant else dict(force=want)))
+        assert torch.equal(got.to(torch.bfloat16), low), (variant, bm)
+
+
 def test_grouped_matmul_function_gradients(gen):
     """dX through the forward kernel on w's transposed view, dW through
     grouped_matmul_dw, against autograd of the plain version."""

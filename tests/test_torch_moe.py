@@ -155,6 +155,33 @@ def test_closed_form_backward_matches_autograd_and_jax(name):
     _close(wg.grad, aw, 1e-6)
 
 
+@pytest.mark.parametrize("name", list(GROUP_CASES))
+def test_f32_output_of_bf16_operands(name):
+    """A mesh's K-split and row-parallel expert partials: the bf16
+    operands' f32 sums, unrounded (``out_dtype=torch.float32``), equal
+    ``ragged_dot`` with ``preferred_element_type=float32`` within 1e-6 of
+    max|ref|; rounded once, the bf16 output; and through the autograd
+    Function the f32 output's gradient reaches x and w in their dtype,
+    as the bf16 output's does."""
+    x, w, sizes, dy = _gmm_case(name)
+    xt, wt = (torch.from_numpy(a).to(torch.bfloat16) for a in (x, w))
+    st, dyt = torch.from_numpy(sizes), torch.from_numpy(dy)
+    got = grouped_matmul(xt, wt, st, out_dtype=torch.float32)
+    want = jax.lax.ragged_dot(jnp.asarray(xt.float().numpy(), jnp.bfloat16),
+                              jnp.asarray(wt.float().numpy(), jnp.bfloat16), jnp.asarray(sizes),
+                              preferred_element_type=jnp.float32)
+    assert got.dtype == torch.float32
+    _close(got, np.asarray(want), 1e-6)
+    assert torch.equal(got.to(torch.bfloat16), grouped_matmul(xt, wt, st))
+    grads = []
+    for out_dtype in (torch.float32, None):
+        xg, wg = xt.clone().requires_grad_(), wt.clone().requires_grad_()
+        grouped_matmul(xg, wg, st, out_dtype=out_dtype).backward(dyt.to(out_dtype or xt.dtype))
+        assert xg.grad.dtype == wg.grad.dtype == torch.bfloat16
+        grads.append((xg.grad, wg.grad))
+    assert all(torch.equal(a, b) for a, b in zip(*grads))
+
+
 # --- the model ---------------------------------------------------------------
 
 
@@ -249,8 +276,8 @@ class _RecordRoutes:
     def __enter__(self):
         self.calls, self._route = [], moe.route
 
-        def route(p, xt, k):
-            top_p, top_i = self._route(p, xt, k)
+        def route(p, xt, k, *lay):
+            top_p, top_i = self._route(p, xt, k, *lay)
             self.calls.append((p["router"].detach().float().numpy().copy(),
                                xt.detach().float().numpy().copy(), top_i.numpy().copy()))
             return top_p, top_i

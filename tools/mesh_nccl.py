@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Serve and train the dense family over a (data, model) mesh of cards.
+"""Serve and train the zoo's families over a (data, model) mesh of cards.
 
-    python3 tools/mesh_nccl.py [--json PATH] [--world 4] [--only mesh|parallel]
+    python3 tools/mesh_nccl.py [--json PATH] [--world 4] [--only mesh|parallel|families]
+                               [--families ARCH,...]
 
 Needs ``--world`` CUDA cards on one host (4 by default). Builds the
 kernels once, then starts one process per card, each given ``RANK``,
@@ -46,7 +47,22 @@ Then, in the same group (``--only parallel`` runs these alone):
   sync beside one rank's.
 
 The CPU check of these three paths is their ``gloo`` tests
-(``tests/test_torch_{pipeline,moe_ep,compression}.py``). Rank 0 prints
+(``tests/test_torch_{pipeline,moe_ep,compression}.py``).
+
+``--only families`` runs the other families instead, each at full width
+cut in depth as ``chip_smoke.py``'s phase 19 cuts it (one
+deepseek-moe-16b layer, one zamba2-2.7b group, one xlstm-125m mLSTM and
+one sLSTM block, one llama-3.2-vision-11b group, one whisper-medium
+encoder and decoder layer; ``--families`` names some of them):
+``serve_loop`` (batch 4, prompt 128, 8 greedy
+tokens) at (2, 2) and (1, ``world``) under ``dos`` in bf16, and at (1,
+``world``) in f32, whose tokens must equal one card's; ``train_loop`` for
+the MoE, hybrid and xLSTM models at (2, ``world`` / 2) under ``dos`` for 3
+steps of 8 x 512, the losses against one card's; and xlstm-125m served
+again at both meshes with each decode step's state moves (the cache's
+placement to the blocks' heads and back, ``decoder._to_block`` and
+``_to_cache``) timed by host clock between synchronizes. The CPU check of every
+family on a mesh is ``tests/test_torch_sharding_families.py``. Rank 0 prints
 one line per run and the ``nvidia-smi`` line, and writes everything to
 ``--json``. Every rank process is killed if one fails or the run
 outlives ``--timeout`` seconds.
@@ -80,7 +96,7 @@ def meshes(world: int):
     return out
 
 
-def rank_main(out_path: str, only: str) -> None:
+def rank_main(out_path: str, only: str, families: tuple) -> None:
     import torch
     import torch.distributed as dist
 
@@ -89,11 +105,13 @@ def rank_main(out_path: str, only: str) -> None:
     rank = int(os.environ["RANK"])
     out = {}
     try:
-        if only != "parallel":  # its one-card runs first, then it joins the group
+        if only == "families":
+            out.update(families_cases(rank, families))
+        elif only != "parallel":  # its one-card runs first, then it joins the group
             out.update(mesh_cases(rank))
         else:
             init_distributed("cuda")
-        if only != "mesh":
+        if only in (None, "parallel"):
             out["parallel"] = parallel_cases(rank)
     finally:
         if dist.is_initialized():
@@ -180,6 +198,133 @@ def mesh_cases(rank) -> dict:
             f"the one card's {gap:.3g}")
     out["ok"] = ok
     return out
+
+
+FAMILIES = ("deepseek-moe-16b", "zamba2-2.7b", "xlstm-125m", "llama-3.2-vision-11b",
+            "whisper-medium")
+FAMILY_TRAIN = ("deepseek-moe-16b", "zamba2-2.7b", "xlstm-125m")
+FAMILY_GEN = 8
+FAMILY_XLSTM = "xlstm-125m"
+
+
+def family_cfg(arch):
+    """``arch`` at full width cut in depth as chip_smoke.py's phase 19 cuts it."""
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if cfg.family == "ssm":
+        return dataclasses.replace(cfg, n_layers=2, slstm_at=(1,))
+    if cfg.family == "encdec":
+        return dataclasses.replace(cfg, n_layers=1, n_enc_layers=1)
+    return dataclasses.replace(cfg, n_layers=cfg.attn_every or cfg.cross_every or 1)
+
+
+def families_cases(rank, families=FAMILIES) -> dict:
+    """``families`` (every family but the dense one) served (and the MoE,
+    hybrid and xLSTM models trained) on the mesh against one card; leaves
+    this rank in the process group it joins."""
+    import torch
+
+    from repro_torch.launch.mesh import init_distributed
+    from repro_torch.launch.serve import serve_loop
+    from repro_torch.launch.train import train_loop
+    from repro_torch.optim import OptConfig
+
+    world = int(os.environ["WORLD_SIZE"])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+    torch.cuda.set_device(dev)
+    opt = OptConfig(lr=1e-3, warmup_steps=20, total_steps=TRAIN_STEPS)
+
+    def cfg_of(arch, dtype):
+        cfg = family_cfg(arch)
+        return cfg if dtype == "bfloat16" else dataclasses.replace(cfg, compute_dtype=dtype)
+
+    def serve(arch, dtype, mesh_shape=(1, 1)):
+        return serve_loop(cfg_of(arch, dtype), batch=BATCH, prompt_len=PROMPT,
+                          gen_tokens=FAMILY_GEN, mesh_shape=mesh_shape, device=dev)
+
+    def train(arch, mesh_shape=(1, 1)):
+        return train_loop(family_cfg(arch), steps=TRAIN_STEPS, global_batch=TRAIN_BATCH,
+                          seq_len=TRAIN_SEQ, seed=0, log_every=0, mesh_shape=mesh_shape,
+                          opt_cfg=opt, device=dev)[1]
+
+    trained = [a for a in FAMILY_TRAIN if a in families]
+    runs = [(a, "bfloat16", m) for a in families for m in ((2, world // 2), (1, world))]
+    runs += [(a, "float32", (1, world)) for a in families]
+    solo = {(a, d): serve(a, d) for a, d in {(a, d) for a, d, _ in runs}}
+    solo_losses = {a: train(a) for a in trained}
+    out = {"families": {"serve": [], "train": []}}
+    init_distributed("cuda")
+    ok = True
+    for arch, dtype, mesh_shape in runs:
+        r = serve(arch, dtype, mesh_shape)
+        got, want = r["generated"].cpu(), solo[arch, dtype]["generated"].cpu()
+        eq = got == want
+        first = None if bool(eq.all()) else int((~eq).any(dim=0).nonzero()[0])
+        row = {"arch": arch, "dtype": dtype, "mesh": mesh_shape, "equal_tokens": int(eq.sum()),
+               "tokens": eq.numel(), "first_differing_position": first,
+               "prefill_s": r["prefill_s"], "step_p50_s": r["step_p50_s"],
+               "one_card_prefill_s": solo[arch, dtype]["prefill_s"],
+               "one_card_step_p50_s": solo[arch, dtype]["step_p50_s"], "launches": r["launches"]}
+        out["families"]["serve"].append(row)
+        _log(f"[families] serve {arch} {dtype} {mesh_shape} dos: {row['equal_tokens']}/"
+             f"{row['tokens']} tokens equal the one card's (first differing position {first});"
+             f" prefill {r['prefill_s']*1e3:.2f} ms (one card "
+             f"{row['one_card_prefill_s']*1e3:.2f}), step p50 {r['step_p50_s']*1e3:.3f} ms "
+             f"(one card {row['one_card_step_p50_s']*1e3:.3f})")
+        if dtype == "float32" and first is not None:
+            ok = False
+    if FAMILY_XLSTM in families:
+        out["families"]["xlstm_reshard"] = [_time_xlstm_reshard(serve, m, dev)
+                                            for m in ((2, world // 2), (1, world))]
+    for arch in trained:
+        losses = train(arch, (2, world // 2))
+        gap = max(abs(a - b) for a, b in zip(losses, solo_losses[arch]))
+        out["families"]["train"].append({"arch": arch, "mesh": (2, world // 2), "losses": losses,
+                                         "one_card_losses": solo_losses[arch], "max_gap": gap})
+        _log(f"[families] train {arch} (2, {world // 2}) dos: losses {losses}, one card's "
+             f"{solo_losses[arch]}, largest gap {gap:.3g}")
+    out["ok"] = ok
+    return out
+
+
+def _time_xlstm_reshard(serve, mesh_shape, dev) -> dict:
+    """xlstm-125m served in bf16 on ``mesh_shape`` with every decode step's
+    state moves (``decoder._to_block`` and ``_to_cache``: the cache's
+    placement to the block's heads and back) timed on the host clock, a
+    synchronize before and after each: ms a decode step by state leaf,
+    beside the step p50 of the same run (the synchronizes in it)."""
+    from repro_torch.models import decoder
+
+    orig = {name: getattr(decoder, name) for name in ("_to_block", "_to_cache")}
+    spent = {}
+
+    def timing(fn):
+        def wrapped(lay, cfg, cache, path, t):
+            _sync(dev)
+            t0 = time.perf_counter()
+            got = fn(lay, cfg, cache, path, t)
+            _sync(dev)
+            spent[path[-1]] = spent.get(path[-1], 0.0) + time.perf_counter() - t0
+            return got
+        return wrapped
+
+    for name, fn in orig.items():
+        setattr(decoder, name, timing(fn))
+    try:
+        r = serve(FAMILY_XLSTM, "bfloat16", mesh_shape)
+    finally:
+        for name, fn in orig.items():
+            setattr(decoder, name, fn)
+    steps = FAMILY_GEN - 1
+    row = {"mesh": mesh_shape, "ms_a_step": {k: v / steps * 1e3 for k, v in spent.items()},
+           "step_p50_s": r["step_p50_s"]}
+    _log(f"[families] xlstm-125m {mesh_shape} decode: the state moves (cache placement to "
+         f"the blocks' heads and back) {sum(row['ms_a_step'].values()):.3f} ms a step by host "
+         f"clock ({', '.join(f'{k} {v:.3f}' for k, v in row['ms_a_step'].items())}); step p50 "
+         f"{r['step_p50_s'] * 1e3:.3f} ms with the synchronizes")
+    return row
 
 
 PIPE_ARCH, PIPE_MB, PIPE_REPS = "qwen2.5-3b", 4, 3
@@ -347,12 +492,17 @@ def main(argv=None) -> int:
     ap.add_argument("--json", default=os.path.join(ROOT, "chiprun_out", "mesh_nccl.json"))
     ap.add_argument("--world", type=int, default=4)
     ap.add_argument("--timeout", type=float, default=780.0)
-    ap.add_argument("--only", choices=("mesh", "parallel"),
-                    help="only the (data, model) mesh's cases, or only the pipeline, expert "
-                         "parallelism and int8 sync")
+    ap.add_argument("--only", choices=("mesh", "parallel", "families"),
+                    help="only the dense family's (data, model) mesh cases, only the pipeline, "
+                         "expert parallelism and int8 sync, or only the other families")
+    ap.add_argument("--families", default=",".join(FAMILIES),
+                    help="with --only families: the families' archs to run, comma-separated")
     args = ap.parse_args(argv)
+    families = tuple(args.families.split(","))
+    if not set(families) <= set(FAMILIES):
+        ap.error(f"--families: {sorted(set(families) - set(FAMILIES))} not in {FAMILIES}")
     if os.environ.get("RANK") is not None:
-        rank_main(args.json, args.only)
+        rank_main(args.json, args.only, families)
         return 0
     import torch
 
@@ -375,7 +525,8 @@ def main(argv=None) -> int:
     env = dict(os.environ, MASTER_ADDR="localhost", MASTER_PORT=str(port),
                WORLD_SIZE=str(args.world),
                PYTHONPATH=os.pathsep.join(os.path.join(ROOT, d) for d in ("src", "tests")))
-    flags = ["--json", args.json] + (["--only", args.only] if args.only else [])
+    flags = ["--json", args.json, "--families", args.families] + (
+        ["--only", args.only] if args.only else [])
     procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), *flags],
                               env=dict(env, RANK=str(r), LOCAL_RANK=str(r)), cwd=ROOT)
              for r in range(args.world)]
