@@ -298,15 +298,32 @@ if it fails:
     and timed on inputs cold in L2 beside its bound; then the grouped
     forward's f32 output on its own at deepseek-moe-16b's (1, 4) and (2, 4) K-split shard shapes,
     against its plain version and the bf16 forward's rounding, beside
-    ``torch._grouped_mm``; the phase's time on its own line;
-20. prints the kernels line, the ``nvidia-smi`` line, and last
+    ``torch._grouped_mm``; the phase's time on its own line. Each sharded
+    run also records, mode by mode, its launches by kernel and variant,
+    the collectives rank 0 issued (``collectives.recording``) and the peak
+    bytes it allocated (``torch.cuda.max_memory_allocated`` above what was
+    allocated before it), from a second run of it outside the recorder,
+    whose copies of the launches' arguments would raise its peak;
+20. the dry-run's meta-device accounting (``launch/dryrun.py``,
+    ``launch/accounting.py``): each of phase 19's sharded runs traced on
+    the meta device at the same config, mesh shape (a ``MeshSpec``, no
+    process group), strategy and mode; its launches by kernel and variant
+    and its collectives (op, dtype, shape, group size) must equal the
+    card's exactly, its peak bytes per rank (plus the run's argument
+    bytes, on both sides) lie within 10 % of the card's, and its temp
+    alone (the bytes allocated above the arguments) within 25 % of the
+    card's (or 4 KiB), each gap printed;
+    the meta branch's stand-ins for two library answers (the SSD
+    backward's cluster size, the sLSTM backward's scratch) equal the
+    libraries'; the phase's time on its own line;
+21. prints the kernels line, the ``nvidia-smi`` line, and last
     ``{"ok": true, "device": {...}}``.
 
 ``--details PATH`` also writes every measurement to a JSON file.
 ``--sweep`` runs phases 1 and 2, times each dos_matmul tiling (BN, K
 split) at every bf16 GEMM shape of the main paths beside torch.matmul,
 and stops. ``--only front-door,families`` runs phases 1 and 2 and the
-phases named (11, 19), prints no result line and stops.
+phases named (11; 19 and 20), prints no result line and stops.
 """
 
 from __future__ import annotations
@@ -763,7 +780,7 @@ def check_gemm(gen, m, k, n, dtype, b_transposed=False, time_it=True, offset=0):
            "plan": p._asdict(), "max_abs_err": (out.float() - plain.float()).abs().max().item(),
            "max_abs_err_vs_f32": err.max().item(), "max_ref": scale, "ok": ok}
     if time_it:
-        row["bytes"], row["ops"] = (m * k + k * n + m * n) * es, 2.0 * m * n * k
+        row["bytes"], row["ops"] = dos_ops.work(m, k, n, es)[:2]
         row["bound_ms"], row["bound_by"] = bound_ms(row["bytes"], row["ops"], dtype)
         row["ms"] = cuda_ms(lambda i: dos_matmul(*sets[i], out_dtype=dtype), len(sets))
         row["plain_ms"] = cuda_ms(lambda i: matmul_ref(*sets[i], dtype), len(sets))
@@ -904,16 +921,6 @@ def sweep_dos_matmul() -> list:
     return rows
 
 
-def _visible_pairs(sq, skv, causal, window, q_offset):
-    n = 0
-    for i in range(sq):
-        p = i + q_offset
-        lo = max(0, p - window + 1) if window is not None else 0
-        hi = min(skv, p + 1) if causal else skv
-        n += max(0, hi - lo)
-    return n
-
-
 def _off16(t):
     """``t``'s values in a tensor of its shape whose base lies 2 bytes off
     16-byte alignment: a layout the mma variants do not take."""
@@ -971,9 +978,8 @@ def check_flash(gen, b, sq, skv, h, kvh, d, dtype, causal=True, window=None, q_o
         es = 2 if dtype == torch.bfloat16 else 4
         check(q_offset == 0 and (window or skv) >= skv,
               "the library yardstick (sdpa) covers attention with no window or offset only")
-        pairs = _visible_pairs(sq, skv, causal, window, q_offset)
-        row["bytes"] = (2 * b * sq * h + 2 * b * skv * kvh) * d * es
-        row["ops"] = 4.0 * b * h * d * pairs
+        row["bytes"], row["ops"] = flash_ops.work(b, sq, skv, h, kvh, d, es, causal, window,
+                                                  q_offset)[:2]
         row["bound_ms"], row["bound_by"] = bound_ms(row["bytes"], row["ops"], dtype)
         row["ms"] = cuda_ms(lambda i: flash_attention(*sets[i], **kw), n_sets)
         row["plain_ms"] = cuda_ms(lambda i: attention_ref(*sets[i], **kw), n_sets)
@@ -1007,28 +1013,12 @@ def _ssm_set(gen, bt, s, h, p, n, dtype, shared_bc):
     return u, ld, B, C
 
 
-def ssm_work(bt, s, h, p, n, es, shared_bc, chunk):
-    """Bytes of a scan (each input read once: B, C once per step when
-    broadcast over the heads; y and the f32 state written once) and the
-    operations the chunked algorithm needs: per chunk of t steps the
-    lower triangle of C B^T and of G U, C S_prev (not in the first chunk,
-    whose S_prev is zero) and the state update."""
-    nb = 1 if shared_bc else h
-    n_bytes = 2 * bt * s * h * p * es + bt * s * h * 4 + 2 * bt * s * nb * n * es + bt * h * n * p * 4
-    ops = 0
-    for c0 in range(0, s, chunk):
-        t = min(chunk, s - c0)
-        tri = t * (t + 1) // 2
-        ops += 2 * (tri * n + tri * p + t * n * p * (2 if c0 else 1))
-    return n_bytes, float(ops * bt * h)
-
-
 def check_ssm(gen, bt, s, h, p, n, dtype, shared_bc=True, chunk=CHUNK, time_it=False,
               layout="aligned"):
     """``layout`` "offset" moves u's base 2 bytes off 16, "strided" reads u
     with a stride of 2 along P (both fma)."""
     es = 2 if dtype == torch.bfloat16 else 4
-    n_bytes, n_ops = ssm_work(bt, s, h, p, n, es, shared_bc, chunk)
+    n_bytes, n_ops = ssm_ops.work(bt, s, h, p, n, es, shared_bc, chunk)[:2]
     n_sets = max(1, math.ceil(COLD_BYTES / n_bytes)) if time_it else 1
     sets = [_ssm_set(gen, bt, s, h, p, n, dtype, shared_bc) for _ in range(n_sets)]
     u, ld, B, C = sets[0]
@@ -1908,9 +1898,18 @@ def _as_backend(s, backend):
 
 def _start_front_door(tmp, specs):
     """One shell per study, all started together: ``python -m repro_torch
-    example-spec KIND | python -m repro_torch run - --out ...`` for the
-    nine templates (which set ``backend='torch'``) and ``python -m
-    repro_torch run SPEC --out ...`` for the full-width studies."""
+    run SPEC --out ...``, SPEC the template ``repro_torch example-spec
+    KIND`` prints (which sets ``backend='torch'``; written here by the CLI's
+    own ``main``) or a full-width study's; the first template is piped as a
+    user types it, ``python -m repro_torch example-spec KIND | python -m
+    repro_torch run - --out ...``. (One ``example-spec`` process for each
+    template would take 21 pythons where 13 do; their start-up on the
+    host's cores is most of the phase.)"""
+    import contextlib
+    import io
+
+    from repro_torch import cli
+
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         p for p in (os.path.join(ROOT, "src"), env.get("PYTHONPATH")) if p)
@@ -1919,10 +1918,19 @@ def _start_front_door(tmp, specs):
     procs = {}
     for i, (name, spec) in enumerate(specs.items()):
         out = os.path.join(tmp, f"artifact-{i}.json")
-        if spec is None:  # an example-spec template, piped as a user types it
+        if spec is None:  # an example-spec template
             extra = f" --cache {os.path.join(tmp, 'cache-example-calibrate')}" \
                 if name == "calibrate" else ""
-            cmd = f"set -o pipefail; {py} example-spec {name} | {py} run - --out {out}{extra}"
+            if i == 0:  # piped as a user types it
+                cmd = f"set -o pipefail; {py} example-spec {name} | {py} run - --out {out}{extra}"
+            else:
+                path = os.path.join(tmp, f"spec-{i}.json")
+                text = io.StringIO()
+                with contextlib.redirect_stdout(text):
+                    check(cli.main(["example-spec", name]) == 0, f"example-spec {name} failed")
+                with open(path, "w") as f:
+                    f.write(text.getvalue())
+                cmd = f"{py} run {path} --out {out}{extra}"
         else:
             path = os.path.join(tmp, f"spec-{i}.json")
             spec.save(path)
@@ -2249,17 +2257,6 @@ def expected_train_variants(cfg) -> dict:
     return out
 
 
-def _bwd_work(b, sq, skv, h, kvh, d, es, causal, window, q_offset):
-    """Bytes of a flash backward (q, k, v, o, dO and lse read once; dq,
-    dk, dv written once) and its operations: S, dP, dV, dQ and dK, 2 D
-    each per visible (query, key) pair and query head, and 2 D per key
-    of dV for a row that sees no key."""
-    pairs = _visible_pairs(sq, skv, causal, window, q_offset)
-    dead = sum(1 for i in range(sq) if _visible_pairs(1, skv, causal, window, i + q_offset) == 0)
-    n_bytes = (4 * b * sq * h + 4 * b * skv * kvh) * d * es + 4 * b * h * sq
-    return n_bytes, float(b * h * d * (10 * pairs + 2 * skv * dead))
-
-
 def _sdpa_bwd_ms(sets, causal=True, reps=20):
     """Device ms per call of the autograd backward of
     ``scaled_dot_product_attention`` (GQA, causal or not) on the same operands,
@@ -2362,7 +2359,7 @@ def check_flash_bwd(gen, b, sq, skv, h, kvh, d, dtype, causal=True, window=None,
     also runs on the same inputs (forced: it takes every layout) and is
     held to the same gate."""
     es = 2 if dtype == torch.bfloat16 else 4
-    n_bytes, n_ops = _bwd_work(b, sq, skv, h, kvh, d, es, causal, window, q_offset)
+    n_bytes, n_ops = flash_ops.bwd_work(b, sq, skv, h, kvh, d, es, causal, window, q_offset)[:2]
     n_sets = max(1, math.ceil(COLD_BYTES / n_bytes)) if time_it else 1
     kw = dict(causal=causal, window=window, q_offset=q_offset)
     variant = _want_variant(dtype, "offset" if layout == "offset" else "aligned")
@@ -2905,27 +2902,6 @@ SSM_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-3}
 HYBRID_CLI_STEPS = 3
 
 
-def ssm_bwd_work(bt, s, h, p, n, es, shared_bc, chunk, with_dstate):
-    """Bytes of a scan backward (u, dy, ld, B, C, the forward's states and
-    d_state read once; du, dld, dB, dC written once, B and C and their
-    gradients once per step when shared by the heads) and its operations:
-    per chunk of t steps the lower triangles of C B^T, dy u^T, G dy, A C
-    and A B, and the N x P products S_c dy and the dS update (not in the
-    first chunk, whose S_c is zero and whose dS nothing reads), and B dS,
-    dS u and <dS, S_c> (not in the last chunk when d_state is zero)."""
-    nb = 1 if shared_bc else h
-    nc = -(-s // chunk)
-    n_bytes = (3 * bt * s * h * p * es + 2 * bt * s * h * 4 + 4 * bt * s * nb * n * es
-               + bt * h * nc * n * p * 4 + (bt * h * n * p * 4 if with_dstate else 0))
-    ops = 0
-    for c in range(nc):
-        t = min(chunk, s - c * chunk)
-        ops += t * (t + 1) // 2 * (3 * n + 2 * p) + (2 * t * n * p if c else 0)
-        if c < nc - 1 or with_dstate:
-            ops += 2 * t * n * p + (n * p if c else 0)
-    return n_bytes, float(2 * ops * bt * h)
-
-
 def _ssm_bwd_gate(got, exact, dtype):
     """The scan backward's gate (``SSM_BWD_TOL``): each of du, dld, dB, dC
     within the tolerance of its max|ref| plus, in bf16, one rounding of each
@@ -2955,7 +2931,7 @@ def check_ssm_bwd(gen, bt, s, h, p, n, dtype, chunk=CHUNK, shared_bc=True, with_
     kernel alone (device time), ``fma`` beside them, the plain version on
     the card, and the forward scan with and without the states it stores."""
     es = 2 if dtype == torch.bfloat16 else 4
-    n_bytes, n_ops = ssm_bwd_work(bt, s, h, p, n, es, shared_bc, chunk, with_dstate)
+    n_bytes, n_ops = ssm_ops.bwd_work(bt, s, h, p, n, es, shared_bc, chunk, with_dstate)[:2]
     n_sets = max(1, math.ceil(COLD_BYTES / n_bytes)) if time_it else 1
     sets = []
     for _ in range(n_sets):
@@ -3270,28 +3246,6 @@ SLSTM_BWD_TOL = 1e-4
 XLSTM_CLI_STEPS = 3
 
 
-def slstm_work(b, s, h, d, store):
-    """Bytes of a recurrence (z_in, o_in, i_in, f_in, r and the initial
-    state read once; ys and the final state written once; with ``store``
-    each step's c, n, z too) and its operations: 2 d^2 for the matvec and
-    8 per element for the gates, per (b, h, step)."""
-    e = h * d
-    n_bytes = 4 * (3 * b * s * e + 2 * b * s * h + h * d * d + 2 * (2 * b * e + b * h)
-                   + ((2 * b * s * e + b * s * h) if store else 0))
-    return n_bytes, float(b * s * h * (2 * d * d + 8 * d))
-
-
-def slstm_bwd_work(b, s, h, d):
-    """Bytes of the backward (i_in, f_in, n_all, o_in, c_all, z_all, dys,
-    r and the initial c, n read once; dz_in, do_in, di_in, df_in and the
-    initial state's gradients written once) and its operations: 2 d^2 for
-    the transposed matvec and 20 per element for the gates' gradients."""
-    e = h * d
-    n_bytes = 4 * (3 * b * s * h + 4 * b * s * e + h * d * d + b * e + b * h
-                   + 2 * b * s * e + 2 * b * s * h + 2 * b * e + b * h)
-    return n_bytes, float(b * s * h * (2 * d * d + 20 * d))
-
-
 def _slstm_set(gen, b, s, h, d, with_state):
     """Recurrence inputs on the card: z_in, o_in ~ N(0, 1), i_in ~ N(0, 4),
     f_in ~ N(1, 4), r ~ N(0, 0.01) (the reference's init scale 0.1), and
@@ -3335,7 +3289,7 @@ def check_slstm(gen, b, s, h, d, with_state=False, time_it=False, store=False):
     (with ``store``: as training calls it, keeping c, n, z), ``fma``
     beside it, the loop replayed from a CUDA graph and launched from the
     host, and the bound."""
-    n_bytes, n_ops = slstm_work(b, s, h, d, store)
+    n_bytes, n_ops = slstm_ops.work(b, s, h, d, store)[:2]
     n_sets = max(1, math.ceil(COLD_BYTES / n_bytes)) if time_it else 1
     sets = [_slstm_set(gen, b, s, h, d, with_state) for _ in range(n_sets)]
     ins = sets[0]
@@ -3448,7 +3402,7 @@ def check_slstm_bwd(gen, b, s, h, d, with_state=False, with_final=False, time_it
     if time_it:
         z_in, i_in, f_in, o_in, r, c0, n0, h0 = ins
         ys, _, _, _, saved = slstm_ops._forward(*ins, store=True)
-        n_bytes, n_ops = slstm_bwd_work(b, s, h, d)
+        n_bytes, n_ops = slstm_ops.bwd_work(b, s, h, d)[:2]
         row["bytes"], row["ops"] = n_bytes, n_ops
         row["bound_ms"], row["bound_by"] = bound_ms(n_bytes, n_ops, torch.float32)
         row["ms"] = cuda_ms(lambda i: slstm_scan_bwd(i_in, f_in, o_in, r, c0, n0, saved, dys), 1)
@@ -3787,23 +3741,6 @@ def moe_routes(gen, cfg, tokens):
     return bounds.diff().to(torch.int32)
 
 
-def gmm_work(rows, k, n, sizes, es):
-    """Bytes of a grouped GEMM (the rows in groups and the weights of the
-    non-empty groups read once, the whole output written once) and its
-    operations (2 K N per row in a group): what these sizes need."""
-    used = min(int(sizes.sum()), rows)
-    active = int((sizes > 0).sum())
-    return es * (used * k + active * k * n + rows * n), 2.0 * used * k * n
-
-
-def gmm_dw_work(rows, k, n, sizes, es, es_out=4):
-    """Bytes of the weight gradient (the rows in groups of x and dy read
-    once, the (G, K, N) gradient written once, ``es_out`` bytes an entry)
-    and its operations."""
-    used = min(int(sizes.sum()), rows)
-    return es * used * (k + n) + es_out * len(sizes) * k * n, 2.0 * used * k * n
-
-
 def _library_ms(call, what):
     """``cuda_ms`` of ``torch._grouped_mm``, the one PyTorch call that
     computes a grouped GEMM, where this torch has it and it takes the
@@ -3875,7 +3812,7 @@ def check_gmm(gen, rows, k, n, sizes, dtype=torch.bfloat16, transposed=False, ti
               "zero")
         check(torch.equal(out, call()), f"grouped_matmul {what} ({name}): two calls differ")
     es = torch.finfo(dtype).bits // 8
-    n_bytes, n_ops = gmm_work(rows, k, n, sizes.cpu(), es)
+    n_bytes, n_ops = gmm_ops.work(rows, k, n, sizes.cpu(), es)[:2]
     row = {"what": what, "rows": rows, "K": k, "N": n, "G": g,
            "active": int((sizes > 0).sum()), "dtype": str(dtype), "transposed": transposed,
            "variant": want_v, "max_abs_err": max(errs.values()), "max_abs_err_by_variant": errs,
@@ -3932,7 +3869,7 @@ def check_gmm_dw(gen, rows, k, n, sizes, dtype=torch.bfloat16, time_it=False, wh
             check(torch.equal(low, dw.to(torch.bfloat16)), f"grouped_matmul_dw {what} ({name}): "
                   "the bf16 output is not the f32 one cast")
     es = torch.finfo(dtype).bits // 8
-    n_bytes, n_ops = gmm_dw_work(rows, k, n, sizes.cpu(), es, es)
+    n_bytes, n_ops = gmm_ops.dw_work(rows, k, n, sizes.cpu(), es, es)[:2]
     row = {"what": what, "rows": rows, "K": k, "N": n, "G": len(sizes), "dtype": str(dtype),
            "variant": want_v, "max_abs_err": max(errs.values()), "max_abs_err_by_variant": errs,
            "bytes": n_bytes, "ops": n_ops}
@@ -4789,14 +4726,6 @@ def _pipeline_phase(out):
                   f"in phase 12 {RESULTS['main_paths']['train']['step_p50_s']*1e3:.3f} ms; "
                   f"bubble at 1 stage {bubble_fraction(1, PIPE_MB):.3f}, at 4 stages "
                   f"{bubble_fraction(4, PIPE_MB):.3f}", flush=True)
-            kern = {"dos_matmul": "dos_matmul", "flash forward": "flash_mma",
-                    "flash backward": "flash_bwd"}
-            t_prof = time.perf_counter()
-            row["profile"] = {what: _profile_train_step(runs[what], p50[what], f"pipeline: {what}",
-                                                        kern, host_ops=False)
-                              for what in ("pipeline", "model.loss")}
-            row["profile_wall_s"] = time.perf_counter() - t_prof
-            print(f"[pipeline] the two profiles took {row['profile_wall_s']:.1f} s", flush=True)
             del state
         out["pipeline"][dtype] = row
         del ref_grads, grads
@@ -5131,16 +5060,21 @@ def _emulated_collectives():
     holds: a sum is the rank's own tensor, a gather its copies side by
     side, a reduce-scatter its slice (``fake``'s collectives return
     without filling their outputs, which the replayed launches would then
-    read). Returns the originals, to put back."""
+    read). Only what moves the bytes is replaced (``collectives``'
+    ``_all_reduce``, ``_all_gather``, ``_reduce_scatter``): each
+    collective is still recorded, and allocates what NCCL's path does.
+    Returns the originals, to put back."""
     from repro_torch.parallel import collectives as C
 
-    orig = (C._reduce, C._gather, C._scatter)
+    orig = (C._all_reduce, C._all_gather, C._reduce_scatter)
 
-    def gather(x, mesh, axes, dim):
-        return torch.cat([x] * C.axis_size(mesh, axes), dim=dim)
+    def all_gather(parts, buf, group):
+        for part in parts:
+            part.copy_(buf)
 
-    C._reduce = lambda x, mesh, axes, op=None: x.clone()
-    C._gather, C._scatter = gather, C._slice
+    C._all_reduce = lambda buf, op, group: None  # buf is the rank's own tensor already
+    C._all_gather = all_gather
+    C._reduce_scatter = lambda out, parts, group: out.copy_(parts[0])  # rank 0's slice
     return orig
 
 
@@ -5213,52 +5147,49 @@ def _family_gate(kname, args, kw, got, dtype):
 
 
 def _family_work(kname, args, kw):
-    """(bytes, operations, the operands' dtype) of one launch, counted as
-    its kernel's phase counts them (each input read once, each output
-    written once; what these inputs need)."""
+    """(bytes, operations, the operands' dtype) of one launch, by its
+    wrapper's ``work`` (each input read once, each output written once;
+    what these inputs need)."""
     t0 = args[0]
     es = t0.element_size()
     if kname == "dos_matmul":
         a, b, out_dtype = args
         m, k, n = a.numel() // a.shape[-1], a.shape[-1], b.shape[1]
-        out_es = torch.finfo(out_dtype).bits // 8
-        return (m * k + k * n) * es + m * n * out_es, 2.0 * m * k * n, a.dtype
+        return (*dos_ops.work(m, k, n, es, torch.finfo(out_dtype).bits // 8)[:2], a.dtype)
     if kname in ("grouped_matmul", "grouped_matmul_dw"):
         x, w, sizes = args[:3]
         sizes = sizes.cpu()
         if kname == "grouped_matmul_dw":
             out_dtype = kw.get("out_dtype", args[4] if len(args) > 4 else torch.float32)
-            return (*gmm_dw_work(x.shape[0], x.shape[1], w.shape[1], sizes, es,
-                                 torch.finfo(out_dtype).bits // 8), x.dtype)
-        n_bytes, n_ops = gmm_work(x.shape[0], x.shape[1], w.shape[2], sizes, es)
+            return (*gmm_ops.dw_work(x.shape[0], x.shape[1], w.shape[1], sizes, es,
+                                     torch.finfo(out_dtype).bits // 8)[:2], x.dtype)
         out_es = torch.finfo(kw.get("out_dtype") or x.dtype).bits // 8
-        return n_bytes + (out_es - es) * x.shape[0] * w.shape[2], n_ops, x.dtype
+        return (*gmm_ops.work(x.shape[0], x.shape[1], w.shape[2], sizes, es, out_es)[:2],
+                x.dtype)
     if kname in ("flash_attention", "flash_attention_bwd"):
         q, k = args[0], args[1]
         b, sq, h, d = q.shape
         skv, kvh = k.shape[1], k.shape[2]
+        mask = (kw["causal"], kw["window"], kw["q_offset"])
         if kname == "flash_attention_bwd":
-            return (*_bwd_work(b, sq, skv, h, kvh, d, es, kw["causal"], kw["window"],
-                               kw["q_offset"]), q.dtype)
-        pairs = _visible_pairs(sq, skv, kw["causal"], kw["window"], kw["q_offset"])
-        return ((2 * b * sq * h + 2 * b * skv * kvh) * d * es + 4 * b * h * sq * kw["with_lse"],
-                4.0 * b * h * d * pairs, q.dtype)
+            return (*flash_ops.bwd_work(b, sq, skv, h, kvh, d, es, *mask)[:2], q.dtype)
+        return (*flash_ops.work(b, sq, skv, h, kvh, d, es, *mask, kw["with_lse"])[:2], q.dtype)
     if kname in ("ssm_scan", "ssm_scan_bwd"):
         u, B = args[0], args[2]
         bt, s, h, p = u.shape
         shared = B.stride(2) == 0
         chunk = args[4] if kname == "ssm_scan" else args[7]
         if kname == "ssm_scan":
-            return (*ssm_work(bt, s, h, p, B.shape[-1], es, shared, chunk), u.dtype)
-        return (*ssm_bwd_work(bt, s, h, p, B.shape[-1], es, shared, chunk,
-                              args[5] is not None), u.dtype)
+            return (*ssm_ops.work(bt, s, h, p, B.shape[-1], es, shared, chunk)[:2], u.dtype)
+        return (*ssm_ops.bwd_work(bt, s, h, p, B.shape[-1], es, shared, chunk,
+                                  args[5] is not None)[:2], u.dtype)
     z, r = (args[0], args[4]) if kname == "slstm_scan" else (args[7], args[3])
     b, s, e = z.shape
     h, d = r.shape[0], r.shape[1]
     if kname == "slstm_scan":
-        return (*slstm_work(b, s, h, d, args[8] if len(args) > 8 else kw.get("store", False)),
-                torch.float32)
-    return (*slstm_bwd_work(b, s, h, d), torch.float32)
+        store = args[8] if len(args) > 8 else kw.get("store", False)
+        return (*slstm_ops.work(b, s, h, d, store)[:2], torch.float32)
+    return (*slstm_ops.bwd_work(b, s, h, d)[:2], torch.float32)
 
 
 def _check_family_launch(row) -> dict:
@@ -5294,18 +5225,64 @@ def _check_family_launch(row) -> dict:
             "ok": ok and launched == row["variants"] and len(launched) == 1}
 
 
+def _variants_since(before) -> dict:
+    """Launches by kernel and variant since the ``variants`` snapshot
+    ``before``, without zeros."""
+    out = {}
+    for k, fn in KERNELS.items():
+        by = {v: n - before[k][v] for v, n in fn.variants.items() if n != before[k][v]}
+        if by:
+            out[k] = by
+    return out
+
+
+def _card_run(fn):
+    """``fn()`` on the card as rank 0: its output, and what phase 20 holds
+    the meta accounting to: launches by kernel and variant, the
+    collectives it issued, and the peak bytes it allocated above what was
+    allocated before it."""
+    from repro_torch.parallel import collectives as C
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    before = {k: dict(fn_.variants) for k, fn_ in KERNELS.items()}
+    with C.recording() as log:
+        out = fn()
+    torch.cuda.synchronize()
+    return out, {"launches": _variants_since(before), "collectives": [tuple(c) for c in log],
+                 "peak": torch.cuda.max_memory_allocated() - held}
+
+
+def _family_inputs(model, serve, master, mesh, strategy, train):
+    """Rank 0's serving shards of ``serve`` and, if ``train``, training
+    shards of ``master`` (FSDP on) on ``mesh`` under ``strategy``, with the
+    rules of each."""
+    from repro_torch.parallel.axes import param_sharding
+    from repro_torch.parallel.plan import shard_tree
+
+    s_rules = ShardingRules(mesh, strategy=strategy, fsdp=False)
+    t_rules = ShardingRules(mesh, strategy=strategy, fsdp=True)
+    params = shard_tree(serve, param_sharding(model.defs, s_rules), mesh)
+    shards = shard_tree(master, param_sharding(model.defs, t_rules), mesh) if train else None
+    return params, shards, s_rules, t_rules
+
+
 def _family_runs(arch, rec, cfg=None, device="cuda") -> dict:
     """The launches of ``arch``'s cut config (``cfg``: another) by kernel
     on one card (no group), then as rank 0 of each FAMILY_MESHES mesh under
     each FAMILY_STRATEGIES plan (``rec`` recording them); each sharded
     run's launches checked equal to one card's, mode by mode. Returns the
-    launches by run. ``device="cpu"`` rehearses the runs on the plain
-    versions (no launch to count)."""
+    launches by run, and each sharded run's modes as ``_card_run`` gives
+    them (with their argument bytes) for phase 20, from a second pass of
+    the run outside the recorder (whose copies would raise its peak).
+    ``device="cpu"`` rehearses the runs on the plain versions (no launch
+    to count)."""
     import torch.distributed as dist
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
-    from repro_torch.parallel.axes import param_sharding, use_rules
-    from repro_torch.parallel.plan import shard_tree
+    from repro_torch.launch.accounting import tree_bytes
+    from repro_torch.parallel.axes import use_rules
 
     cfg = cfg or family_cfg(arch)
     model = build(cfg, device=device)
@@ -5317,28 +5294,39 @@ def _family_runs(arch, rec, cfg=None, device="cuda") -> dict:
     extra = {k: v.to(device) for k, v in model_inputs(cfg, BATCH, 0).items()}
     train = arch in FAMILY_TRAIN
     batch = {"tokens": prompts, "labels": prompts.roll(-1, 1)} if train else None
+    on_card = device == "cuda"
 
-    def modes(params, master_params):
-        counts = {}
-        c0 = launch_counts()
+    def modes(params, master_params, rules=None, t_rules=None, measure=False):
+        counts, card = {}, {}
+
+        def run(mode, fn, r, args):
+            c0 = launch_counts()
+            with use_rules(r):
+                if measure:
+                    out, card[mode] = _card_run(fn)
+                    card[mode]["args"] = tree_bytes(args)
+                else:
+                    out = fn()
+            c1 = launch_counts()
+            counts[mode] = {k: c1[k] - c0[k] for k in c1 if c1[k] != c0[k]}
+            return out
+
         with torch.no_grad():
-            _, cache = model.prefill(params, {"tokens": prompts, **extra}, max_len=PROMPT + 1)
-        c1 = launch_counts()
-        with torch.no_grad():
-            model.decode(params, cache, {"token": token})
-        c2 = launch_counts()
-        counts["prefill"] = {k: c1[k] - c0[k] for k in c1 if c1[k] != c0[k]}
-        counts["decode"] = {k: c2[k] - c1[k] for k in c2 if c2[k] != c1[k]}
+            _, cache = run("prefill", lambda: model.prefill(
+                params, {"tokens": prompts, **extra}, max_len=PROMPT + 1), rules, (params, extra))
+            run("decode", lambda: model.decode(params, cache, {"token": token}), rules,
+                (params, cache))
+        del cache
         if master_params is not None:
-            loss_and_grads(model, master_params, batch, remat=True)
-            c3 = launch_counts()
-            counts["train"] = {k: c3[k] - c2[k] for k in c3 if c3[k] != c2[k]}
-        if device == "cuda":
+            run("train", lambda: loss_and_grads(model, master_params, batch, remat=True),
+                t_rules or rules, (master_params,))
+        if on_card:
             torch.cuda.synchronize()
-        return counts
+        return counts, card
 
-    one = modes(serve, master if train else None)
+    one, _ = modes(serve, master if train else None)
     out = {"one card": one}
+    cards = {}
     orig = _emulated_collectives()
     try:
         for mesh_shape in FAMILY_MESHES:
@@ -5347,20 +5335,16 @@ def _family_runs(arch, rec, cfg=None, device="cuda") -> dict:
             try:
                 for strategy in FAMILY_STRATEGIES:
                     mesh = make_test_mesh(*mesh_shape)
-                    s_rules = ShardingRules(mesh, strategy=strategy, fsdp=False)
-                    t_rules = ShardingRules(mesh, strategy=strategy, fsdp=True)
-                    params = shard_tree(serve, param_sharding(model.defs, s_rules), mesh)
-                    shards = (shard_tree(master, param_sharding(model.defs, t_rules), mesh)
-                              if train else None)
+                    params, shards, s_rules, t_rules = _family_inputs(model, serve, master, mesh,
+                                                                      strategy, train)
                     rec.run = f"{mesh_shape} {strategy}"
-                    with rec, use_rules(s_rules):
-                        counts = modes(params, None)
-                    if train:
-                        with rec, use_rules(t_rules):
-                            c0 = launch_counts()
-                            loss_and_grads(model, shards, batch, remat=True)
-                            c1 = launch_counts()
-                        counts["train"] = {k: c1[k] - c0[k] for k in c1 if c1[k] != c0[k]}
+                    with rec:
+                        counts, _ = modes(params, shards, s_rules, t_rules)
+                    if on_card:
+                        again, cards[mesh_shape, strategy] = modes(params, shards, s_rules,
+                                                                   t_rules, measure=True)
+                        check(again == counts, f"{arch} as rank 0 of {rec.run}: a second run "
+                              f"launched {again}, the first {counts}")
                     out[rec.run] = counts
                     check(counts == one, f"{arch} as rank 0 of {rec.run}: launches {counts}, one "
                           f"card's {one}")
@@ -5370,8 +5354,81 @@ def _family_runs(arch, rec, cfg=None, device="cuda") -> dict:
     finally:
         from repro_torch.parallel import collectives as C
 
-        C._reduce, C._gather, C._scatter = orig
-    return out
+        C._all_reduce, C._all_gather, C._reduce_scatter = orig
+    return out, cards
+
+
+FAMILY_PEAK_GAP = 0.10  # the meta accounting's peak bytes per rank against the card's
+# and its temp alone (the peak above the arguments): the earlier runs of this phase
+# on the H100 put it 0 to 21 % under the card's, the largest in decode runs whose
+# temp is a few MiB; 8 allocator granules bound a tiny temp
+FAMILY_TEMP_GAP, FAMILY_TEMP_FLOOR = 0.25, 8 * 512
+
+
+def _meta_family_runs(arch, cards, cfg=None) -> list:
+    """Phase 20 for one family: each of ``cards``' runs (phase 19's sharded
+    runs as rank 0 on the card, by (mesh, strategy)) accounted on the meta
+    device at the same config, mesh shape (a ``MeshSpec``), strategy and
+    mode, with the same inputs' shapes (``launch/accounting.py``), and held
+    to the card's: launches by kernel and variant equal, the collectives
+    equal op by op, the peak bytes per rank (allocated above the
+    arguments, plus the arguments' bytes) within FAMILY_PEAK_GAP of the
+    card's, and the temp alone (allocated above the arguments) within
+    FAMILY_TEMP_GAP of the card's or FAMILY_TEMP_FLOOR bytes, whichever is
+    more: in a decode run the arguments are most of the peak, and the
+    first gate alone would pass a temp of 0. Returns a row per run and
+    mode."""
+    from repro_torch.launch.accounting import account
+    from repro_torch.launch.dryrun import meta_model
+    from repro_torch.launch.mesh import MeshSpec
+    from repro_torch.models.params import map_tree
+    from repro_torch.parallel.axes import use_rules
+
+    cfg = cfg or family_cfg(arch)
+    model = meta_model(cfg)
+    master = map_tree(lambda d: torch.empty(d.shape, dtype=getattr(torch, cfg.param_dtype),
+                                            device="meta"), model.defs)
+    serve = model.compute_params(master)
+    prompts = torch.zeros((BATCH, PROMPT), dtype=torch.int64)
+    token = torch.zeros((BATCH, 1), dtype=torch.int64)
+    extra = {k: v.to("meta") for k, v in model_inputs(cfg, BATCH, 0).items()}
+    train = arch in FAMILY_TRAIN
+    batch = {"tokens": prompts, "labels": prompts}
+    rows = []
+    for (mesh_shape, strategy), card in cards.items():
+        mesh = MeshSpec(mesh_shape, ("data", "model"))
+        params, shards, s_rules, t_rules = _family_inputs(model, serve, master, mesh, strategy,
+                                                          train)
+        with use_rules(s_rules):
+            (_, cache), prefill = account(model.prefill, params, {"tokens": prompts, **extra},
+                                          max_len=PROMPT + 1)
+            _, decode = account(model.decode, params, cache, {"token": token})
+        got = {"prefill": prefill, "decode": decode}
+        if train:
+            with use_rules(t_rules):
+                got["train"] = account(loss_and_grads, model, shards, batch, True)[1]
+        for mode, meta in got.items():
+            c = card[mode]
+            want, have = c["peak"] + c["args"], meta.peak_bytes + c["args"]
+            gap = (have - want) / want
+            temp_gap = (meta.peak_bytes - c["peak"]) / max(c["peak"], 1)
+            temp_ok = abs(meta.peak_bytes - c["peak"]) <= max(FAMILY_TEMP_GAP * c["peak"],
+                                                              FAMILY_TEMP_FLOOR)
+            coll = [tuple(x) for x in meta.collectives]
+            row = {"arch": arch, "mesh": list(mesh_shape), "strategy": strategy, "mode": mode,
+                   "launches": meta.launches, "card_launches": c["launches"],
+                   "collectives": len(coll), "card_collectives": len(c["collectives"]),
+                   "peak_bytes": have, "card_peak_bytes": want, "args_bytes": c["args"],
+                   "peak_gap": gap, "temp_bytes": meta.peak_bytes, "card_temp_bytes": c["peak"],
+                   "temp_gap": temp_gap, "trace_s": meta.seconds,
+                   "ok": (meta.launches == c["launches"] and coll == c["collectives"]
+                          and abs(gap) <= FAMILY_PEAK_GAP and temp_ok)}
+            rows.append(row)
+            if not row["ok"]:
+                print(f"[meta] {arch} {mesh_shape} {strategy} {mode}: launches {meta.launches} "
+                      f"(card {c['launches']}); collectives equal: {coll == c['collectives']}; "
+                      f"peak gap {gap:+.4f}, temp gap {temp_gap:+.4f}  FAIL", flush=True)
+    return rows
 
 
 def check_gmm_f32(gen, rows, k, n, sizes, what) -> dict:
@@ -5393,7 +5450,7 @@ def check_gmm_f32(gen, rows, k, n, sizes, what) -> dict:
     used = int(sizes.sum())
     ok = (f32.dtype == torch.float32 and bool((err <= GMM_TOL * exact.abs().max()).all())
           and torch.equal(f32.to(torch.bfloat16), bf16) and not f32[used:].any())
-    n_bytes, n_ops = gmm_work(rows, k, n, sizes.cpu(), 2)
+    n_bytes, n_ops = gmm_ops.work(rows, k, n, sizes.cpu(), 2)[:2]
     row = {"what": what, "rows": rows, "K": k, "N": n, "variant": want,
            "max_abs_err": err.max().item(), "max_ref": exact.abs().max().item(), "ok": ok,
            "ms_f32": cuda_ms(lambda i: grouped_matmul(x, w, sizes, out_dtype=torch.float32), 1),
@@ -5427,14 +5484,15 @@ def phase_mesh_families() -> dict:
     its plain version with the variant it launched, and timed beside its
     bound. Then the grouped forward's f32 output on its own at the (1, 4)
     and (2, 4) shard shapes of deepseek-moe-16b's K-split products.
-    Returns the largest error by kernel."""
+    Returns the largest error by kernel and each family's sharded runs as
+    ``_card_run`` gives them (phase 20's reference)."""
     t0 = time.perf_counter()
     out = {"launches": {}, "rows": []}
-    errs = {}
+    errs, cards = {}, {}
     for arch in FAMILY_ARCHS:
         ta = time.perf_counter()
         rec = _LaunchRecorder()
-        out["launches"][arch] = _family_runs(arch, rec)
+        out["launches"][arch], cards[arch] = _family_runs(arch, rec)
         runs = time.perf_counter() - ta
         rows = [_check_family_launch(r) for r in rec.seen.values()]
         del rec
@@ -5474,7 +5532,55 @@ def phase_mesh_families() -> dict:
     RESULTS["families"] = out
     print(f"[families] phase 19 took {out['wall_s']:.1f} s ({len(out['rows'])} distinct "
           "launches)", flush=True)
-    return errs
+    return errs, cards
+
+
+def phase_meta_families(cards) -> None:
+    """Phase 20: phase 19's sharded runs accounted on the meta device, the
+    dry-run's accounting (``launch/dryrun.py``, ``launch/accounting.py``),
+    and held to the card's (``_meta_family_runs``): launches by kernel and
+    variant and the collectives exactly, the peak bytes per rank within
+    FAMILY_PEAK_GAP and the temp alone within FAMILY_TEMP_GAP. Also holds
+    the meta branch's stand-ins for what a kernel library answers
+    (``ssm_scan.ops.MAX_GROUP``, ``slstm.ops.part_floats``) to the
+    libraries built here."""
+    t0 = time.perf_counter()
+    lib = ssm_ops._bwd_lib()
+    for chunk in ssm_ops.CHUNKS:
+        for n in ssm_ops.STATE_DIMS:
+            check(ssm_ops.MAX_GROUP.get((chunk, n), 8) == lib.ssm_scan_bwd_max_group(chunk, n),
+                  f"ssm_scan.ops.MAX_GROUP disagrees with the library at chunk {chunk}, N {n}")
+    slib = slstm_ops._bwd_lib()
+    for d in (16, 32, 64, 96, 128, 192):
+        check(slstm_ops.part_floats(d) == slib.slstm_bwd_part_floats(d),
+              f"slstm.ops.part_floats({d}) disagrees with the library")
+    rows = []
+    for arch, by_run in cards.items():
+        ta = time.perf_counter()
+        got = _meta_family_runs(arch, by_run)
+        rows += got
+        gaps = [r["peak_gap"] for r in got]
+        temps = [r["temp_gap"] for r in got]
+        print(f"[meta] {arch}: {len(got)} runs accounted on meta in "
+              f"{time.perf_counter() - ta:.1f} s; launches by kernel and variant and collectives "
+              f"(up to {max(r['collectives'] for r in got)} a run) equal the card's in "
+              f"{sum(r['launches'] == r['card_launches'] for r in got)} and "
+              f"{sum(r['collectives'] == r['card_collectives'] for r in got)} of them; peak gaps "
+              f"{min(gaps):+.4f} to {max(gaps):+.4f}, temp gaps {min(temps):+.4f} to "
+              f"{max(temps):+.4f}", flush=True)
+    for r in rows:
+        print(f"[meta] {r['arch']} {tuple(r['mesh'])} {r['strategy']} {r['mode']}: peak "
+              f"{r['peak_bytes'] / 2**20:.1f} MiB meta, {r['card_peak_bytes'] / 2**20:.1f} MiB "
+              f"card (arguments {r['args_bytes'] / 2**20:.1f} MiB): gap {r['peak_gap']:+.4f}; "
+              f"temp {r['temp_bytes'] / 2**20:.2f} MiB meta, {r['card_temp_bytes'] / 2**20:.2f} "
+              f"MiB card: gap {r['temp_gap']:+.4f}", flush=True)
+    wall = time.perf_counter() - t0
+    RESULTS["meta_families"] = {"rows": rows, "wall_s": wall}
+    bad = [r for r in rows if not r["ok"]]
+    check(not bad, f"the meta accounting disagrees with the card in {len(bad)} runs: {bad[:3]}")
+    print(f"[meta] phase 20 took {wall:.1f} s: {len(rows)} runs, every launch by variant and "
+          f"collective equal to the card's, peak bytes within {FAMILY_PEAK_GAP:.0%}, temp within "
+          f"{FAMILY_TEMP_GAP:.0%}", flush=True)
 
 
 def timed(phase, *args):
@@ -5487,7 +5593,12 @@ def timed(phase, *args):
     return out
 
 
-ONLY = {"front-door": phase_front_door, "families": phase_mesh_families}
+def phase_families_and_meta():
+    """Phases 19 and 20 together (``--only families``)."""
+    timed(phase_meta_families, timed(phase_mesh_families)[1])
+
+
+ONLY = {"front-door": phase_front_door, "families": phase_families_and_meta}
 
 
 def main(argv=None) -> int:
@@ -5497,7 +5608,7 @@ def main(argv=None) -> int:
                     help="only time every dos_matmul tiling at the main paths' shapes, and stop")
     ap.add_argument("--only", metavar="PHASES",
                     help="only phases 1-2 and these, comma-separated (front-door: 11, families: "
-                         "19), and stop (no result line)")
+                         "19 and 20), and stop (no result line)")
     args = ap.parse_args(argv)
     details = args.details
     t0 = time.perf_counter()
@@ -5598,7 +5709,8 @@ def main(argv=None) -> int:
     timed(phase_vlm_mixed_dtype)
     timed(phase_mesh)  # phase 17
     parallel_counts, parallel_err = timed(phase_parallel)  # phase 18
-    family_err = timed(phase_mesh_families)  # phase 19
+    family_err, family_cards = timed(phase_mesh_families)  # phase 19
+    timed(phase_meta_families, family_cards)  # phase 20
     counts.update({f"phase 18 {k}": c for k, c in parallel_counts.items()})
 
     replaces = {

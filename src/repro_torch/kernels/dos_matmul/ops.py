@@ -23,7 +23,10 @@ TPU facts and have no counterpart: the kernels mask ragged edges
 themselves, so every shape goes through one of them.
 
 ``dos_matmul.launches`` counts the kernel launches of this process and
-``dos_matmul.variants`` counts them by variant.
+``dos_matmul.variants`` counts them by variant. Meta tensors (the
+dry-run's accounting, ``kernels/_meta.py``) are planned as if on a card
+of ``N_SM`` SMs and charged ``work`` with their variant; they launch
+nothing, so these counters do not move.
 
 Training: when an operand requires grad, a CUDA call runs through an
 autograd ``Function`` whose backward launches the same kernel twice,
@@ -43,9 +46,10 @@ from typing import NamedTuple
 import torch
 
 from .. import _build
+from .._meta import Work, aligned16, charge
 from .ref import matmul_ref
 
-__all__ = ["Plan", "VARIANTS", "dos_matmul", "plan"]
+__all__ = ["Plan", "VARIANTS", "dos_matmul", "plan", "work"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 VARIANTS = ("skinny", "wgmma", "general", "f32")
@@ -154,8 +158,19 @@ class _Launch(ctypes.Structure):
     ]
 
 
+def work(m: int, k: int, n: int, es: int, out_es: int | None = None) -> Work:
+    """One launch's work: A (m, k) and B (k, n) of ``es`` bytes an entry
+    read once, C written once (``out_es`` bytes an entry, default
+    ``es``), 2 m k n operations (the plain version's FLOPs too)."""
+    out_es = es if out_es is None else out_es
+    return Work((m * k + k * n) * es + m * n * out_es, 2.0 * m * k * n, 2.0 * m * k * n)
+
+
 @functools.lru_cache(maxsize=None)
-def _sm_count(device_index: int) -> int:
+def _sm_count(device_index: int | None) -> int:
+    """The card's SMs; ``None`` (a meta tensor): an H100 SXM's."""
+    if device_index is None:
+        return N_SM
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
@@ -224,8 +239,9 @@ class _DosMatmul(torch.autograd.Function):
 
 
 def _launch_kernel(a: torch.Tensor, b: torch.Tensor, out_dtype) -> torch.Tensor:
-    """One launch of the kernel on CUDA operands (the wrapper's body)."""
-    if a.device.type != "cuda" or b.device != a.device:
+    """One launch of the kernel on CUDA operands (the wrapper's body), or
+    its charge on meta operands."""
+    if a.device.type not in ("cuda", "meta") or b.device != a.device:
         raise ValueError(f"dos_matmul: operands on {a.device} and {b.device}")
     if b.dim() != 2 or a.shape[-1] != b.shape[0]:
         raise ValueError(f"dos_matmul: shapes {tuple(a.shape)} @ {tuple(b.shape)}")
@@ -248,8 +264,12 @@ def _launch_kernel(a: torch.Tensor, b: torch.Tensor, out_dtype) -> torch.Tensor:
     m = a.numel() // k if k else math.prod(lead)
     out = torch.empty((*lead, n), dtype=out_dtype, device=a.device)
     if m and n:
-        pa, pb, dev = a.data_ptr(), b.data_ptr(), a.device.index
-        variant, args = _launch(m, n, k, sbk, sbn, a.dtype, out_dtype, (pa | pb) % 16 == 0, dev)
+        dev = a.device.index
+        variant, args = _launch(m, n, k, sbk, sbn, a.dtype, out_dtype, aligned16(a, b), dev)
+        if a.device.type == "meta":
+            charge("dos_matmul", variant, work(m, k, n, a.element_size(), out.element_size()))
+            return out
+        pa, pb = a.data_ptr(), b.data_ptr()
         lib = _lib()
         err = lib.dos_matmul_launch(pa, pb, out.data_ptr(), args,
                                     torch._C._cuda_getCurrentRawStream(dev))

@@ -29,6 +29,12 @@ plain ``attention_fwd_ref`` and ``attention_bwd_ref``. Without grad
 (serving, calibration) nothing changes: no lse is stored, and the
 launches are those of the forward.
 
+Meta tensors (the dry-run's accounting, ``kernels/_meta.py``) take the
+CUDA branch up to the launch: planned and charged ``work`` (or
+``bwd_work``) with their variant, counted by the accounting and not in
+the launch counters. The charged FLOPs are the plain versions' dense S = QK^T
+and PV (and the backward's five products), whatever the mask hides.
+
 ``decode_attention``: one query token against a KV cache. It is not a
 Pallas kernel in the JAX package either (a batched GEMV that XLA
 compiles); here it stays plain PyTorch on every device.
@@ -42,10 +48,11 @@ import math
 import torch
 
 from .. import _build
+from .._meta import Work, aligned16, charge, einsum_flops, kernel_device, visible_pairs
 from .ref import attention_bwd_ref, attention_fwd_ref, attention_ref
 
 __all__ = ["HEAD_DIMS", "VARIANTS", "flash_attention", "flash_attention_bwd", "decode_attention",
-           "plan"]
+           "plan", "work", "bwd_work"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 80, 128, 256)  # built for both variants
@@ -104,11 +111,37 @@ def plan(dtype: torch.dtype, head_dim: int, strides, aligned: bool) -> str:
     return "fma"
 
 
+def work(b, sq, skv, h, kvh, d, es, causal=True, window=None, q_offset=0,
+         with_lse=False) -> Work:
+    """One forward launch's work: q, k, v read once and o (and the f32
+    lse) written once, 4 D operations per visible (query, key) pair and
+    query head; the plain version's FLOPs are its two dense einsums, 4 B H
+    Sq Skv D."""
+    pairs = visible_pairs(sq, skv, causal, window, q_offset)
+    full = b * h * sq * skv * d
+    return Work((2 * b * sq * h + 2 * b * skv * kvh) * d * es + 4 * b * h * sq * with_lse,
+                4.0 * b * h * d * pairs, einsum_flops((d, full), (skv, full)))
+
+
+def bwd_work(b, sq, skv, h, kvh, d, es, causal=True, window=None, q_offset=0) -> Work:
+    """One backward launch's work: q, k, v, o, dO and lse read once; dq,
+    dk, dv written once; S, dP, dV, dQ and dK, 2 D operations each per
+    visible (query, key) pair and query head, and 2 D per key of dV for a
+    row that sees no key. The plain version's FLOPs are its five dense
+    einsums, 10 B H Sq Skv D."""
+    pairs = visible_pairs(sq, skv, causal, window, q_offset)
+    dead = visible_pairs(sq, skv, causal, window, q_offset, dead=True)
+    full, g = b * h * sq * skv * d, h // kvh
+    return Work((4 * b * sq * h + 4 * b * skv * kvh) * d * es + 4 * b * h * sq,
+                float(b * h * d * (10 * pairs + 2 * skv * dead)),
+                einsum_flops((d, full), (sq * g, full), (d, full), (skv, full), (sq * g, full)))
+
+
 def _check_qkv(q, k, v, what):
     """Device, dtype and shape checks of a kernel call; returns the head dim."""
     b, _, h, d = q.shape
     _, _, kvh, _ = k.shape
-    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
+    if not kernel_device(q) or k.device != q.device or v.device != q.device:
         raise ValueError(f"{what}: tensors on {q.device}, {k.device}, {v.device}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"{what} kernel takes q, k, v of one dtype; got "
@@ -127,14 +160,17 @@ def _forward(q, k, v, *, causal, window, scale, q_offset, with_lse):
     b, sq, h, d = q.shape
     _, skv, kvh, _ = k.shape
     _check_qkv(q, k, v, "flash_attention")
-    variant = plan(q.dtype, d, (q.stride(), k.stride(), v.stride()),
-                   (q.data_ptr() | k.data_ptr() | v.data_ptr()) % 16 == 0)
+    variant = plan(q.dtype, d, (q.stride(), k.stride(), v.stride()), aligned16(q, k, v))
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if with_lse else None
     if b and sq and h:
         if skv == 0:
             raise ValueError("flash_attention: empty key sequence")
+        if q.device.type == "meta":
+            charge("flash_attention", variant, work(b, sq, skv, h, kvh, d, q.element_size(),
+                                                    causal, window, q_offset, with_lse))
+            return o, lse
         lib = _lib()
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -187,7 +223,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None,
     gives with f32 image embeddings in a bf16 model) run the kernel in
     their promoted dtype and return q's, as the plain version does.
     """
-    if q.device.type == "cuda" and not q.dtype == k.dtype == v.dtype:
+    if kernel_device(q) and not q.dtype == k.dtype == v.dtype:
         dt = torch.promote_types(torch.promote_types(q.dtype, k.dtype), v.dtype)
         return flash_attention(q.to(dt), k.to(dt), v.to(dt), causal=causal, window=window,
                                scale=scale, q_offset=q_offset).to(q.dtype)
@@ -232,8 +268,7 @@ def _backward(q, k, v, o, do, lse, *, causal, window, scale, q_offset, force_fma
                          f"{lse.device}; want ({b}, {h}, {sq}) float32")
     do = do.to(q.dtype)
     ins = [t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v, o, do)]
-    variant = plan(q.dtype, d, tuple(t.stride() for t in ins),
-                   all(t.data_ptr() % 16 == 0 for t in ins))
+    variant = plan(q.dtype, d, tuple(t.stride() for t in ins), aligned16(*ins))
     if force_fma:
         variant = "fma"
     lse = lse.contiguous()
@@ -242,6 +277,11 @@ def _backward(q, k, v, o, do, lse, *, causal, window, scale, q_offset, force_fma
         if skv == 0:
             raise ValueError("flash_attention_bwd: empty key sequence")
         dsum = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+        if q.device.type == "meta":
+            charge("flash_attention_bwd", variant, bwd_work(b, sq, skv, h, kvh, d,
+                                                            q.element_size(), causal, window,
+                                                            q_offset))
+            return tuple(outs)
         strides = (ctypes.c_longlong * 24)(*[x for t in ins + outs for x in t.stride()[:3]])
         lib = _bwd_lib()
         err = lib.flash_attention_bwd_launch(

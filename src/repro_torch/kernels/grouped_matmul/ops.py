@@ -40,6 +40,12 @@ forward's rule). The private ``_launch_forward(..., force=)`` and
 says, to check and time every variant on the same inputs. ``.launches``
 counts each op's launches and ``.variants`` counts them by variant.
 
+Meta tensors (the dry-run's accounting, ``kernels/_meta.py``) take the
+CUDA branch up to the launch: planned and charged ``work`` /
+``dw_work`` with their variant (counted by the accounting, not in the
+launch counters), with every row in a group (the sizes are not read:
+``2 R K N``, the dense form of ``ragged_dot``).
+
 ``tile_map`` is the ``fma`` forward kernel's grid in plain Python,
 ``tile_list`` the ``wgmma`` forward's list of tiles and ``dw_stages`` the
 ``wgmma`` dW's row stages with their masks
@@ -60,10 +66,11 @@ from typing import NamedTuple
 import torch
 
 from .. import _build
+from .._meta import Work, aligned16, charge, kernel_device
 from .ref import group_bounds, grouped_matmul_dw_ref, grouped_matmul_ref
 
-__all__ = ["Plan", "VARIANTS", "dw_plan", "dw_stages", "grouped_matmul", "grouped_matmul_dw",
-           "plan", "tile_list", "tile_map"]
+__all__ = ["Plan", "VARIANTS", "dw_plan", "dw_stages", "dw_work", "grouped_matmul",
+           "grouped_matmul_dw", "plan", "tile_list", "tile_map", "work"]
 
 VARIANTS = ("wgmma", "fma")
 _CODES = {"fma": 0, "wgmma": 1}
@@ -100,6 +107,36 @@ def dw_plan(dtype: torch.dtype, aligned: bool, n_groups: int = 1) -> str:
     """dW's variant, by the forward's rule; ``aligned``: TMA can describe
     x and dy."""
     return "wgmma" if _wgmma(dtype, aligned, n_groups) else "fma"
+
+
+def _used(rows: int, sizes, n_groups):
+    """(rows in groups, non-empty groups) of ``sizes`` (a sequence or a CPU
+    tensor), or every row and group where ``sizes`` is None."""
+    if sizes is None:
+        return rows, n_groups
+    sz = [int(v) for v in torch.as_tensor(sizes).tolist()]
+    return min(sum(sz), rows), sum(v > 0 for v in sz)
+
+
+def work(rows, k, n, sizes, es, out_es=None, n_groups=None) -> Work:
+    """One forward launch's work: the rows in groups and the weights of the
+    non-empty groups read once, the whole (rows, n) output written once
+    (``out_es`` bytes an entry, default ``es``), 2 K N operations per row in
+    a group (the plain version's FLOPs too). ``sizes`` None (a meta call,
+    which reads no size) counts every row in a group of ``n_groups``."""
+    used, active = _used(rows, sizes, n_groups)
+    out_es = es if out_es is None else out_es
+    return Work(es * (used * k + active * k * n) + out_es * rows * n, 2.0 * used * k * n,
+                2.0 * used * k * n)
+
+
+def dw_work(rows, k, n, sizes, es, out_es=4, n_groups=None) -> Work:
+    """One weight-gradient launch's work: the rows in groups of x and dy
+    read once, the (G, K, N) gradient written once (``out_es`` bytes an
+    entry), 2 K N operations per row in a group; ``sizes`` as ``work``'s."""
+    used, _ = _used(rows, sizes, n_groups)
+    g = n_groups if sizes is None else len(sizes)
+    return Work(es * used * (k + n) + out_es * g * k * n, 2.0 * used * k * n, 2.0 * used * k * n)
 
 
 def tile_map(group_sizes, rows: int, bm: int) -> list[tuple[int, int, int]]:
@@ -159,7 +196,7 @@ def _rows16(t: torch.Tensor, inner: int, outer: list[int]) -> bool:
     """t's unit stride on axis ``inner``, the strides of ``outer`` multiples
     of 8 elements, the base on 16 bytes."""
     return (t.stride(inner) == 1 and all(t.stride(a) % 8 == 0 or t.shape[a] == 1 for a in outer)
-            and t.data_ptr() % 16 == 0)
+            and aligned16(t))
 
 
 def _tma(t: torch.Tensor, inner: int, outer: list[int]) -> bool:
@@ -211,7 +248,7 @@ def _check_sizes(group_sizes, n_groups, device, what):
 
 
 def _check_operands(a, b, what):
-    if a.device.type != "cuda" or b.device != a.device:
+    if not kernel_device(a) or b.device != a.device:
         raise ValueError(f"{what}: operands on {a.device} and {b.device}")
     if a.dtype != b.dtype or a.dtype not in _DTYPES:
         raise TypeError(f"{what} kernel takes f32 or bf16 operands of one dtype; got "
@@ -247,6 +284,10 @@ def _launch_forward(x, w, group_sizes, force=None, bm=0, out_dtype=None):
     _check_force(force, x.dtype, tma and g <= WGMMA_MAX_GROUPS, "grouped_matmul")
     p = _forced(force, r, g) if force else plan(r, g, x.dtype, tma)
     p = p._replace(bm=bm or p.bm)
+    if x.device.type == "meta":
+        charge("grouped_matmul", p.variant, work(r, k, n, None, x.element_size(),
+                                                 out.element_size(), g))
+        return out
     dev = x.device.index
     args = _Args(r, k, n, g, *x.stride(), *w.stride(), _DTYPES[x.dtype], _CODES[p.variant], p.bm,
                  _DTYPES[out_dtype])
@@ -280,6 +321,10 @@ def _launch_dw(x, dy, group_sizes, force=None, out_dtype=torch.float32):
     tma = _tma(x, 1, [0]) and _tma(dy, 1, [0]) and n * dw.element_size() % 16 == 0
     _check_force(force, x.dtype, tma and n_groups <= WGMMA_MAX_GROUPS, "grouped_matmul_dw")
     variant = force or dw_plan(x.dtype, tma, n_groups)
+    if x.device.type == "meta":
+        charge("grouped_matmul_dw", variant, dw_work(r, k, n, None, x.element_size(),
+                                                     dw.element_size(), n_groups))
+        return dw
     dev = x.device.index
     args = _DwArgs(r, k, n, n_groups, *x.stride(), *dy.stride(), _DTYPES[x.dtype],
                    _CODES[variant], _DTYPES[out_dtype])

@@ -27,6 +27,10 @@ CPU, and forms the gradient of r outside the kernel with one
 ``torch.matmul`` per head (``slstm_dr``). ``_forward`` and ``_backward``
 take a private ``force_fma`` that launches ``fma`` whatever ``plan``
 says, so that a measurement can time both variants on the same inputs.
+Meta tensors (the dry-run's accounting, ``kernels/_meta.py``) take the
+CUDA branch up to the launch: planned and charged ``work``
+(``bwd_work``) with their variant, counted by the accounting and not in
+the launch counters.
 """
 
 from __future__ import annotations
@@ -36,9 +40,11 @@ import ctypes
 import torch
 
 from .. import _build
+from .._meta import Work, aligned16, charge, kernel_device
 from .ref import slstm_dr, slstm_scan_bwd_ref, slstm_scan_ref
 
-__all__ = ["REG_MAX_D", "VARIANTS", "plan", "slstm_scan", "slstm_scan_bwd"]
+__all__ = ["REG_MAX_D", "VARIANTS", "bwd_work", "part_floats", "plan", "slstm_scan",
+           "slstm_scan_bwd", "work"]
 
 VARIANTS = ("reg", "fma")
 _CODES = {"fma": 0, "reg": 1}
@@ -82,10 +88,42 @@ def plan(d: int) -> str:
     return "reg" if d % 16 == 0 and 16 <= d <= REG_MAX_D else "fma"
 
 
+def work(b, s, h, d, store=False) -> Work:
+    """One forward launch's work. Bytes: z_in, o_in, i_in, f_in, r and
+    the initial state read once; ys and the final state written once (with
+    ``store`` each step's c, n, z too). Operations: 2 d^2 for the matvec
+    and 8 per element for the gates, per (b, h, step). FLOPs: the plain
+    version's matvec, 2 d^2 per (b, h, step)."""
+    e = h * d
+    n_bytes = 4 * (3 * b * s * e + 2 * b * s * h + h * d * d + 2 * (2 * b * e + b * h)
+                   + ((2 * b * s * e + b * s * h) if store else 0))
+    return Work(n_bytes, float(b * s * h * (2 * d * d + 8 * d)), 2.0 * b * s * h * d * d)
+
+
+def bwd_work(b, s, h, d) -> Work:
+    """One backward launch's work. Bytes: i_in, f_in, n_all, o_in, c_all,
+    z_all, dys, r and the initial c, n read once; dz_in, do_in, di_in,
+    df_in and the initial state's gradients written once. Operations: 2
+    d^2 for the transposed matvec and 20 per element for the gates'
+    gradients. FLOPs: the plain version's transposed matvec, 2 d^2 per
+    (b, h, step)."""
+    e = h * d
+    n_bytes = 4 * (3 * b * s * h + 4 * b * s * e + h * d * d + b * e + b * h
+                   + 2 * b * s * e + 2 * b * s * h + 2 * b * e + b * h)
+    return Work(n_bytes, float(b * s * h * (2 * d * d + 20 * d)), 2.0 * b * s * h * d * d)
+
+
+def part_floats(d: int) -> int:
+    """``slstm_bwd_part_floats`` of ``csrc/slstm_bwd.cu`` (CPT 2, KS 4): the
+    reg backward's scratch per (b, h, step), for meta tensors (chip_smoke.py
+    holds it to the library's)."""
+    return 3 * (d // 2 * 4 // 32)
+
+
 def _aligned(t):
     """``t``, or a copy of it whose base is 16-byte aligned (the reg
     variants copy rows of it with 16-byte cp.async)."""
-    return t if t.data_ptr() % 16 == 0 else t.clone()
+    return t if aligned16(t) else t.clone()
 
 
 def _shapes(z_in, i_in, r):
@@ -100,7 +138,7 @@ def _shapes(z_in, i_in, r):
 def _on_card(what, *ts):
     """f32, contiguous copies (or the tensors themselves) on one card."""
     dev = ts[0].device
-    if dev.type != "cuda" or any(t.device != dev for t in ts if t is not None):
+    if not kernel_device(ts[0]) or any(t.device != dev for t in ts if t is not None):
         raise ValueError(f"{what}: tensors on {[None if t is None else t.device for t in ts]}")
     return [None if t is None else t.float().contiguous() for t in ts]
 
@@ -124,6 +162,9 @@ def _forward(z_in, i_in, f_in, o_in, r, c0, n0, h0, store=False, force_fma=False
     if not (b and s and h and d):  # nothing to walk: the state as it was
         return ys, c0.clone(), n0.clone(), h0.clone(), saved
     c, n, hl = torch.empty_like(c0), torch.empty_like(n0), torch.empty_like(h0)
+    if dev.type == "meta":
+        charge("slstm_scan", variant, work(b, s, h, d, store))
+        return ys, c, n, hl, saved
     lib = _lib()
     err = lib.slstm_scan_launch(
         _ptr(z_in), _ptr(i_in), _ptr(f_in), _ptr(o_in), _ptr(r), _ptr(c0), _ptr(n0), _ptr(h0),
@@ -208,12 +249,16 @@ def _backward(i_in, f_in, o_in, r, c0, n0, saved, dys, dc=None, dn=None, dh=None
     dz_in, do_in = torch.empty_like(dys), torch.empty_like(dys)
     di_in, df_in = torch.empty_like(i_in), torch.empty_like(f_in)
     dc0, dn0, dh0 = torch.empty_like(c0), torch.empty_like(n0), torch.empty_like(c0)
-    lib = _bwd_lib()
+    meta = dys.device.type == "meta"
+    lib = None if meta else _bwd_lib()
     part = None
     if variant == "reg":
         c_all, z_all, o_in, dys = (_aligned(t) for t in (c_all, z_all, o_in, dys))
-        part = torch.empty(b * h * s * lib.slstm_bwd_part_floats(d), dtype=torch.float32,
-                           device=dys.device)
+        part = torch.empty(b * h * s * (part_floats(d) if meta else lib.slstm_bwd_part_floats(d)),
+                           dtype=torch.float32, device=dys.device)
+    if meta:
+        charge("slstm_scan_bwd", variant, bwd_work(b, s, h, d))
+        return dz_in, di_in, df_in, do_in, dc0, dn0, dh0
     err = lib.slstm_scan_bwd_launch(
         *(_ptr(t) for t in (i_in, f_in, o_in, r, c0, n0, c_all, n_all, z_all, dys, dc, dn, dh,
                             dz_in, di_in, df_in, do_in, dc0, dn0, dh0, part)),

@@ -22,7 +22,10 @@ kernel before the launch, from dtype, state dim, chunk and layout alone:
   CUDA-core kernel.
 
 ``ssm_scan.launches`` counts the kernel launches of this process and
-``ssm_scan.variants`` counts them by variant.
+``ssm_scan.variants`` counts them by variant. Meta tensors (the
+dry-run's accounting, ``kernels/_meta.py``) take the CUDA branch up to
+the launch: planned and charged ``work`` (``bwd_work``) with their
+variant, counted by the accounting and not in these counters.
 
 B and C come as (Bt, S, H, N), or as (Bt, S, 1, N): one B and C for
 every head (Mamba2's layout), which the wrapper expands over the heads
@@ -52,10 +55,11 @@ import ctypes
 import torch
 
 from .. import _build
+from .._meta import Work, aligned16, charge, einsum_flops, kernel_device
 from .ref import _chunks, ssm_scan_bwd_ref
 
-__all__ = ["CHUNK", "CHUNKS", "STATE_DIMS", "VARIANTS", "head_group", "plan", "ssm_scan",
-           "ssm_scan_bwd", "ssm_scan_chunked"]
+__all__ = ["CHUNK", "CHUNKS", "STATE_DIMS", "VARIANTS", "MAX_GROUP", "bwd_work", "head_group",
+           "plan", "ssm_scan", "ssm_scan_bwd", "ssm_scan_chunked", "work"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 CHUNKS = (32, 64)  # chunk lengths the kernel is built for
@@ -64,6 +68,10 @@ STATE_DIMS = (16, 32, 64, 96)  # N the kernels are built for (reduced, calibrati
 # mLSTM); P is any
 VARIANTS = ("mma", "fma")
 _CODES = {"fma": 0, "mma": 1}
+# (chunk, N) whose heads' dB, dC slices do not fit a cluster's shared memory:
+# the backward's ``ssm_scan_bwd_max_group``, 8 elsewhere (for meta tensors;
+# chip_smoke.py holds it to the library's)
+MAX_GROUP = {(64, 96): 1}
 _LIB = None
 _BWD_LIB = None
 
@@ -120,6 +128,57 @@ def plan(dtype: torch.dtype, n: int, chunk: int, p: int, strides, aligned: bool)
     return "fma"
 
 
+def work(bt, s, h, p, n, es, shared_bc, chunk=CHUNK) -> Work:
+    """One forward launch's work. Bytes: each input read once (B and C
+    once per step when broadcast over the heads), y and the f32 state
+    written once. Operations: per chunk of t steps the lower triangle of
+    C B^T and of G U, C S_prev (not in the first chunk, whose S_prev is
+    zero) and the state update. FLOPs: the plain ``ssm_scan_chunked``'s
+    four einsums over whole chunks of T = min(chunk, S) steps
+    (``einsum_flops``: none for one that contracts a dim of 1)."""
+    nb = 1 if shared_bc else h
+    n_bytes = (2 * bt * s * h * p * es + bt * s * h * 4 + 2 * bt * s * nb * n * es
+               + bt * h * n * p * 4)
+    ops = 0
+    for c0 in range(0, s, chunk):
+        t = min(chunk, s - c0)
+        tri = t * (t + 1) // 2
+        ops += 2 * (tri * n + tri * p + t * n * p * (2 if c0 else 1))
+    t = min(chunk, s)
+    u = bt * (-(-s // t) if s else 0) * h  # (batch, chunk, head) units of whole chunks
+    flops = einsum_flops((t, u * t * n * p), (n, u * t * t * n), (t, u * t * t * p),
+                         (n, u * t * n * p))  # S_inc, C B^T, G U, C S_prev
+    return Work(n_bytes, float(ops * bt * h), flops)
+
+
+def bwd_work(bt, s, h, p, n, es, shared_bc, chunk=CHUNK, with_dstate=False) -> Work:
+    """One backward launch's work. Bytes: u, dy, ld, B, C, the forward's
+    states and d_state read once; du, dld, dB, dC written once (B and C
+    and their gradients once per step when shared by the heads).
+    Operations: per chunk of t steps the lower triangles of C B^T, dy
+    u^T, G dy, A C and A B, and the N x P products S_c dy and the dS update
+    (not in the first chunk, whose S_c is zero and whose dS nothing
+    reads), and B dS, dS u and <dS, S_c> (not in the last chunk when
+    d_state is zero). FLOPs: the plain ``ssm_scan_bwd_ref``'s ten einsums
+    over whole chunks of T = min(chunk, S) steps (``einsum_flops``)."""
+    nb = 1 if shared_bc else h
+    nc = -(-s // chunk)
+    n_bytes = (3 * bt * s * h * p * es + 2 * bt * s * h * 4 + 4 * bt * s * nb * n * es
+               + bt * h * nc * n * p * 4 + (bt * h * n * p * 4 if with_dstate else 0))
+    ops = 0
+    for c in range(nc):
+        t = min(chunk, s - c * chunk)
+        ops += t * (t + 1) // 2 * (3 * n + 2 * p) + (2 * t * n * p if c else 0)
+        if c < nc - 1 or with_dstate:
+            ops += 2 * t * n * p + (n * p if c else 0)
+    t = min(chunk, s)
+    u = bt * (-(-s // t) if s else 0) * h
+    tnp, ttn, ttp = u * t * n * p, u * t * t * n, u * t * t * p
+    flops = einsum_flops((t, tnp), (t, tnp), (n, ttn), (p, ttp), (t, ttp), (n, tnp), (p, tnp),
+                         (p, tnp), (t, ttn), (t, ttn))  # the ten products, in ref.py's order
+    return Work(n_bytes, float(2 * ops * bt * h), flops)
+
+
 def head_group(h: int, shared: bool, variant: str, most: int = 8) -> int:
     """The heads over which the backward kernel sums dB and dC on chip:
     ``mma`` with B and C shared by the heads runs a thread-block cluster
@@ -158,7 +217,7 @@ def _check_inputs(u, ld, B, C, what):
     """Device, shape and dtype checks of a kernel call."""
     bt, s, h, p = u.shape
     n = B.shape[-1]
-    if u.device.type != "cuda" or any(t.device != u.device for t in (ld, B, C)):
+    if not kernel_device(u) or any(t.device != u.device for t in (ld, B, C)):
         raise ValueError(f"{what}: tensors on {u.device}, {ld.device}, {B.device}, {C.device}")
     if (tuple(ld.shape) != (bt, s, h) or tuple(B.shape) != (bt, s, h, n)
             or C.shape != B.shape):
@@ -178,8 +237,7 @@ def _forward(u, ld, B, C, chunk, with_states=False):
     bt, s, h, p = u.shape
     n = B.shape[-1]
     _check_inputs(u, ld, B, C, "ssm_scan")
-    variant = plan(u.dtype, n, chunk, p, (u.stride(), B.stride(), C.stride()),
-                   (u.data_ptr() | B.data_ptr() | C.data_ptr()) % 16 == 0)
+    variant = plan(u.dtype, n, chunk, p, (u.stride(), B.stride(), C.stride()), aligned16(u, B, C))
     ld = ld.float()
     y = torch.empty((bt, s, h, p), dtype=u.dtype, device=u.device)
     launch = bool(bt and s and h and p)
@@ -188,7 +246,10 @@ def _forward(u, ld, B, C, chunk, with_states=False):
                                                      device=u.device)
     states = (torch.empty((bt, h, -(-s // chunk), n, p), dtype=torch.float32, device=u.device)
               if with_states else None)
-    if launch:
+    if launch and u.device.type == "meta":
+        charge("ssm_scan", variant, work(bt, s, h, p, n, u.element_size(), B.stride(2) == 0,
+                                         chunk))
+    elif launch:
         lib = _lib()
         err = lib.ssm_scan_launch(
             u.data_ptr(), ld.data_ptr(), B.data_ptr(), C.data_ptr(), y.data_ptr(),
@@ -314,8 +375,10 @@ def _backward(u, ld, B, C, dy, d_state, states, chunk, shared=False, force_fma=F
     dy, ld = dy.to(u.dtype), ld.float()
     variant = "fma" if force_fma else plan(
         u.dtype, n, chunk, p, (u.stride(), dy.stride(), B.stride(), C.stride()),
-        (u.data_ptr() | dy.data_ptr() | B.data_ptr() | C.data_ptr()) % 16 == 0)
-    group = (head_group(h, shared, variant, _bwd_lib().ssm_scan_bwd_max_group(chunk, n))
+        aligned16(u, dy, B, C))
+    most = (MAX_GROUP.get((chunk, n), 8) if u.device.type == "meta"
+            else _bwd_lib().ssm_scan_bwd_max_group(chunk, n))
+    group = (head_group(h, shared, variant, most)
              if shared and variant == "mma" and bt and s and p else 1)
     states = states.contiguous()
     d_state = None if d_state is None else d_state.float().contiguous()
@@ -329,18 +392,23 @@ def _backward(u, ld, B, C, dy, d_state, states, chunk, shared=False, force_fma=F
         dBC = dBC.sum(1)
         dBC = (dBC.sum(3, keepdim=True) if shared else dBC).to(grad_dtype)
         return du.zero_(), dld.sum(0), dBC[0], dBC[1]
-    strides = (ctypes.c_longlong * 19)(*u.stride(), *ld.stride(), *B.stride(), *C.stride(),
-                                       *dy.stride())
-    lib = _bwd_lib()
-    err = lib.ssm_scan_bwd_launch(
-        u.data_ptr(), ld.data_ptr(), B.data_ptr(), C.data_ptr(), dy.data_ptr(),
-        states.data_ptr(), None if d_state is None else d_state.data_ptr(), du.data_ptr(),
-        dld.data_ptr(), dBC[0].data_ptr(), dBC[1].data_ptr(), bt, s, h, p, n, strides, chunk,
-        _DTYPES[u.dtype], _CODES[variant], group, torch.cuda.current_stream(u.device).cuda_stream,
-    )
-    _build.check(lib, err, f"ssm_scan_bwd ({variant})")
-    ssm_scan_bwd.launches += 1
-    ssm_scan_bwd.variants[variant] += 1
+    if u.device.type == "meta":
+        charge("ssm_scan_bwd", variant, bwd_work(bt, s, h, p, n, u.element_size(), shared,
+                                                 chunk, d_state is not None))
+    else:
+        strides = (ctypes.c_longlong * 19)(*u.stride(), *ld.stride(), *B.stride(), *C.stride(),
+                                           *dy.stride())
+        lib = _bwd_lib()
+        err = lib.ssm_scan_bwd_launch(
+            u.data_ptr(), ld.data_ptr(), B.data_ptr(), C.data_ptr(), dy.data_ptr(),
+            states.data_ptr(), None if d_state is None else d_state.data_ptr(), du.data_ptr(),
+            dld.data_ptr(), dBC[0].data_ptr(), dBC[1].data_ptr(), bt, s, h, p, n, strides, chunk,
+            _DTYPES[u.dtype], _CODES[variant], group,
+            torch.cuda.current_stream(u.device).cuda_stream,
+        )
+        _build.check(lib, err, f"ssm_scan_bwd ({variant})")
+        ssm_scan_bwd.launches += 1
+        ssm_scan_bwd.variants[variant] += 1
     dld = dld[0] if npt == 1 else dld.sum(0)
     if group > 1:
         dBC = dBC.sum(1).unsqueeze(3)

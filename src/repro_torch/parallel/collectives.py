@@ -30,9 +30,27 @@ the partial sums here are f32 already).
 The pipeline's point-to-point handoffs (``send_recv``) and its loss
 ``broadcast`` act outside autograd: the GPipe schedule runs its own
 backward (``parallel/pipeline.py``).
+
+**Recording and accounting.** Inside ``recording()`` every collective
+this rank issues is appended to the yielded list as a ``Collective``:
+its op (XLA's names: all-reduce, all-gather, reduce-scatter,
+collective-permute, broadcast), the dtype and local shape of the tensor
+the layers hand it, and the group's rank count. It is recorded as the
+layers ask for it, so a reduce-scatter is one op and bf16 stays bf16
+whatever ``gloo`` puts on the wire. A ``MeshSpec`` of several ranks has
+no process group: a collective over it raises, except inside
+``accounting()`` (the dry-run, ``launch/dryrun.py``) and on meta
+tensors, where it records itself, allocates what NCCL's path allocates
+and moves nothing. What moves the bytes is ``_all_reduce``,
+``_all_gather`` and ``_reduce_scatter``, below the record, so a caller
+that stands in for the other ranks (``chip_smoke.py`` on a ``fake``
+group) replaces those and is still recorded.
 """
 
 from __future__ import annotations
+
+import contextlib
+from typing import NamedTuple
 
 import torch
 import torch.distributed as dist
@@ -42,7 +60,79 @@ from .axes import spec_axes
 
 __all__ = ["axis_group", "axis_index", "axis_size", "all_reduce", "all_reduce_max", "copy_to",
            "reduce_scatter", "all_gather", "split", "gather_params", "psum", "gather",
-           "local_slice", "shard_of", "gather_full", "send_recv", "broadcast"]
+           "local_slice", "shard_of", "gather_full", "send_recv", "broadcast", "Collective",
+           "recording", "accounting"]
+
+
+class Collective(NamedTuple):
+    """One collective as this rank issues it (``recording``)."""
+
+    op: str       # all-reduce, all-gather, reduce-scatter, collective-permute, broadcast
+    dtype: str    # the tensor's, as the layers hand it over ("bfloat16", "float32", ...)
+    shape: tuple  # this rank's tensor (a gather's input, a reduce-scatter's whole partial)
+    group: int    # ranks in the group
+
+    @property
+    def bytes(self) -> int:
+        n = getattr(torch, self.dtype).itemsize
+        for d in self.shape:
+            n *= d
+        return n
+
+    @property
+    def result_bytes(self) -> float:
+        """The result's bytes on this rank, as XLA's HLO shows them."""
+        g = self.group
+        return {"all-gather": self.bytes * g, "reduce-scatter": self.bytes / g}.get(
+            self.op, float(self.bytes))
+
+    @property
+    def wire_bytes(self) -> float:
+        """Ring bytes on the wire per rank, by ``analysis.roofline``'s factors
+        of the result's bytes (its docstring)."""
+        g = self.group
+        factor = {"all-reduce": 2.0 * (g - 1) / g, "all-gather": (g - 1) / g,
+                  "reduce-scatter": float(g - 1)}.get(self.op, 1.0)
+        return factor * self.result_bytes
+
+
+# The lists of the open recording() contexts and the count of open
+# accounting() ones: module-level, not context variables, since a backward
+# issues its collectives on the autograd engine's own thread.
+_LOGS: list = []
+_ACCOUNT = [0]
+
+
+@contextlib.contextmanager
+def recording():
+    """Yields a list to which every collective issued inside is appended
+    as a ``Collective``, in order (rank 0's view on a real or ``fake``
+    group; the dry-run's on a ``MeshSpec``)."""
+    log: list = []
+    _LOGS.append(log)
+    try:
+        yield log
+    finally:
+        _LOGS.remove(log)
+
+
+@contextlib.contextmanager
+def accounting():
+    """Inside, a collective over a ``MeshSpec`` of several ranks takes meta
+    tensors: it is recorded, allocates its result as NCCL's path does
+    (contiguous, in the tensor's own dtype) and moves nothing."""
+    _ACCOUNT[0] += 1
+    try:
+        yield
+    finally:
+        _ACCOUNT[0] -= 1
+
+
+def _note(op: str, x, n: int):
+    if _LOGS:
+        rec = Collective(op, str(x.dtype).split(".")[-1], tuple(x.shape), n)
+        for log in _LOGS:
+            log.append(rec)
 
 def axis_size(mesh, axes) -> int:
     """The rank count along ``axes`` (1 for none, whatever the mesh)."""
@@ -84,6 +174,18 @@ def axis_group(mesh, axes):
                               f"of {dist.get_world_size()} ranks")
 
 
+def _group(mesh, axes, x):
+    """The process group of a collective over ``axes``, or None under
+    ``accounting()`` on a ``MeshSpec`` (nothing to move)."""
+    if isinstance(mesh, MeshSpec):
+        if not _ACCOUNT[0] or x.device.type != "meta":
+            raise RuntimeError(f"a collective over axes {spec_axes(axes)} of the mesh "
+                               f"{axis_sizes(mesh)} has no process group: a MeshSpec of several "
+                               "ranks runs only under collectives.accounting(), on meta tensors")
+        return None
+    return axis_group(mesh, axes)
+
+
 def _wire(x):
     """The tensor a collective sends: contiguous, bf16/f16 as f32 on gloo."""
     if x.dtype in (torch.bfloat16, torch.float16) and x.device.type == "cpu":
@@ -91,11 +193,28 @@ def _wire(x):
     return x.contiguous()
 
 
-def _reduce(x, mesh, axes, op=dist.ReduceOp.SUM):
+# What moves the bytes (each takes the group that _group gave, never None).
+def _all_reduce(buf, op, group):
+    dist.all_reduce(buf, op=op, group=group)
+
+
+def _all_gather(parts, buf, group):
+    dist.all_gather(parts, buf, group=group)
+
+
+def _reduce_scatter(out, parts, group):
+    dist.reduce_scatter(out, parts, group=group)
+
+
+def _reduce(x, mesh, axes, op=dist.ReduceOp.SUM, note=True):
+    group = _group(mesh, axes, x)
+    if note:
+        _note("all-reduce", x, axis_size(mesh, axes))
     buf = _wire(x)
     if buf is x:
         buf = buf.clone()
-    dist.all_reduce(buf, op=op, group=axis_group(mesh, axes))
+    if group is not None:
+        _all_reduce(buf, op, group)
     return buf.to(x.dtype)
 
 
@@ -112,9 +231,12 @@ def _ordered(mesh, axes):
 def _gather(x, mesh, axes, dim):
     axes = _ordered(mesh, axes)
     n = axis_size(mesh, axes)
+    group = _group(mesh, axes, x)
+    _note("all-gather", x, n)
     buf = _wire(x)
     parts = [torch.empty_like(buf) for _ in range(n)]
-    dist.all_gather(parts, buf, group=axis_group(mesh, axes))
+    if group is not None:
+        _all_gather(parts, buf, group)
     return torch.cat(parts, dim=dim).to(x.dtype)
 
 
@@ -127,12 +249,14 @@ def _slice(x, mesh, axes, dim):
 def _scatter(x, mesh, axes, dim):
     axes = _ordered(mesh, axes)
     n = axis_size(mesh, axes)
-    group = axis_group(mesh, axes)
+    group = _group(mesh, axes, x)
+    _note("reduce-scatter", x, n)
     if x.device.type == "cpu":  # gloo: all-reduce, then this rank's slice
-        return _slice(_reduce(x, mesh, axes), mesh, axes, dim)
+        return _slice(_reduce(x, mesh, axes, note=False), mesh, axes, dim)
     parts = [p.contiguous() for p in x.chunk(n, dim=dim)]
     out = torch.empty_like(parts[0])
-    dist.reduce_scatter(out, parts, group=group)
+    if group is not None:
+        _reduce_scatter(out, parts, group)
     return out
 
 
@@ -274,10 +398,15 @@ def send_recv(mesh, axes, sends=(), recvs=()):
     rank's position along ``axes``. Every send and receive is posted at
     once (``batch_isend_irecv``) and waited for, so two ranks that send
     to each other never both block. Returns the received tensors, each
-    of its template's shape and dtype (bf16 crosses ``gloo`` as f32)."""
+    of its template's shape and dtype (bf16 crosses ``gloo`` as f32).
+    Each send is recorded as a collective-permute."""
     if not sends and not recvs:
         return []
-    group = axis_group(mesh, axes)
+    group = _group(mesh, axes, (sends or recvs)[0][0])
+    for x, _ in sends:
+        _note("collective-permute", x, axis_size(mesh, axes))
+    if group is None:
+        return [torch.empty_like(like) for like, _ in recvs]
     ops = [dist.P2POp(dist.isend, _wire(x), dist.get_global_rank(group, i), group)
            for x, i in sends]
     bufs = [(_wire(torch.empty_like(like)), like.dtype, i) for like, i in recvs]
@@ -293,9 +422,11 @@ def broadcast(x, mesh, axes, index: int):
     the group (outside autograd)."""
     if axis_size(mesh, axes) == 1:
         return x
-    group = axis_group(mesh, axes)
+    group = _group(mesh, axes, x)
+    _note("broadcast", x, axis_size(mesh, axes))
     buf = _wire(x)
     if buf is x:
         buf = buf.clone()
-    dist.broadcast(buf, src=dist.get_global_rank(group, index), group=group)
+    if group is not None:
+        dist.broadcast(buf, src=dist.get_global_rank(group, index), group=group)
     return buf.to(x.dtype)

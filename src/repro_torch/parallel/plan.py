@@ -185,12 +185,17 @@ def make_plan(model, shape: ShapeConfig, rules: ShardingRules, *, mode: str | No
 
 
 def abstract_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16):
-    """The cache tree of ``cfg`` as meta tensors (no memory)."""
+    """The cache tree of ``cfg`` as meta tensors (no memory). Made outside
+    any dispatch mode: a decode step that reads its placement inside the
+    dry-run's accounting (``launch/accounting.py``) allocates nothing."""
+    from torch.utils._python_dispatch import _disable_current_modes
+
     from ..models.decoder import init_cache
     from ..models.encdec import encdec_init_cache
 
     fn = encdec_init_cache if cfg.family == "encdec" else init_cache
-    return fn(cfg, batch, max_len, dtype, torch.device("meta"))
+    with _disable_current_modes():
+        return fn(cfg, batch, max_len, dtype, torch.device("meta"))
 
 
 def _abstract_params(model, dtype):

@@ -539,7 +539,83 @@ def job_compress(rank, world, workdir, inputs):
     return out
 
 
-JOBS = {"mesh8": job_mesh8, "mesh4": job_mesh4, "serve2": job_serve2, "train2": job_train2,
+def dryrun_cell(cfg, mode, batch, seq, mesh, strategy="dos", gen=None):
+    """``(step, inputs)`` of one dry-run cell on CPU tensors, as rank 0 holds
+    them on ``mesh``: the train step (remat, AdamW) on this rank's f32 shards
+    and their moments; a prefill of ``seq`` tokens; or a decode step after
+    a prefill of ``seq - 1`` tokens into a cache of ``seq`` slots (the
+    dry-run's decode cell). Random weights and batch from ``gen``."""
+    import torch
+
+    from repro_torch.launch.steps import make_prefill_step, make_serve_step, make_train_step
+    from repro_torch.models import build
+    from repro_torch.models.zoo import MODEL_INPUTS
+    from repro_torch.optim import OptConfig, init_opt_state
+    from repro_torch.parallel.axes import ShardingRules, param_sharding, use_rules
+    from repro_torch.parallel.plan import shard_place
+
+    gen = gen or torch.Generator().manual_seed(0)
+    model = build(cfg, device="cpu")
+    rules = ShardingRules(mesh, strategy=strategy, fsdp=mode == "train")
+    master = model.init(gen, place=shard_place(param_sharding(model.defs, rules), mesh))
+
+    def tokens(n):
+        return torch.randint(0, cfg.vocab, (batch, n), generator=gen, dtype=torch.int32)
+
+    extra = {}
+    if cfg.family in MODEL_INPUTS and mode != "decode":
+        name, length = MODEL_INPUTS[cfg.family]
+        extra[name] = torch.randn(batch, getattr(cfg, length), cfg.d_model, generator=gen)
+    if mode == "train":
+        step = make_train_step(model, OptConfig(), remat=True)
+        return step, (master, init_opt_state(master), {"tokens": tokens(seq),
+                                                       "labels": tokens(seq), **extra})
+    params = model.compute_params(master)
+    if mode == "prefill":
+        return make_prefill_step(model, max_len=seq), (params, {"tokens": tokens(seq), **extra})
+    if cfg.family in MODEL_INPUTS:  # the prompt's image embeddings or frames
+        name, length = MODEL_INPUTS[cfg.family]
+        extra[name] = torch.randn(batch, getattr(cfg, length), cfg.d_model, generator=gen)
+    with use_rules(rules):
+        _, cache = model.prefill(params, {"tokens": tokens(seq - 1), **extra}, max_len=seq)
+    return make_serve_step(model), (params, cache, {"token": tokens(1)})
+
+
+def job_dryrun8(rank, world, workdir, inputs):
+    """Each cell of ``inputs["dryrun"]`` ((arch, mode, batch, seq) at (2, 4)
+    under dos) run once on this rank's shards: rank 0's collectives in
+    order (``collectives.recording``), the FLOPs the dry-run's recorder
+    counts on the plain versions and the bytes of the step's inputs but
+    the batch (its shards: params, moments, cache). Remat recomputes each
+    layer whole (``checkpoint``'s early stop off, as the test's meta side
+    runs it too): a kernel's autograd Function (on the card, and on meta)
+    runs a layer's last product in the recompute before the early stop
+    can skip it, where a plain GEMM, which saves its inputs before it
+    runs, is skipped on the CPU."""
+    import torch
+
+    from repro_torch.launch.accounting import Accounting, tree_bytes
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.parallel import collectives as C
+    from repro_torch.parallel.axes import ShardingRules, use_rules
+
+    mesh = make_test_mesh(2, 4)
+    out = {}
+    for arch, mode, batch, seq in inputs["dryrun"]:
+        cfg = _cfg((arch, {}))
+        step, args = dryrun_cell(cfg, mode, batch, seq, mesh)
+        rules = ShardingRules(mesh, strategy="dos", fsdp=mode == "train")
+        with use_rules(rules), C.recording() as log, Accounting() as acc, \
+                torch.utils.checkpoint.set_checkpoint_early_stop(False):
+            step(*args)
+        out[f"{arch} {mode}"] = {"collectives": [list(c) for c in log], "flops": acc.flops,
+                                 "shard_bytes": tree_bytes(args[:-1])}
+        del step, args
+        torch.manual_seed(0)
+    return out
+
+
+JOBS = {"dryrun8": job_dryrun8, "mesh8": job_mesh8, "mesh4": job_mesh4, "serve2": job_serve2, "train2": job_train2,
         "families8": job_families8, "families4": job_families4,
         "pipeline4": job_pipeline, "pipeline2": job_pipeline, "moe_ep": job_moe_ep,
         "compress": job_compress}

@@ -1044,3 +1044,30 @@ def test_vlm_with_image_embeds_off_the_compute_dtype_matches_the_cpu(gen):
         assert logits[dev].dtype == torch.float32 and cache["cross"]["k"].dtype == torch.float32
     want = logits["cpu"]
     assert (logits["cuda"].cpu() - want).abs().max() <= 3e-2 * want.abs().max()
+
+
+def test_a_cuda_tensor_launches_where_a_meta_tensor_is_charged(gen):
+    """The wrappers' meta branch (the dry-run's accounting) is for meta
+    tensors only: a CUDA call inside the accounting launches its kernel
+    (the wrapper's counters move, nothing is charged, the result agrees
+    with the plain version's at phase 4's gate); the same call on meta
+    tensors of the same shapes plans the same variant and is charged and
+    counted by the accounting instead, the wrapper's counters unmoved."""
+    from repro_torch.launch.accounting import Accounting
+
+    a = torch.randn(64, 32, generator=gen, device="cuda").to(torch.bfloat16)
+    b = torch.randn(32, 48, generator=gen, device="cuda").to(torch.bfloat16)
+    before = dict(dos_matmul.variants)
+    with Accounting() as acc:
+        out = dos_matmul(a, b)
+    torch.cuda.synchronize()
+    launched = {v: n - before[v] for v, n in dos_matmul.variants.items() if n != before[v]}
+    assert launched == {"wgmma": 1} and acc.launches == {} and acc.kernels == {}
+    exact = matmul_ref(a, b, torch.float32)  # phase 4's gate: f32 order, one bf16 rounding
+    assert ((out.float() - exact).abs() <= 2.0**-8 * exact.abs() + 1e-5 * exact.abs().max()).all()
+    before = dict(dos_matmul.variants)
+    with Accounting() as meta:
+        dos_matmul(a.to("meta"), b.to("meta"))
+    assert dos_matmul.variants == before
+    assert meta.launches == {"dos_matmul": launched}
+    assert meta.kernels["dos_matmul"]["flops"] == 2 * 64 * 32 * 48
