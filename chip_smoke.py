@@ -111,7 +111,8 @@ if it fails:
     max|g|, bf16 within 3e-2); ``train_loop`` with checkpoints and a fault
     at step 12 (depth cut to 4 layers), resumed from step 10 with the
     losses of an uninterrupted run; the CLI ``--steps 5 --json`` in a
-    subprocess;
+    subprocess (run with phases 13-16's CLIs after phase 16, in two waves
+    of processes started together: ``phase_clis``);
 13. hybrid training: its main path, run right after phase 12's with the
     counts set to 0 just before and read just after, is ``train_loop`` on
     zamba2-2.7b at full width and depth (2,422,220,960 parameters, bf16
@@ -139,7 +140,7 @@ if it fails:
     3e-2 of its max|g|; the full-width model cut to one group, 6 Mamba2
     layers and the shared block, at batch 2 x 128 in f32, the loss and
     every gradient leaf within 1e-3); the CLI ``--arch zamba2-2.7b --steps
-    3 --json`` in a subprocess, launches per step exact; and the
+    3 --json`` in a subprocess (``phase_clis``), launches per step exact; and the
     dos_matmul Function at zamba2's training projections (forward, dA,
     dB), timed beside torch.matmul;
 14. xLSTM (xlstm-125m, 66,153,264 parameters: 10 mLSTM and 2 sLSTM
@@ -167,8 +168,8 @@ if it fails:
     CPU: one mLSTM and one sLSTM block at full width in bf16 (output and
     every gradient within 3e-2), the full model in f32 at 2 x 128
     (logits, loss and every gradient leaf within 1e-3), a prefill and 4
-    decode steps block by block in bf16; both CLIs in subprocesses with
-    launches exact;
+    decode steps block by block in bf16; both CLIs in subprocesses
+    (``phase_clis``) with launches exact;
 15. MoE (deepseek-moe-16b, 16,879,568,896 parameters: 28 layers of 64
     routed experts, top-6, and 2 shared). Its serving main path runs right
     after phase 14's, its training main path right after phase 14's
@@ -209,7 +210,8 @@ if it fails:
     and resume at one layer cut to 8 experts and a 4,096-row vocabulary
     (deepseek's expert shapes, top-6, the shared experts; every expert
     product and dW ``wgmma``), every loss bit-identical to an uninterrupted
-    run's; the train CLI ``--layers 1 --steps 3``, launches exact;
+    run's; the train CLI ``--layers 1 --steps 3`` (``phase_clis``),
+    launches exact;
 16. vision cross-attention (llama-3.2-vision-11b, 9,775,157,256
     parameters: 8 groups of 4 self-attention layers and a gated
     cross-attention layer over 1,600 image embeddings) and the
@@ -242,7 +244,7 @@ if it fails:
     a decode step with no device-to-host sync, and one layer of each kind's
     loss and every gradient leaf (f32 within 1e-3, bf16 within 3e-2 of the
     leaf's max|g|); the serve CLI for whisper at full size and for the
-    vision model at ``--smoke`` size, launches exact;
+    vision model at ``--smoke`` size (``phase_clis``), launches exact;
     And a bf16 vision model (reduced) with f32 image embeddings: the
     card's flash wrapper promotes the operands to f32 (``fma``), its
     prefill within E2E_TOL of the CPU's logits;
@@ -316,14 +318,29 @@ if it fails:
     the meta branch's stand-ins for two library answers (the SSD
     backward's cluster size, the sLSTM backward's scratch) equal the
     libraries'; the phase's time on its own line;
-21. prints the kernels line, the ``nvidia-smi`` line, and last
+21. the report and the examples (``repro_torch/report.py``,
+    ``examples/torch``): ``report.main`` (what ``python -m repro_torch
+    report`` runs) with all eight sections on ``cuda`` into a temporary
+    directory, then the five example twins at their test flags on the
+    card, each run in this process with the launch counts set to 0 just
+    before and read just after. The dse, network, search, serve and thermal
+    sections must equal the committed ``experiments/*_section.md`` byte
+    for byte, the roofline section up to its dry-run table; the calibrate
+    section has the committed file's row labels and launches
+    ``dos_matmul``, ``flash_attention`` and ``ssm_scan``; the dry-run
+    section reads 33 + 33 cells traced and 0 failures. ``serve_decode``
+    must launch ``dos_matmul`` and ``flash_attention``, ``train_lm`` and
+    ``quickstart`` the flash backward too; ``dse_explore`` and
+    ``network_explore`` print on the card every line they print on the
+    CPU; the phase's time on its own line;
+22. prints the kernels line, the ``nvidia-smi`` line, and last
     ``{"ok": true, "device": {...}}``.
 
 ``--details PATH`` also writes every measurement to a JSON file.
 ``--sweep`` runs phases 1 and 2, times each dos_matmul tiling (BN, K
 split) at every bf16 GEMM shape of the main paths beside torch.matmul,
-and stops. ``--only front-door,families`` runs phases 1 and 2 and the
-phases named (11; 19 and 20), prints no result line and stops.
+and stops. ``--only front-door,families,report`` runs phases 1 and 2 and
+the phases named (11; 19 and 20; 21), prints no result line and stops.
 """
 
 from __future__ import annotations
@@ -2862,18 +2879,12 @@ def phase_train_restart():
                                 "wall_s": wall}
 
 
-def phase_train_cli():
-    """``python -m repro_torch.launch.train --steps 5 --json`` in a
-    subprocess must exit 0 with five finite losses on the card."""
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    t0 = time.perf_counter()
-    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--steps", "5",
-                        "--json"], capture_output=True, text=True, timeout=600, env=env,
-                       cwd=ROOT)
-    wall = time.perf_counter() - t0
-    check(r.returncode == 0, f"python -m repro_torch.launch.train exited {r.returncode}: "
-          f"{r.stderr[-2000:]}")
-    out = json.loads(r.stdout)
+TRAIN_CLI = ["repro_torch.launch.train", "--steps", "5", "--json"]
+
+
+def check_train_cli(out, wall):
+    """``python -m repro_torch.launch.train --steps 5 --json`` (run by
+    ``phase_clis``) must exit 0 with five finite losses on the card."""
     check(out["device"]["platform"] == "gpu" and len(out["losses"]) == 5
           and all(math.isfinite(x) for x in out["losses"]),
           f"the CLI's summary is wrong: {out['device']}, {out['losses']}")
@@ -3157,20 +3168,14 @@ def phase_train_hybrid_e2e():
                                    "f32_worst_grad_rel": worst, "f32_worst_leaf": worst_leaf}
 
 
-def phase_train_hybrid_cli():
+HYBRID_CLI = ["repro_torch.launch.train", "--arch", HYBRID, "--steps", str(HYBRID_CLI_STEPS),
+              "--json"]
+
+
+def check_train_hybrid_cli(out, wall):
     """``python -m repro_torch.launch.train --arch zamba2-2.7b --steps 3
-    --json`` in a subprocess: exit 0, finite losses, the launches of 3
-    steps exact."""
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    torch.cuda.empty_cache()  # the full model's training state is the subprocess's
-    t0 = time.perf_counter()
-    r = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--arch", HYBRID,
-                        "--steps", str(HYBRID_CLI_STEPS), "--json"], capture_output=True,
-                       text=True, timeout=600, env=env, cwd=ROOT)
-    wall = time.perf_counter() - t0
-    check(r.returncode == 0, f"python -m repro_torch.launch.train --arch {HYBRID} exited "
-          f"{r.returncode}: {r.stderr[-2000:]}")
-    out = json.loads(r.stdout)
+    --json`` (run by ``phase_clis``): exit 0, finite losses, the launches
+    of 3 steps exact."""
     want = {k: n * HYBRID_CLI_STEPS
             for k, n in expected_train_launches(get_config(HYBRID)).items()}
     check(out["device"]["platform"] == "gpu" and len(out["losses"]) == HYBRID_CLI_STEPS
@@ -3602,34 +3607,17 @@ def phase_xlstm_e2e():
     RESULTS["xlstm_e2e"] = out
 
 
-def phase_xlstm_cli():
+XLSTM_CLIS = {"train": ["repro_torch.launch.train", "--arch", XLSTM, "--steps",
+                         str(XLSTM_CLI_STEPS), "--json"],
+              "serve": ["repro_torch.launch.serve", "--arch", XLSTM, "--json"]}
+
+
+def check_xlstm_cli(tr, sv, wall):
     """``python -m repro_torch.launch.train --arch xlstm-125m --steps 3
     --json`` and ``python -m repro_torch.launch.serve --arch xlstm-125m
-    --json`` in two subprocesses started together: each exits 0 on the
-    card with finite losses (training) and launches exact."""
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    cmds = {"train": ["repro_torch.launch.train", "--arch", XLSTM, "--steps",
-                      str(XLSTM_CLI_STEPS), "--json"],
-            "serve": ["repro_torch.launch.serve", "--arch", XLSTM, "--json"]}
-    t0 = time.perf_counter()
-    procs = {k: subprocess.Popen([sys.executable, "-m", *c], stdout=subprocess.PIPE,
-                                 stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT)
-             for k, c in cmds.items()}
-    outs = {}
-    try:
-        for k, p in procs.items():
-            stdout, stderr = p.communicate(timeout=600)
-            check(p.returncode == 0, f"python -m {cmds[k][0]} --arch {XLSTM} exited "
-                  f"{p.returncode}: {stderr[-2000:]}")
-            outs[k] = json.loads(stdout)
-    finally:
-        for p in procs.values():
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    wall = time.perf_counter() - t0
+    --json`` (run by ``phase_clis``; ``wall`` the longer of the two): each
+    exits 0 on the card with finite losses (training) and launches exact."""
     cfg = get_config(XLSTM)
-    tr, sv = outs["train"], outs["serve"]
     want_tr = {k: n * XLSTM_CLI_STEPS for k, n in expected_train_launches(cfg).items()}
     check(tr["device"]["platform"] == "gpu" and len(tr["losses"]) == XLSTM_CLI_STEPS
           and all(math.isfinite(x) for x in tr["losses"]) and tr["launches"] == want_tr,
@@ -3637,8 +3625,8 @@ def phase_xlstm_cli():
     want_sv = expected_launches(cfg, sv["gen_tokens"])
     check(sv["device"]["platform"] == "gpu" and sv["launches"] == want_sv,
           f"the serve CLI's launches {sv['launches']}, expected {want_sv}")
-    print(f"[xlstm] the train and serve CLIs (--arch {XLSTM}) in two subprocesses: exit 0 in "
-          f"{wall:.1f} s together; train {XLSTM_CLI_STEPS} steps (batch {tr['batch']} x "
+    print(f"[xlstm] the train and serve CLIs (--arch {XLSTM}) in two subprocesses: exit 0 "
+          f"within {wall:.1f} s; train {XLSTM_CLI_STEPS} steps (batch {tr['batch']} x "
           f"{tr['seq']}) loss {tr['loss_first']:.4f} -> {tr['loss_last']:.4f}, step p50 "
           f"{tr['step_p50_s']*1e3:.3f} ms, launches {tr['launches']}; serve batch {sv['batch']} "
           f"prompt {sv['prompt_len']} gen {sv['gen_tokens']}: prefill {sv['prefill_s']*1e3:.2f} "
@@ -4183,28 +4171,23 @@ def phase_moe_restart():
                               "wall_s": wall, "variants": variants}
 
 
-def phase_moe_cli():
-    """``python -m repro_torch.launch.train --arch deepseek-moe-16b --layers
-    1 --steps 3 --json`` in a subprocess: exit 0 on the card, finite
-    losses, the launches per step exact."""
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    cmd = ["repro_torch.launch.train", "--arch", MOE, "--layers", str(MOE_CLI_LAYERS), "--steps",
+MOE_CLI = ["repro_torch.launch.train", "--arch", MOE, "--layers", str(MOE_CLI_LAYERS), "--steps",
            str(MOE_CLI_STEPS), "--batch", str(MOE_E2E_BATCH), "--seq", str(PROMPT), "--json"]
-    t0 = time.perf_counter()
-    r = subprocess.run([sys.executable, "-m", *cmd], capture_output=True, text=True, timeout=600,
-                       env=env, cwd=ROOT)
-    wall = time.perf_counter() - t0
-    check(r.returncode == 0, f"python -m {' '.join(cmd)} exited {r.returncode}: {r.stderr[-2000:]}")
-    out = json.loads(r.stdout)
+
+
+def check_moe_cli(out, wall):
+    """``python -m repro_torch.launch.train --arch deepseek-moe-16b --layers
+    1 --steps 3 --json`` (run by ``phase_clis``): exit 0 on the card,
+    finite losses, the launches per step exact."""
     cfg = dataclasses.replace(get_config(MOE), n_layers=MOE_CLI_LAYERS)
     want = {k: n * MOE_CLI_STEPS for k, n in expected_train_launches(cfg).items()}
     check(out["device"]["platform"] == "gpu" and len(out["losses"]) == MOE_CLI_STEPS
           and all(math.isfinite(x) for x in out["losses"]) and out["launches"] == want,
           f"the MoE train CLI's summary is wrong: {out['device']}, {out['losses']}, "
           f"{out['launches']} (expected {want})")
-    print(f"[moe] python -m {' '.join(cmd)}: exit 0 in {wall:.1f} s; loss {out['loss_first']:.4f} "
-          f"-> {out['loss_last']:.4f}, step p50 {out['step_p50_s']*1e3:.3f} ms, launches "
-          f"{out['launches']}", flush=True)
+    print(f"[moe] python -m {' '.join(MOE_CLI)}: exit 0 in {wall:.1f} s; loss "
+          f"{out['loss_first']:.4f} -> {out['loss_last']:.4f}, step p50 "
+          f"{out['step_p50_s']*1e3:.3f} ms, launches {out['launches']}", flush=True)
     RESULTS["moe_cli"] = {k: out[k] for k in ("losses", "step_p50_s", "launches", "wall_s")}
 
 
@@ -4497,36 +4480,109 @@ def phase_cross_train_e2e(arch):
     RESULTS.setdefault("cross_train_e2e", {})[arch] = out
 
 
-def phase_cross_cli():
+CROSS_CLIS = {WHISPER: ["--prompt-len", str(PROMPT)], VLM: ["--smoke"]}
+
+
+def check_cross_cli(outs, walls):
     """``python -m repro_torch.launch.serve --arch whisper-medium
     --prompt-len 128 --json`` (full size) and ``--arch llama-3.2-vision-11b
     --smoke`` (reduced: the full model's host draws alone take over a
     minute, and its full-size run is the serving main path's
-    ``serve_loop``), in subprocesses started together: each exits 0 on
-    the card with the launches per prefill and decode exact."""
-    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
-    runs = {WHISPER: ["--prompt-len", str(PROMPT)], VLM: ["--smoke"]}
-    t0 = time.perf_counter()
-    procs = {arch: subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", arch, *extra, "--json"],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT)
-        for arch, extra in runs.items()}
-    for arch, proc in procs.items():
-        stdout, stderr = proc.communicate(timeout=600)
-        wall = time.perf_counter() - t0
-        check(proc.returncode == 0, f"the {arch} serve CLI exited {proc.returncode}: "
-              f"{stderr[-2000:]}")
-        out = json.loads(stdout)
+    ``serve_loop``), run by ``phase_clis``: each exits 0 on the card with
+    the launches per prefill and decode exact."""
+    for arch, out in outs.items():
+        wall = walls[arch]
         cfg = get_config(arch) if arch == WHISPER else reduced(get_config(arch))
         want = expected_launches(cfg, out["gen_tokens"])
         check(out["device"]["platform"] == "gpu" and out["launches"] == want,
               f"the {arch} serve CLI's summary is wrong: {out['device']}, {out['launches']} "
               f"(expected {want})")
-        print(f"[cross] python -m repro_torch.launch.serve --arch {arch} {' '.join(runs[arch])}: "
-              f"exit 0 within {wall:.1f} s; prefill {out['prefill_s']*1e3:.2f} ms, decode "
-              f"{out['decode_tok_s']:.1f} tok/s, launches {out['launches']}", flush=True)
+        print(f"[cross] python -m repro_torch.launch.serve --arch {arch} "
+              f"{' '.join(CROSS_CLIS[arch])}: exit 0 within {wall:.1f} s; prefill "
+              f"{out['prefill_s']*1e3:.2f} ms, decode {out['decode_tok_s']:.1f} tok/s, launches "
+              f"{out['launches']}", flush=True)
         RESULTS.setdefault("cross_cli", {})[arch] = {k: out[k] for k in (
             "prefill_s", "decode_tok_s", "step_p50_s", "launches")}
+
+
+# The CLIs of phases 12-16 in subprocesses, two waves of processes started
+# together, each wave within the card's 80 GB: zamba2-2.7b's training state
+# (f32 masters, gradients and two moments, 16 bytes a parameter) beside the
+# three serving CLIs, then the other three trainings. One after another,
+# most of their time was each process's start and its weights drawn on the
+# host, one process at a time.
+CLI_WAVES = (
+    {f"train {HYBRID}": HYBRID_CLI, f"serve {XLSTM}": XLSTM_CLIS["serve"],
+     **{f"serve {a}": ["repro_torch.launch.serve", "--arch", a, *extra, "--json"]
+        for a, extra in CROSS_CLIS.items()}},
+    {f"train {ARCH}": TRAIN_CLI, f"train {XLSTM}": XLSTM_CLIS["train"], f"train {MOE}": MOE_CLI},
+)
+CLI_TIMEOUT_S = 600
+
+
+def _run_clis(cmds: dict) -> dict:
+    """``python -m CMD`` for each of ``cmds``, all started together (their
+    output to files, each in its own session). Returns each one's JSON
+    summary and its wall seconds (start to exit, polled every 0.1 s);
+    fails on a non-zero exit."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    procs, ends = {}, {}
+    t0 = time.perf_counter()
+    try:
+        for name, cmd in cmds.items():
+            out = open(os.path.join(tmp, f"{len(procs)}.out"), "w+")
+            err = open(os.path.join(tmp, f"{len(procs)}.err"), "w+")
+            procs[name] = (subprocess.Popen([sys.executable, "-m", *cmd], stdout=out, stderr=err,
+                                            text=True, env=env, cwd=ROOT,
+                                            start_new_session=True), out, err)
+        while len(ends) < len(procs):
+            check(time.perf_counter() - t0 < CLI_TIMEOUT_S,
+                  f"CLIs still running after {CLI_TIMEOUT_S} s: {sorted(set(procs) - set(ends))}")
+            for name, (p, _, _) in procs.items():
+                if name not in ends and p.poll() is not None:
+                    ends[name] = time.perf_counter() - t0
+            time.sleep(0.1)
+        res = {}
+        for name, (p, out, err) in procs.items():
+            out.seek(0)
+            err.seek(0)
+            check(p.returncode == 0, f"python -m {' '.join(cmds[name])} exited {p.returncode}: "
+                  f"{err.read()[-2000:]}")
+            res[name] = (json.loads(out.read()), ends[name])
+        return res
+    finally:
+        for p, out, err in procs.values():
+            if p.poll() is None:
+                os.killpg(p.pid, 9)
+                p.wait()
+            out.close()
+            err.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_clis():
+    """The train and serve CLIs of phases 12-16 (``CLI_WAVES``), each held
+    to its phase's checks: ``check_train_cli``, ``check_train_hybrid_cli``,
+    ``check_xlstm_cli``, ``check_moe_cli``, ``check_cross_cli``."""
+    torch.cuda.empty_cache()  # the CLIs' training states are their own
+    t0 = time.perf_counter()
+    res, walls = {}, []
+    for wave in CLI_WAVES:
+        t = time.perf_counter()
+        res.update(_run_clis(wave))
+        walls.append(time.perf_counter() - t)
+    check_train_cli(*res[f"train {ARCH}"])
+    check_train_hybrid_cli(*res[f"train {HYBRID}"])
+    (tr, t_tr), (sv, t_sv) = res[f"train {XLSTM}"], res[f"serve {XLSTM}"]
+    check_xlstm_cli(tr, sv, max(t_tr, t_sv))
+    check_moe_cli(*res[f"train {MOE}"])
+    check_cross_cli({a: res[f"serve {a}"][0] for a in CROSS_CLIS},
+                    {a: res[f"serve {a}"][1] for a in CROSS_CLIS})
+    RESULTS["clis"] = {"wave_s": walls, "s": {k: w for k, (_, w) in res.items()}}
+    print(f"[cli] the CLIs of phases 12-16 in {len(CLI_WAVES)} waves: "
+          + ", ".join(f"{' + '.join(w)} {s:.1f} s" for w, s in zip(CLI_WAVES, walls))
+          + f"; {time.perf_counter() - t0:.1f} s in all", flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -5583,6 +5639,154 @@ def phase_meta_families(cards) -> None:
           f"{FAMILY_TEMP_GAP:.0%}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the report and the examples on the card
+# ---------------------------------------------------------------------------
+
+# examples/torch/*.py and the flags tests/test_torch_examples.py runs them with
+EXAMPLES = {
+    "quickstart.py": ["--smoke"],
+    "dse_explore.py": ["--m", "64", "--k", "2048", "--n", "147", "--pareto"],
+    "network_explore.py": ["--arch", "smollm-135m", "--shape", "decode_32k"],
+    "serve_decode.py": ["--arch", "smollm-135m", "--gen-tokens", "8"],
+    "train_lm.py": ["--steps", "3", "--smoke"],
+}
+# what each example must launch on the card
+EXAMPLE_KERNELS = {
+    "quickstart.py": ("dos_matmul", "flash_attention", "flash_attention_bwd"),
+    "serve_decode.py": ("dos_matmul", "flash_attention"),
+    "train_lm.py": ("dos_matmul", "flash_attention", "flash_attention_bwd"),
+}
+# the examples whose every line the card prints as the CPU does (the
+# engine's exact integers, the thermal solve's bits)
+EXAMPLES_AS_CPU = ("dse_explore.py", "network_explore.py")
+# the report's sections that equal the committed experiments/*_section.md
+# (the engine's exact integers; the roofline section up to its dry-run table)
+REPORT_EXACT = ("dse", "network", "search", "serve", "thermal")
+
+
+def _run_example(name, args) -> str:
+    """``examples/torch/<name> ARGS`` run in this process (``runpy``, so
+    the launch counters see it), its stdout captured and returned."""
+    import contextlib
+    import io
+    import runpy
+
+    path = os.path.join(ROOT, "examples", "torch", name)
+    argv, sys.argv = sys.argv, [path, *args]
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            runpy.run_path(path, run_name="__main__")
+    finally:
+        sys.argv = argv
+    return buf.getvalue()
+
+
+def _md_rows(text) -> list:
+    return [ln for ln in text.splitlines() if ln.startswith("| ") and not ln.startswith("| ---")]
+
+
+def phase_report() -> dict:
+    """``repro_torch.report.main`` (what ``python -m repro_torch report``
+    runs) on ``cuda``, all eight sections into a temporary directory, and
+    the five ``examples/torch`` scripts at their test flags on the card
+    (default device), in this process: each with the launch counts set to
+    0 just before and read just after. The dse, network, search, serve and
+    thermal sections must equal the committed ``experiments/*_section.md``
+    byte for byte, the roofline section up to its dry-run table; the
+    calibrate section has the committed file's row labels and launched
+    ``dos_matmul``, ``flash_attention`` and ``ssm_scan``; the dry-run
+    section reads 66 cells traced, 0 failures. Each example must print, and
+    launch its ``EXAMPLE_KERNELS``; ``EXAMPLES_AS_CPU`` print the CPU's
+    lines. Returns the launch counts by run."""
+    from repro_torch import report
+
+    t_start = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_report_")
+    counts, out = {}, {}
+
+    def committed(section):
+        with open(os.path.join(ROOT, "experiments", f"{section}_section.md")) as f:
+            return f.read()
+
+    try:
+        cal = {}
+        section = report.calibrate_section
+
+        def calibrate_counted(*a, **k):
+            c0 = launch_counts()
+            text = section(*a, **k)
+            c1 = launch_counts()
+            cal.update({n: c1[n] - c0[n] for n in c1})
+            return text
+
+        report.calibrate_section = calibrate_counted
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            written = report.main(device="cuda", out_dir=tmp)
+        finally:
+            report.calibrate_section = section
+        wall = time.perf_counter() - t0
+        counts["report"] = launch_counts()
+        texts = {p.name[:-len("_section.md")]: p.read_text() for p in written
+                 if p.name.endswith("_section.md")}
+        check(sorted(texts) == sorted(report.SECTIONS), f"the report wrote {sorted(texts)}")
+        for name in REPORT_EXACT:
+            check(texts[name] == committed(name),
+                  f"the report's {name} section differs from experiments/{name}_section.md")
+        head, sep, _ = texts["roofline"].partition("\n### Dry-run roofline")
+        check(sep and head == committed("roofline"),
+              "the report's roofline section differs from experiments/roofline_section.md")
+        rows, want = _md_rows(texts["calibrate"]), _md_rows(committed("calibrate"))
+        check([r.split(" | ")[0] for r in rows] == [r.split(" | ")[0] for r in want],
+              f"the calibrate section's rows {rows}")
+        check(all(cal[k] > 0 for k in ("dos_matmul", "flash_attention", "ssm_scan")),
+              f"the calibrate section launched {cal}")
+        first = texts["dryrun"].splitlines()[0]
+        check(first == "**33 single-pod + 33 multi-pod cells traced OK; 0 failures.**",
+              f"the dry-run section reads {first!r}")
+        backend = next(ln for ln in texts["calibrate"].splitlines() if ln.startswith("Backend:"))
+        print(f"[report] python -m repro_torch report (all 8 sections, cuda) in {wall:.1f} s: "
+              f"{', '.join(REPORT_EXACT)} equal to experiments/*_section.md, roofline up to its "
+              f"dry-run table; dry-run: {first}; calibrate launched "
+              f"{ {k: n for k, n in cal.items() if n} }, the whole report "
+              f"{ {k: n for k, n in counts['report'].items() if n} }; {backend.split('. ')[0]}",
+              flush=True)
+        for r in rows[1:]:
+            print(f"[report] calibrate {r}", flush=True)
+        out["report"] = {"wall_s": wall, "calibrate_launches": cal,
+                         "calibrate_section": texts["calibrate"]}
+
+        for name, args in EXAMPLES.items():
+            extra = ["--ckpt-dir", os.path.join(tmp, "ckpt")] if name == "train_lm.py" else []
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            text = _run_example(name, [*args, *extra])
+            ex_wall = time.perf_counter() - t0
+            c = counts[f"example {name}"] = launch_counts()
+            lines = text.splitlines()
+            check(bool(lines), f"examples/torch/{name} printed nothing")
+            missing = [k for k in EXAMPLE_KERNELS.get(name, ()) if c[k] == 0]
+            check(not missing, f"examples/torch/{name} launched no {missing}: {c}")
+            note = ""
+            if name in EXAMPLES_AS_CPU:
+                cpu = _run_example(name, [*args, "--device", "cpu"]).splitlines()
+                check(lines == cpu, f"examples/torch/{name} prints on the card other lines than "
+                      f"on the CPU: {[(a, b) for a, b in zip(lines, cpu) if a != b][:3]}")
+                note = "; every line equal to the CPU's"
+            print(f"[report] examples/torch/{name} {' '.join(args)}: {len(lines)} lines in "
+                  f"{ex_wall:.1f} s, last {lines[-1].strip()!r}; launches "
+                  f"{ {k: n for k, n in c.items() if n} }{note}", flush=True)
+            out[name] = {"wall_s": ex_wall, "launches": c, "stdout": text}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    RESULTS["report"] = out
+    print(f"[report] phase 21 took {time.perf_counter() - t_start:.1f} s", flush=True)
+    return counts
+
+
 def timed(phase, *args):
     """``phase(*args)``, its wall time added to ``RESULTS["phases"]`` under
     its name and its string arguments."""
@@ -5598,7 +5802,8 @@ def phase_families_and_meta():
     timed(phase_meta_families, timed(phase_mesh_families)[1])
 
 
-ONLY = {"front-door": phase_front_door, "families": phase_families_and_meta}
+ONLY = {"front-door": phase_front_door, "families": phase_families_and_meta,
+        "report": phase_report}
 
 
 def main(argv=None) -> int:
@@ -5608,7 +5813,7 @@ def main(argv=None) -> int:
                     help="only time every dos_matmul tiling at the main paths' shapes, and stop")
     ap.add_argument("--only", metavar="PHASES",
                     help="only phases 1-2 and these, comma-separated (front-door: 11, families: "
-                         "19 and 20), and stop (no result line)")
+                         "19 and 20, report: 21), and stop (no result line)")
     args = ap.parse_args(argv)
     details = args.details
     t0 = time.perf_counter()
@@ -5679,25 +5884,21 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     timed(phase_train_e2e)
     timed(phase_train_restart)
-    timed(phase_train_cli)
     ssm_bwd_row, ssm_bwd_err = timed(phase_train_ssm_bwd)
     timed(phase_train_hybrid_learns)
     timed(phase_train_hybrid_e2e)
-    timed(phase_train_hybrid_cli)
     timed(phase_train_hybrid_gemms)
     timed(phase_profile_prefill, XLSTM)  # phase 14 from here
     timed(phase_profile, XLSTM, *serve_decode_state(XLSTM), step_p50_s[XLSTM])
     xlstm_rows, xlstm_err = timed(phase_xlstm_kernels)
     timed(phase_xlstm_e2e)
     timed(phase_e2e_blocks, XLSTM)
-    timed(phase_xlstm_cli)
     timed(phase_profile_prefill, MOE)  # phase 15 from here
     timed(phase_profile, MOE, *serve_decode_state(MOE), step_p50_s[MOE])
     moe_rows, moe_err = timed(phase_moe_kernels)
     timed(phase_moe_e2e)
     timed(phase_moe_train_e2e)
     timed(phase_moe_restart)
-    timed(phase_moe_cli)
     for arch in (VLM, WHISPER):  # phase 16 from here
         timed(phase_profile_prefill, arch)
         timed(phase_profile, arch, *serve_decode_state(arch), step_p50_s[arch])
@@ -5705,12 +5906,13 @@ def main(argv=None) -> int:
     for arch in (VLM, WHISPER):
         timed(phase_cross_e2e, arch)
         timed(phase_cross_train_e2e, arch)
-    timed(phase_cross_cli)
+    timed(phase_clis)  # the CLIs of phases 12-16
     timed(phase_vlm_mixed_dtype)
     timed(phase_mesh)  # phase 17
     parallel_counts, parallel_err = timed(phase_parallel)  # phase 18
     family_err, family_cards = timed(phase_mesh_families)  # phase 19
     timed(phase_meta_families, family_cards)  # phase 20
+    counts.update(timed(phase_report))  # phase 21
     counts.update({f"phase 18 {k}": c for k, c in parallel_counts.items()})
 
     replaces = {
@@ -5814,8 +6016,8 @@ def main(argv=None) -> int:
     print(f"[done] {RESULTS['wall_s']:.1f} s; the kernels' launches sum the twelve main paths' "
           "runs (serving and training smollm-135m, zamba2-2.7b, xlstm-125m, deepseek-moe-16b, "
           "llama-3.2-vision-11b and whisper-medium), phase 18's pipeline step and expert-parallel "
-          "calls, phase 7's calibration and the front door's "
-          "calibrate Study; max_abs_err is the largest of phase 4's, 7's and 12's to 19's "
+          "calls, phase 7's calibration, the front door's calibrate Study and phase 21's "
+          "report and examples; max_abs_err is the largest of phase 4's, 7's and 12's to 19's "
           "checks; ms, "
           "plain_ms, library_ms and bound_ms sum the calls of one prefill plus one decode step "
           "of both phase-3 serving paths (dos_matmul, flash_attention, ssm_scan), of xlstm-125m "

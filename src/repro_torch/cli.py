@@ -19,10 +19,17 @@ Subcommands:
   that names no backend, runs at ``backend='torch'``, so
   ``python -m repro_torch example-spec KIND | python -m repro_torch run -``
   runs it on the card (``run - --device cpu`` on the CPU).
-- ``report`` and ``bench`` raise ``NotImplementedError``: the JAX
-  package's drive ``experiments/make_report.py`` and
+- ``report``: regenerate the paper's sections (``repro_torch.report``:
+  dryrun, roofline, dse, network, search, calibrate, serve, thermal;
+  ``--sections`` picks some) on ``--device`` (``cuda``, the default, or
+  ``cpu``), written as ``<section>_section.md`` and ``summary.json``
+  under ``--out-dir`` (default ``experiments/report_torch/``; the JAX
+  package's ``experiments/*_section.md`` are never written).
+  ``--cache [DIR]`` chunk-caches the live studies (default
+  ``.repro_torch_cache/`` at the repo root).
+- ``bench`` raises ``NotImplementedError``: the JAX package's runs
   ``benchmarks/*_bench.py``, which import that package; the port's own
-  sections are ROADMAP queue 1 item 11.
+  benchmark is not written yet.
 """
 
 from __future__ import annotations
@@ -35,6 +42,7 @@ import sys
 
 from .core.cache import DEFAULT_CACHE_DIR, ResultCache
 from .core.study import ANALYSIS_KINDS, Study
+from .report import SECTIONS
 
 def _find_resume_spec(resume: pathlib.Path) -> pathlib.Path:
     """Locate spec.json inside a cache directory (study dir or root)."""
@@ -130,11 +138,23 @@ def _cmd_example_spec(args) -> int:
     return 0
 
 
+def _cmd_report(args) -> int:
+    from . import report
+
+    cache = None
+    if args.cache is not None:
+        cache = args.cache or str(report.ROOT / DEFAULT_CACHE_DIR)
+    for path in report.main(sections=args.sections, cache=cache, device=args.device,
+                            out_dir=args.out_dir):
+        print(f"wrote {path}", file=sys.stderr)
+    return 0
+
+
 def _cmd_not_ported(args) -> int:
     raise NotImplementedError(
         f"`repro_torch {args.command}` is not ported: the JAX package's runs "
-        "experiments/make_report.py and benchmarks/*_bench.py, which import "
-        "that package; the port's own sections are ROADMAP queue 1 item 11"
+        "benchmarks/*_bench.py, which import that package; the port's own "
+        "benchmark is the work of a benchmark PR of its own"
     )
 
 
@@ -178,11 +198,22 @@ def build_parser() -> argparse.ArgumentParser:
                          "evaluate/pareto/roofline/schedule/serve kinds)")
     ex.set_defaults(fn=_cmd_example_spec)
 
-    sub.add_parser("report", help="regenerate the experiments/ sections "
-                                  "(not ported: ROADMAP queue 1 item 11)"
-                   ).set_defaults(fn=_cmd_not_ported)
-    sub.add_parser("bench", help="run the repo benchmarks "
-                                 "(not ported: ROADMAP queue 1 item 11)"
+    rep = sub.add_parser("report", help="regenerate the paper's report sections "
+                                        "(default: under experiments/report_torch/)")
+    rep.add_argument("--sections", nargs="*", default=None, choices=list(SECTIONS),
+                     help="the sections to write (default: all)")
+    rep.add_argument("--cache", nargs="?", const="", default=None, metavar="DIR",
+                     help="content-addressed chunk cache directory "
+                          f"(default when flag given: {DEFAULT_CACHE_DIR} at the repo root)")
+    rep.add_argument("--device", default="cuda", metavar="DEV",
+                     help="where the studies run and calibrate measures: cuda (the "
+                          "default), cuda:N or cpu")
+    rep.add_argument("--out-dir", default=None, metavar="DIR",
+                     help="where the sections and summary.json go (default: "
+                          "experiments/report_torch/)")
+    rep.set_defaults(fn=_cmd_report)
+    sub.add_parser("bench", help="run the repo benchmarks (not ported: the port's own "
+                                 "benchmark is not written yet)"
                    ).set_defaults(fn=_cmd_not_ported)
     return ap
 
