@@ -369,10 +369,13 @@ from repro_torch.core import analytical, calibrate, engine, systolic  # noqa: E4
 from repro_torch.core.dse import random_workloads  # noqa: E402
 from repro_torch.core.ppa import thermal  # noqa: E402
 from repro_torch.kernels import KERNELS, _build, launch_counts, reset_launch_counts  # noqa: E402
+from repro_torch.kernels.adamw import adamw, adamw_ref, sum_squares, sum_squares_ref  # noqa: E402
+from repro_torch.kernels.adamw import ops as adamw_ops  # noqa: E402
 from repro_torch.kernels.dos_matmul import dos_matmul, matmul_ref  # noqa: E402
 from repro_torch.kernels.dos_matmul import ops as dos_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    attention_bwd_ref, attention_fwd_ref, attention_ref, flash_attention, flash_attention_bwd,
+    attention_bwd_ref, attention_fwd_ref, attention_ref, decode_attention, decode_attention_ref,
+    flash_attention, flash_attention_bwd,
 )
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.grouped_matmul import (  # noqa: E402
@@ -538,6 +541,8 @@ def phase_build():
     slstm_ops._lib()
     slstm_ops._bwd_lib()
     gmm_ops._lib()
+    flash_ops._decode_lib()
+    adamw_ops._lib()
     dt = time.perf_counter() - t0
     print(f"[build] {len(libs)} kernels built and loaded in {dt:.1f} s", flush=True)
     for name, path in libs.items():
@@ -559,7 +564,9 @@ _VARIANT_OF = {"dos_matmul_skinny": "skinny", "dos_matmul_wgmma": "wgmma",
                "ssd_mma": "mma", "ssd_fwd": "fma", "ssd_bwd_mma": "mma", "ssd_bwd": "fma",
                "slstm_fwd_reg": "reg", "slstm_fwd": "fma", "slstm_bwd_reg": "reg",
                "slstm_bwd": "fma", "gmm_fwd_wgmma": "wgmma",
-               "gmm_fwd_fma": "fma", "gmm_dw_wgmma": "wgmma", "gmm_dw_fma": "fma"}
+               "gmm_fwd_fma": "fma", "gmm_dw_wgmma": "wgmma", "gmm_dw_fma": "fma",
+               "adamw_flat": "update", "adamw_strided": "update", "sum_squares": "norm",
+               "decode_split": "split", "decode_combine": "split"}
 
 
 def _variant_tag(name: str) -> str:
@@ -611,7 +618,8 @@ def expected_launches(cfg, gen_tokens: int = GEN) -> dict:
     grouped expert products in prefill and in each decode step; a vision
     cross layer's or whisper decoder layer's cross k and v projections
     and its cross-attention in prefill only (decode reads them from the
-    cache), whisper's encoder in prefill only."""
+    cache), whisper's encoder in prefill only; one decode_attention per
+    attention call of a decode step (self and cross)."""
     head = 1  # the unembedding, tied or not
     prefill = dict.fromkeys(KERNELS, 0)
     step = dict.fromkeys(KERNELS, 0)
@@ -626,13 +634,14 @@ def expected_launches(cfg, gen_tokens: int = GEN) -> dict:
         n_attn = n_groups * n_self
         prefill.update(dos_matmul=7 * n_attn + 7 * n_groups + head,
                        flash_attention=n_attn + n_groups)
-        step.update(dos_matmul=7 * n_attn + 5 * n_groups + head)
+        step.update(dos_matmul=7 * n_attn + 5 * n_groups + head,
+                    decode_attention=n_attn + n_groups)
         return {"prefill": prefill, "decode": {k: n * (gen_tokens - 1) for k, n in step.items()}}
     if cfg.family == "encdec":  # encoder q k v o wi wo; decoder q k v o, cross q o (k v), wi wo
         n_enc, n_dec = cfg.n_enc_layers, cfg.n_layers
         prefill.update(dos_matmul=6 * n_enc + 10 * n_dec + head,
                        flash_attention=n_enc + 2 * n_dec)
-        step.update(dos_matmul=8 * n_dec + head)
+        step.update(dos_matmul=8 * n_dec + head, decode_attention=2 * n_dec)
         return {"prefill": prefill, "decode": {k: n * (gen_tokens - 1) for k, n in step.items()}}
     if cfg.family == "hybrid":
         n_attn = cfg.n_layers // cfg.attn_every  # shared-block calls
@@ -646,7 +655,7 @@ def expected_launches(cfg, gen_tokens: int = GEN) -> dict:
         n_attn, n_mamba = cfg.n_layers, 0
         gemms = 7 * n_attn + head
     prefill.update(dos_matmul=gemms, flash_attention=n_attn, ssm_scan=n_mamba)
-    step.update(dos_matmul=gemms)
+    step.update(dos_matmul=gemms, decode_attention=n_attn)
     return {"prefill": prefill, "decode": {k: n * (gen_tokens - 1) for k, n in step.items()}}
 
 
@@ -672,12 +681,14 @@ def cross_serve_variants(cfg, gen_tokens: int = GEN) -> dict:
     """A vision or whisper serve run's launches by kernel and variant:
     every prefill GEMM ``wgmma`` (whisper's tied unembedding included: B
     is the table's transposed view, ldb = E), every decode GEMM ``skinny``
-    (M = batch), every attention ``mma``."""
+    (M = batch), every prefill attention ``mma``, every decode attention
+    ``split``."""
     want = expected_launches(cfg, gen_tokens)
     out = {k: dict.fromkeys(fn.variants, 0) for k, fn in KERNELS.items()}
     out["dos_matmul"].update(wgmma=want["prefill"]["dos_matmul"],
                              skinny=want["decode"]["dos_matmul"])
     out["flash_attention"]["mma"] = want["prefill"]["flash_attention"]
+    out["decode_attention"]["split"] = want["decode"]["decode_attention"]
     return out
 
 
@@ -962,6 +973,173 @@ def _count_variant(fn, want, call):
     check(fn.variants == dict(before, **{want: before[want] + 1}),
           f"expected one {want} launch; counted {fn.variants} (before {before})")
     return out
+
+
+def decode_exact(q, kc, vc, *, length, window=None, scale=None, return_lse=False):
+    """The f32 result of ``decode_attention``'s semantics on the same
+    operands, ``(o, lse)``: q' = q scaled in f32 and rounded to q's dtype,
+    f32 scores and sums, p unrounded (the plain version rounds the
+    normalised p to the cache's dtype before P V; the kernel need not)."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    qr = (q.float() * scale).to(q.dtype).float()
+    return decode_attention_ref(qr, kc.float(), vc.float(), length=length, window=window,
+                                scale=1.0, return_lse=True)
+
+
+def _dead_rows_agree(got, exact) -> bool:
+    """Whether ``got`` is infinite (an lse of -inf: a row with no visible
+    slot) exactly where ``exact`` is."""
+    return bool((torch.isinf(got) == torch.isinf(exact)).all())
+
+
+def events_ms(fn, reps=10) -> float:
+    """Device ms per call of ``fn()`` between CUDA events, over ``reps``
+    calls after two warm ones (for calls that launch many kernels each or
+    that a graph capture cannot hold)."""
+    fn(), fn()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def check_decode(gen, b, s, h, kvh, d, dtype, length=None, window=None, return_lse=False,
+                 time_it=False, kv_dtype=None, strided=False):
+    """``decode_attention`` on the card against ``decode_exact`` of the same
+    operands: 1e-5 absolute (phase 4's flash gate) plus one bf16 rounding
+    of each entry of a bf16 output; the lse within 1e-5 of its size; a row
+    with no visible slot exact zeros and lse -inf. ``length``: an int (s
+    if None) or one per row (a tensor on the card). ``kv_dtype``: the
+    cache's, if not q's; ``strided``: the caches are the slots s/2.. of
+    twice as long a cache. Timed: the kernel, the plain version and SDPA
+    with a boolean mask, on input sets cold in L2."""
+    kv_dtype = kv_dtype or dtype
+    length = s if length is None else length
+    lengths = torch.tensor(length, device="cuda") if isinstance(length, list) else length
+    rows = length if isinstance(length, list) else [length] * b
+    es, kv_es = torch.finfo(dtype).bits // 8, torch.finfo(kv_dtype).bits // 8
+    per_set = b * h * d * es + 2 * b * s * kvh * d * kv_es
+    n_sets = max(1, math.ceil(COLD_BYTES / per_set)) if time_it else 1
+
+    def one_set():
+        q = torch.randn(b, 1, h, d, generator=gen, device="cuda").to(dtype)
+        kv = torch.randn(2, b, 2 * s if strided else s, kvh, d, generator=gen,
+                         device="cuda").to(kv_dtype)
+        if strided:
+            kv = kv[:, :, s:]
+        return q, kv[0], kv[1]
+
+    sets = [one_set() for _ in range(n_sets)]
+    q, kc, vc = sets[0]
+    kw = dict(length=lengths, window=window, return_lse=return_lse)
+    got = _count_variant(decode_attention, "split", lambda: decode_attention(q, kc, vc, **kw))
+    plain = decode_attention_ref(q, kc, vc, **kw)
+    exact_o, exact_lse = decode_exact(q, kc, vc, **kw)
+    torch.cuda.synchronize()
+    o, lse = got if return_lse else (got, None)
+    plain_o = plain[0] if return_lse else plain
+    dead = torch.isinf(exact_lse)
+    tol = 1e-5 + (2.0**-8 * exact_o.abs() if o.dtype == torch.bfloat16 else 0.0)
+    ok = (o.dtype == (torch.float32 if return_lse else dtype) and o.shape == q.shape
+          and bool(((o.float() - exact_o).abs() <= tol).all()) and bool((o[dead] == 0).all()))
+    if return_lse:
+        live = ~dead
+        ok = ok and bool((lse[dead] == -math.inf).all()) and bool(
+            ((lse - exact_lse)[live].abs() <= 1e-5 * exact_lse[live].abs().clamp(min=1)).all())
+    tag = (f"B{b} S{s} H{h}/{kvh} D{d} q {str(dtype).split('.')[-1]} cache "
+           f"{str(kv_dtype).split('.')[-1]} length {length} window {window}"
+           f"{' lse' if return_lse else ''}{' strided' if strided else ''}")
+    row = {"case": tag, "max_abs_err": (o.float() - plain_o.float()).abs().max().item(),
+           "max_abs_err_vs_f32": (o.float() - exact_o).abs().max().item(),
+           "dead_rows": int(dead.sum()), "ok": ok}
+    if time_it:
+        row["bytes"], row["ops"] = flash_ops.decode_work(b, s, h, kvh, d, es, kv_es, rows, window,
+                                                         return_lse)[:2]
+        row["bound_ms"], row["bound_by"] = bound_ms(row["bytes"], row["ops"], kv_dtype)
+        row["ms"] = cuda_ms(lambda i: decode_attention(*sets[i], **kw), n_sets)
+        row["plain_ms"] = cuda_ms(lambda i: decode_attention_ref(*sets[i], **kw), n_sets)
+        pos = torch.arange(s, device="cuda")
+        n = lengths.reshape(-1, 1) if isinstance(lengths, torch.Tensor) else lengths
+        mask = ((pos < n) & (pos >= n - window) if window is not None else pos < n)
+        mask = mask.expand(b, s)[:, None, None, :]
+
+        def sdpa(i):
+            q_, k_, v_ = (t.transpose(1, 2) for t in sets[i])
+            return F.scaled_dot_product_attention(q_, k_, v_, attn_mask=mask, enable_gqa=True)
+
+        row["library_ms"] = cuda_ms(sdpa, n_sets) if kv_dtype == dtype else None
+    print(f"[kernels] decode_attention {tag}: max|err| vs f32 {row['max_abs_err_vs_f32']:.3g}, "
+          f"vs plain {row['max_abs_err']:.3g}, {row['dead_rows']} rows with no slot"
+          + (f"; kernel {row['ms']*1e3:.2f} us, plain {row['plain_ms']*1e3:.2f} us, sdpa "
+             + (f"{row['library_ms']*1e3:.2f} us" if row["library_ms"] is not None else "n/a")
+             + f", bound {row['bound_ms']*1e3:.2f} us ({row['bound_by']})" if time_it else "")
+          + ("" if ok else "  FAIL"), flush=True)
+    check(ok, f"decode_attention {tag} disagrees with its semantics' f32 result")
+    return row
+
+
+def decode_paths() -> list:
+    """Each serving path's decode attention calls of one step, mid-way
+    through its 31 steps: (path, calls a step, b, cache slots, h, kvh, d,
+    length) for its self caches (PROMPT + GEN slots) and its cross caches
+    (every key visible)."""
+    half = PROMPT + GEN // 2
+    out = []
+    for arch in (ARCH, HYBRID, MOE, VLM, WHISPER):
+        cfg = serve_cfg(arch)
+        n = expected_launches(cfg)["decode"]["decode_attention"] // (GEN - 1)
+        shape = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_)
+        if cfg.family == "vlm":
+            n_groups = decoder._vlm_groups(cfg)[0]
+            out.append((f"{arch} cross", n_groups, BATCH, cfg.n_image_tokens, *shape,
+                        cfg.n_image_tokens))
+            n -= n_groups
+        elif cfg.family == "encdec":
+            out.append((f"{arch} cross", n // 2, BATCH, cfg.enc_seq, *shape, cfg.enc_seq))
+            n //= 2
+        out.append((arch, n, BATCH, PROMPT + GEN, *shape, half))
+    return out
+
+
+def phase_decode_kernels() -> tuple[dict, float]:
+    """Phase 4's decode attention: every serving path's decode shapes in
+    bf16, timed, summed over one decode step of each path; then f32, a
+    window, per-batch lengths with a zero-length row, ``return_lse``, a
+    strided cache and a bf16 q over an f32 cache (the vision model with
+    f32 image embeddings). Returns the summed row and the largest
+    |kernel - plain|."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    total = {k: 0.0 for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bytes", "ops")}
+    err, rows = 0.0, []
+    for path, calls, b, s, h, kvh, d, length in decode_paths():
+        row = check_decode(gen, b, s, h, kvh, d, torch.bfloat16, length=length, time_it=True)
+        rows.append(dict(row, path=path, calls_per_step=calls))
+        for k in total:
+            total[k] += calls * row[k]
+        err = max(err, row["max_abs_err"])
+        lens = [length, 0] + [length - 1] * (b - 2)  # per-batch lengths, a zero-length row
+        for dtype in (torch.float32, torch.bfloat16):
+            rows.append(check_decode(gen, b, s, h, kvh, d, dtype, length=lens, return_lse=True))
+        rows.append(check_decode(gen, b, s, h, kvh, d, torch.float32, length=length))
+    for dtype in (torch.bfloat16, torch.float32):
+        rows.append(check_decode(gen, 3, 513, 4, 1, 256, dtype, length=[513, 7, 200], window=64))
+        rows.append(check_decode(gen, 2, 40, 8, 1, 32, dtype, length=40, window=0))
+        rows.append(check_decode(gen, 2, 200, 40, 8, 128, dtype, length=[1, 199], window=24,
+                                 return_lse=True))
+        rows.append(check_decode(gen, BATCH, 1500, 16, 16, 64, dtype, length=900, strided=True))
+    rows.append(check_decode(gen, BATCH, 1600, 32, 8, 128, torch.bfloat16,
+                             kv_dtype=torch.float32))
+    err = max([err] + [r["max_abs_err"] for r in rows])
+    total["bound_by"] = ("bytes" if total["bytes"] / HBM_BYTES_S
+                         >= total["ops"] / PEAK_OPS_S[torch.bfloat16] else "operations")
+    print(f"[kernels] decode_attention, one decode step of each serving path: kernel "
+          f"{total['ms']:.4f} ms, plain {total['plain_ms']:.4f} ms, sdpa {total['library_ms']:.4f} "
+          f"ms, bound {total['bound_ms']:.4f} ms ({total['bound_by']})", flush=True)
+    RESULTS["decode_attention"] = {"rows": rows, "step_total": total}
+    return total, err
 
 
 def check_flash(gen, b, sq, skv, h, kvh, d, dtype, causal=True, window=None, q_offset=0,
@@ -1513,18 +1691,22 @@ def phase_profile(arch, model, params, cache, tok, step_p50_s):
     dos_ms = sum(us for n, us in by_name.items() if "dos_matmul" in n) / 1e3 / PROFILE_STEPS
     slstm_ms = sum(us for n, us in by_name.items() if "slstm" in n) / 1e3 / PROFILE_STEPS
     gmm_ms = sum(us for n, us in by_name.items() if "gmm_" in n) / 1e3 / PROFILE_STEPS
+    dec_ms = sum(us for n, us in by_name.items() if "decode_split" in n or "decode_combine" in n
+                 ) / 1e3 / PROFILE_STEPS
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     print(f"[profile] {arch} decode step: device busy {busy_ms:.3f} ms of a {step_p50_s*1e3:.3f} ms "
           f"step (p50 without profiler): idle share {idle:.3f}; {n_ops / PROFILE_STEPS:.0f} "
           f"device ops per step; dos_matmul {dos_ms:.3f} ms per step"
           + (f", slstm_scan {slstm_ms:.3f} ms" if slstm_ms else "")
           + (f", grouped_matmul {gmm_ms:.3f} ms ({gmm_ms / busy_ms:.3f} of busy)"
-             if gmm_ms else ""), flush=True)
+             if gmm_ms else "")
+          + (f", decode_attention {dec_ms:.3f} ms" if dec_ms else ""), flush=True)
     for name, us in top:
         print(f"[profile]   {us / PROFILE_STEPS:9.1f} us/step  {name[:90]}")
     RESULTS["profile"][arch] = {"busy_ms_per_step": busy_ms, "idle_share": idle,
                                 "dos_matmul_ms_per_step": dos_ms, "slstm_ms_per_step": slstm_ms,
                                 "grouped_matmul_ms_per_step": gmm_ms,
+                                "decode_attention_ms_per_step": dec_ms,
                                 "device_ops_per_step": n_ops / PROFILE_STEPS,
                                 "top_us_per_step": {n: us / PROFILE_STEPS for n, us in top}}
 
@@ -1538,13 +1720,13 @@ def _cal_kernel(row):
     """The kernel and variant a calibration row's calls must launch, from
     the row alone: bf16 GEMMs plan to skinny at M <= 16 and to wgmma above;
     prefill attention and the scan take f32 operands, so fma; a decode row
-    runs plain torch (no kernel)."""
+    launches the decode kernel (``split``)."""
     fam, p = row["family"], row["params"]
     if fam == "gemm":
         return "dos_matmul", ("skinny" if p["m"] <= 16 else "wgmma")
     if fam == "ssm":
         return "ssm_scan", "fma"
-    return ("flash_attention", "fma") if p["mode"] == "prefill" else (None, None)
+    return ("flash_attention", "fma") if p["mode"] == "prefill" else ("decode_attention", "split")
 
 
 def _cal_check_output(row, seed) -> float:
@@ -1564,9 +1746,9 @@ def _cal_check_output(row, seed) -> float:
     elif mode == "prefill":
         plain = exact = attention_ref(*args, causal=True)
         tol = 1e-5  # f32 math on both sides, O(1) outputs
-    else:  # plain torch on both devices: the card against the CPU
-        plain = exact = calibrate._kernel_fn(fam, mode)(
-            *(a.cpu() if isinstance(a, torch.Tensor) else a for a in args)).to("cuda")
+    else:  # decode: f32 operands, f32 math on both sides
+        q, kc, vc, length = args
+        plain = exact = decode_attention_ref(q, kc, vc, length=length)
         tol = 1e-5
     torch.cuda.synchronize()
     check(bool(((out - exact).abs() <= tol).all()),
@@ -1596,8 +1778,8 @@ def _recording_measure_row(per_row: list):
 
 def _check_row_launches(per_row, calls, what) -> tuple[dict, dict]:
     """Each row must launch its planned kernel and variant ``calls`` times
-    and nothing else (a decode row nothing). Returns the counts summed
-    over the rows, and by variant."""
+    and nothing else. Returns the counts summed over the rows, and by
+    variant."""
     counts = {k: sum(c[k] for _, c, _ in per_row) for k in KERNELS}
     by_variant: dict = {}
     for row, c, variants in per_row:
@@ -2215,7 +2397,27 @@ TRAIN_F32_TOL = 1e-3
 RESTART_LAYERS, RESTART_STEPS, RESTART_FAULT = 4, 16, 12
 
 
+def param_leaves(cfg) -> int:
+    """The parameter tree's leaves: AdamW launches its update and its sum
+    of squares once each per leaf and train step."""
+    return len(list(leaves(build(cfg, "cpu").defs)))  # the tree alone: nothing allocated
+
+
+def adamw_variants(cfg) -> dict:
+    """AdamW's launches by variant in one train step."""
+    n = param_leaves(cfg)
+    return {"update": n, "norm": n}
+
+
 def expected_train_launches(cfg) -> dict:
+    """Kernel launches of one train step with remat, AdamW's two a leaf
+    (``param_leaves``) beside what the layers launch."""
+    out = _layer_train_launches(cfg)
+    out["adamw"] = 2 * param_leaves(cfg)
+    return out
+
+
+def _layer_train_launches(cfg) -> dict:
     """Kernel launches of one train step with remat as the layers call
     them: each projection's GEMM in the forward, again in each
     checkpointed layer's recompute (the unembedding is outside them), and
@@ -2271,6 +2473,7 @@ def expected_train_variants(cfg) -> dict:
     for k in ("ssm_scan", "ssm_scan_bwd"):
         out[k].update(mma=n_m, fma=n_m)
     out["slstm_scan"]["reg"] = out["slstm_scan_bwd"]["reg"] = n_s
+    out["adamw"] = adamw_variants(cfg)
     return out
 
 
@@ -2578,6 +2781,144 @@ def check_dos_function(gen, m, k, n, tied, time_it=True, variant="wgmma"):
     return row
 
 
+def _adamw_set(gen, shape, gdtype):
+    """p, g (``gdtype``), m and v (positive) of ``shape`` on the card."""
+    def r(scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+    return r(), r().to(gdtype), r(0.1), r(0.1).square()
+
+
+def _ulps_apart(got, want) -> float:
+    """max|got - want| in f32 ulps of max|want|."""
+    scale = want.abs().max().clamp(min=torch.finfo(torch.float32).tiny)
+    return ((got - want).abs().max() / (torch.nextafter(scale, scale * 2) - scale)).item()
+
+
+def _plain_adamw_update(params, grads, state, cfg):
+    """``optim.adamw_update`` through the plain versions: ``sum_squares_ref``
+    and ``adamw_ref``, in place. Returns the global norm."""
+    from repro_torch.optim import schedule
+
+    step = state["step"] + 1
+    lr = schedule(cfg, step)
+    total = 0
+    for s_ in sum_squares_ref([g for _, g in leaves(grads)]):
+        total = total + s_
+    gnorm = torch.sqrt(total)
+    scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
+    bc1, bc2 = (1 - torch.pow(b, step.float()) for b in (cfg.b1, cfg.b2))
+    for (_, p), (_, g), (_, m), (_, v) in zip(*(leaves(t) for t in (params, grads, state["m"],
+                                                                   state["v"]))):
+        adamw_ref(p, g, m, v, scale, lr, bc1, bc2, b1=cfg.b1, b2=cfg.b2, eps=cfg.eps,
+                  weight_decay=cfg.weight_decay)
+    return gnorm
+
+
+def phase_adamw() -> tuple[dict, float]:
+    """Phase 12's AdamW kernels. The update bit for bit against
+    ``adamw_ref`` given the same scale, lr and bias corrections, with f32
+    and bf16 gradients, at every leaf of smollm-135m and the largest leaf
+    of each other train path; the sums of squares the same on every run
+    and within 1e-5 of the plain sums (another f32 order); one whole
+    ``adamw_update`` of smollm-135m within 4 ulp of each leaf's scale of
+    the same step through the plain versions (only the norm's order
+    differs); then that step timed: the kernels (a sum of squares and an
+    update per leaf), the plain versions and ``torch._fused_adamw_`` over
+    the same tensors. Returns the timed row and the largest difference
+    from the plain update."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    cfg = OptConfig()
+    kw = dict(b1=cfg.b1, b2=cfg.b2, eps=cfg.eps, weight_decay=cfg.weight_decay)
+    scalars = [torch.tensor(x, device="cuda") for x in (0.37, 2.5e-4, 0.1, 0.0975)]
+    train_cfgs = {ARCH: get_config(ARCH), HYBRID: get_config(HYBRID), XLSTM: get_config(XLSTM),
+                  MOE: dataclasses.replace(get_config(MOE), n_layers=MOE_TRAIN_LAYERS),
+                  VLM: cross_train_cfg(VLM), WHISPER: cross_train_cfg(WHISPER)}
+    shapes = {a: [tuple(d.shape) for _, d in leaves(build(c, "cpu").defs)]
+              for a, c in train_cfgs.items()}
+    per_step = {a: 2 * len(v) for a, v in shapes.items()}
+    print(f"[adamw] launches per train step (an update and a sum of squares a leaf): {per_step}",
+          flush=True)
+    cases = shapes[ARCH] + [max(v, key=math.prod) for a, v in shapes.items() if a != ARCH]
+    err = 0.0
+    for gdtype in (torch.float32, torch.bfloat16):
+        for shape in cases + [(1,), (1001,)]:
+            p, g, m, v = _adamw_set(gen, shape, gdtype)
+            want = [t.clone() for t in (p, m, v)]
+            adamw_ref(want[0], g, want[1], want[2], *scalars, **kw)
+            _count_variant(adamw, "update", lambda: adamw(p, g, m, v, *scalars, **kw))
+            torch.cuda.synchronize()
+            err = max(err, max((a - b).abs().max().item() for a, b in zip((p, m, v), want)))
+            check(all(torch.equal(a, b) for a, b in zip((p, m, v), want)),
+                  f"adamw {shape} with a {gdtype} gradient is not the plain update bit for bit")
+            del p, g, m, v, want
+    print(f"[adamw] the update bit for bit against adamw_ref at {len(cases) + 2} leaf shapes "
+          f"(smollm-135m's {len(shapes[ARCH])}, each train path's largest, two odd sizes), f32 "
+          "and bf16 gradients", flush=True)
+
+    model = build(get_config(ARCH), "cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    grads = map_tree(lambda t: torch.randn(t.shape, generator=gen, device="cuda") * 1e-3, params)
+    state = {"m": map_tree(lambda t: torch.randn_like(t) * 1e-4, params),
+             "v": map_tree(lambda t: torch.rand_like(t) * 1e-7, params),
+             "step": torch.tensor(5, dtype=torch.int32, device="cuda")}
+    gs = [g for _, g in leaves(grads)]
+    sums = sum_squares(gs)
+    again = sum_squares(gs)
+    ref_sums = sum_squares_ref(gs)
+    check(torch.equal(sums, again), "the sums of squares differ between two runs")
+    check(bool(((sums - ref_sums).abs() <= 1e-5 * ref_sums).all()),
+          f"the sums of squares {sums.tolist()} are not the plain {ref_sums.tolist()}")
+    kern = (map_tree(torch.clone, params), map_tree(torch.clone, state))
+    plain = (map_tree(torch.clone, params), map_tree(torch.clone, state))
+    _, new_state, gnorm = adamw_update(kern[0], grads, kern[1], cfg)
+    plain_norm = _plain_adamw_update(plain[0], grads, plain[1], cfg)
+    worst = {"gnorm": _ulps_apart(gnorm, plain_norm)}
+    for name, a, b in (("p", kern[0], plain[0]), ("m", new_state["m"], plain[1]["m"]),
+                       ("v", new_state["v"], plain[1]["v"])):
+        for (path, x), (_, y) in zip(leaves(a), leaves(b)):
+            worst[f"{name} {'.'.join(map(str, path))}"] = _ulps_apart(x, y)
+    top = max(worst.items(), key=lambda kv: kv[1])
+    print(f"[adamw] smollm-135m's whole step against the plain step: gnorm "
+          f"{gnorm.item():.6g} ({worst['gnorm']:.2f} ulp), worst leaf {top[0]} at {top[1]:.2f} "
+          f"ulp of its scale", flush=True)
+    check(top[1] <= 4, f"adamw_update's {top[0]} is {top[1]:.2f} ulp from the plain step's")
+    del kern, plain, new_state
+
+    ps, ms, vs = (list(x for _, x in leaves(t)) for t in (params, state["m"], state["v"]))
+    scale, lr, bc1, bc2 = scalars
+
+    def kernels():
+        sum_squares(gs)
+        for p, g, m, v in zip(ps, gs, ms, vs):
+            adamw(p, g, m, v, scale, lr, bc1, bc2, **kw)
+
+    def plain_fn():
+        sum_squares_ref(gs)
+        for p, g, m, v in zip(ps, gs, ms, vs):
+            adamw_ref(p, g, m, v, scale, lr, bc1, bc2, **kw)
+
+    steps = [torch.zeros((), device="cuda") for _ in ps]
+
+    def library():
+        torch._fused_adamw_(ps, gs, ms, vs, [], steps, lr=2.5e-4, beta1=cfg.b1, beta2=cfg.b2,
+                            weight_decay=cfg.weight_decay, eps=cfg.eps, amsgrad=False,
+                            maximize=False)
+
+    n = [p.numel() for p in ps]
+    n_bytes = sum(adamw_ops.work(k, 4).bytes + adamw_ops.norm_work(k, 4).bytes for k in n)
+    n_ops = sum(adamw_ops.work(k, 4).ops + adamw_ops.norm_work(k, 4).ops for k in n)
+    bound, by = bound_ms(n_bytes, n_ops, torch.float32)
+    row = {"path": ARCH, "leaves": len(ps), "elements": sum(n), "launches_per_step": 2 * len(ps),
+           "ms": events_ms(kernels), "plain_ms": events_ms(plain_fn),
+           "library_ms": events_ms(library), "bound_ms": bound, "bound_by": by,
+           "bytes": n_bytes, "ops": n_ops, "whole_step_ulps": worst, "launches_by_path": per_step}
+    print(f"[adamw] one smollm-135m step ({len(ps)} leaves, {sum(n):,} f32 parameters): kernels "
+          f"{row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, torch._fused_adamw_ "
+          f"{row['library_ms']:.4f} ms, bound {bound:.4f} ms ({by})", flush=True)
+    RESULTS["adamw"] = row
+    return row, err
+
+
 def phase_train_kernels():
     """Phase 12's kernel checks: the forward's lse and the flash backward
     at the training shape (timed) and edge shapes, and the dos_matmul
@@ -2784,6 +3125,7 @@ def _profile_train_step(run, step_p50_s, what, kernels, host_ops=True):
     if not n_ops:
         print(f"[profile] {what}: the profiler recorded no device time: idle share not measured")
         return {}
+    kernels = dict(kernels, **{"adamw update": "adamw_", "adamw norm": "sum_squares"})
     busy_ms = busy / 1e3
     kern = {label: sum(us for n, us in by_name.items() if key in n) / 1e3
             for label, key in kernels.items()}
@@ -3679,7 +4021,7 @@ def moe_serve_variants(cfg, gen_tokens: int = GEN) -> dict:
     decode together: the bf16 projections ``wgmma`` in prefill and
     ``skinny`` in decode (M = batch), the router's f32 product ``f32``,
     the expert products as ``plan`` picks them (``wgmma``), every prefill
-    attention ``mma``."""
+    attention ``mma``, every decode attention ``split``."""
     n, per = cfg.n_layers, moe_layer_gemms(cfg)
     out = {k: dict.fromkeys(fn.variants, 0) for k, fn in KERNELS.items()}
     out["dos_matmul"].update(wgmma=(per - 1) * n + 1, skinny=((per - 1) * n + 1) * (gen_tokens - 1),
@@ -3688,6 +4030,7 @@ def moe_serve_variants(cfg, gen_tokens: int = GEN) -> dict:
     gmm[gmm_variant(cfg, BATCH * PROMPT)] += 3 * n
     gmm[gmm_variant(cfg, BATCH)] += 3 * n * (gen_tokens - 1)
     out["flash_attention"]["mma"] = n
+    out["decode_attention"]["split"] = n * (gen_tokens - 1)
     return out
 
 
@@ -3714,6 +4057,7 @@ def moe_train_variants(cfg) -> dict:
         total["grouped_matmul_dw"])
     for k in ("flash_attention", "flash_attention_bwd"):
         out[k]["mma"] = total[k]
+    out["adamw"] = adamw_variants(cfg)
     return out
 
 
@@ -4260,7 +4604,8 @@ def cross_train_launches(cfg) -> dict:
     encoder or the unembedding: the reference checkpoints the same), its
     dB, and its dA unless A needs no gradient (a vision cross layer's k
     and v read the image embeddings); a flash forward per attention, again
-    in a recompute, and one flash backward per attention."""
+    in a recompute, and one flash backward per attention; AdamW's two
+    launches a leaf."""
     out = dict.fromkeys(KERNELS, 0)
     if cfg.family == "vlm":
         n_groups, n_self = decoder._vlm_groups(cfg)
@@ -4273,6 +4618,7 @@ def cross_train_launches(cfg) -> dict:
         fwd = 6 * n_enc + 10 * n_dec + 1
         out.update(dos_matmul=fwd + 10 * n_dec + 2 * fwd, flash_attention=n_enc + 4 * n_dec,
                    flash_attention_bwd=n_enc + 2 * n_dec)
+    out["adamw"] = 2 * param_leaves(cfg)
     return out
 
 
@@ -4287,6 +4633,7 @@ def cross_train_variants(cfg) -> dict:
     out["dos_matmul"].update(wgmma=total["dos_matmul"] - general, general=general)
     for k in ("flash_attention", "flash_attention_bwd"):
         out[k]["mma"] = total[k]
+    out["adamw"] = adamw_variants(cfg)
     return out
 
 
@@ -5018,7 +5365,7 @@ FAMILY_LAUNCHERS = {
     "flash_attention_bwd": (flash_ops, "_backward"), "ssm_scan": (ssm_ops, "_forward"),
     "ssm_scan_bwd": (ssm_ops, "_backward"), "slstm_scan": (slstm_ops, "_forward"),
     "slstm_scan_bwd": (slstm_ops, "_backward"), "grouped_matmul": (gmm_ops, "_launch_forward"),
-    "grouped_matmul_dw": (gmm_ops, "_launch_dw"),
+    "grouped_matmul_dw": (gmm_ops, "_launch_dw"), "decode_attention": (flash_ops, "_decode"),
 }
 
 
@@ -5172,6 +5519,15 @@ def _family_gate(kname, args, kw, got, dtype):
                                   q_offset=kw["q_offset"])
         ok, errs, ref_max, used = _bwd_gate(got, exact, dtype)
         return ok, max(errs), ref_max, used
+    elif kname == "decode_attention":
+        q, kc, vc = args
+        exact, rel = list(decode_exact(q, kc, vc, **kw)), 1e-5
+        outs = list(got) if kw["return_lse"] else [got]
+        exact = exact[:len(outs)]
+        if not all(_dead_rows_agree(g, x) for g, x in zip(outs, exact)):
+            return False, math.inf, 0.0, None
+        exact = [torch.where(torch.isinf(x), 0.0, x) for x in exact]  # lse -inf rows agreed
+        outs = [torch.where(torch.isinf(g), 0.0, g) for g in outs]
     elif kname == "ssm_scan":
         u, ld, B, C, chunk = args[:5]
         exact, outs, rel = list(ssm_scan_chunked(f(u), ld, f(B), f(C), chunk)), list(got[:2]), 1e-4
@@ -5230,6 +5586,14 @@ def _family_work(kname, args, kw):
         if kname == "flash_attention_bwd":
             return (*flash_ops.bwd_work(b, sq, skv, h, kvh, d, es, *mask)[:2], q.dtype)
         return (*flash_ops.work(b, sq, skv, h, kvh, d, es, *mask, kw["with_lse"])[:2], q.dtype)
+    if kname == "decode_attention":
+        q, kc = args[0], args[1]
+        b, _, h, d = q.shape
+        length = kw["length"]
+        rows = length.expand(b).tolist() if isinstance(length, torch.Tensor) else [length] * b
+        return (*flash_ops.decode_work(b, kc.shape[1], h, kc.shape[2], d, q.element_size(),
+                                       kc.element_size(), rows, kw["window"],
+                                       kw["return_lse"])[:2], kc.dtype)
     if kname in ("ssm_scan", "ssm_scan_bwd"):
         u, B = args[0], args[2]
         bt, s, h, p = u.shape
@@ -5654,8 +6018,8 @@ EXAMPLES = {
 # what each example must launch on the card
 EXAMPLE_KERNELS = {
     "quickstart.py": ("dos_matmul", "flash_attention", "flash_attention_bwd"),
-    "serve_decode.py": ("dos_matmul", "flash_attention"),
-    "train_lm.py": ("dos_matmul", "flash_attention", "flash_attention_bwd"),
+    "serve_decode.py": ("dos_matmul", "flash_attention", "decode_attention"),
+    "train_lm.py": ("dos_matmul", "flash_attention", "flash_attention_bwd", "adamw"),
 }
 # the examples whose every line the card prints as the CPU does (the
 # engine's exact integers, the thermal solve's bits)
@@ -5803,7 +6167,7 @@ def phase_families_and_meta():
 
 
 ONLY = {"front-door": phase_front_door, "families": phase_families_and_meta,
-        "report": phase_report}
+        "report": phase_report, "decode": phase_decode_kernels, "adamw": phase_adamw}
 
 
 def main(argv=None) -> int:
@@ -5813,7 +6177,8 @@ def main(argv=None) -> int:
                     help="only time every dos_matmul tiling at the main paths' shapes, and stop")
     ap.add_argument("--only", metavar="PHASES",
                     help="only phases 1-2 and these, comma-separated (front-door: 11, families: "
-                         "19 and 20, report: 21), and stop (no result line)")
+                         "19 and 20, report: 21, decode: 4's decode attention, adamw: 12's "
+                         "AdamW), and stop (no result line)")
     args = ap.parse_args(argv)
     details = args.details
     t0 = time.perf_counter()
@@ -5861,6 +6226,7 @@ def main(argv=None) -> int:
     launched = {k for c in counts.values() for k, n in c.items() if n > 0}
     check(launched == set(KERNELS), f"kernels no main path launched: {set(KERNELS) - launched}")
     totals, main_err = timed(phase_kernels)
+    decode_row, decode_err = timed(phase_decode_kernels)
     for arch in PATHS:
         timed(phase_profile_prefill, arch)
     timed(phase_profile, ARCH, *timed(phase_e2e, ARCH)[0], step_p50_s[ARCH])
@@ -5872,13 +6238,15 @@ def main(argv=None) -> int:
     RESULTS["hybrid_cpu_bf16_vs_f32"] = sens
     timed(phase_profile, HYBRID, *serve_decode_state(HYBRID), step_p50_s[HYBRID])
     counts["calibration"], cal_err = timed(phase_calibration)
-    check(all(counts["calibration"][k] > 0 for k in ("dos_matmul", "flash_attention", "ssm_scan")),
+    check(all(counts["calibration"][k] > 0 for k in ("dos_matmul", "flash_attention", "ssm_scan",
+                                                     "decode_attention")),
           f"a kernel calibration never launched: {counts['calibration']}")
     timed(phase_engine)
     timed(phase_thermal, thermal_cpu)
     timed(phase_systolic)
     counts["front door calibration"] = timed(phase_front_door)
     bwd_row, bwd_err = timed(phase_train_kernels)
+    adamw_row, adamw_err = timed(phase_adamw)
     timed(phase_train_profile, train_state, train_p50)
     del train_state
     torch.cuda.empty_cache()
@@ -6007,6 +6375,24 @@ def main(argv=None) -> int:
                                 for p in (MOE, f"train {MOE}"))
                          for v in gmm_ops.VARIANTS},
         })
+    kernels.append({
+        "name": "decode_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/ops.py:106 (decode_attention; jnp "
+                    "einsums, not a Pallas kernel)",
+        "launches": sum(c["decode_attention"] for c in counts.values()),
+        "max_abs_err": max(decode_err, cal_err["decode_attention"],
+                           family_err.get("decode_attention", 0.0)),
+        **{k: decode_row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+    })
+    kernels.append({
+        "name": "adamw", "route": "cuda", "source": "src/repro_torch/kernels/csrc/adamw.cu",
+        "replaces": "src/repro/optim/adamw.py:58 (global_norm and adamw_update; jnp, not a "
+                    "Pallas kernel)",
+        "launches": sum(c["adamw"] for c in counts.values()),
+        "max_abs_err": adamw_err,
+        **{k: adamw_row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+    })
     RESULTS["kernels"] = kernels
     RESULTS["wall_s"] = time.perf_counter() - t0
     if details:
@@ -6025,7 +6411,10 @@ def main(argv=None) -> int:
           "calls of one smollm-135m train step, for ssm_scan_bwd those of one zamba2-2.7b train "
           "step, for slstm_scan_bwd those of one xlstm-125m train step and for "
           "grouped_matmul_dw those of one deepseek-moe-16b train step at "
-          f"{MOE_TRAIN_LAYERS} layers")
+          f"{MOE_TRAIN_LAYERS} layers, for decode_attention those of one decode step of each "
+          "serving path that attends (smollm-135m, zamba2-2.7b, deepseek-moe-16b, "
+          "llama-3.2-vision-11b, whisper-medium) and for adamw one smollm-135m train step's "
+          "sums of squares and updates (library: torch._fused_adamw_, no clip)")
     print("[done] wall s by phase: " + ", ".join(f"{k[:-2]} {v:.1f}"
                                                  for k, v in RESULTS["phases"].items()))
     print(json.dumps({"kernels": kernels}))

@@ -272,7 +272,7 @@ def shape_grid(spec: CalibrateSpec) -> list[dict]:
 @functools.lru_cache(maxsize=None)
 def _kernel_fn(family: str, mode: str = ""):
     """Cached wrapper per (family, mode) over the port's kernel wrappers:
-    ``dos_matmul`` (bf16), ``flash_attention`` (causal), the plain
+    ``dos_matmul`` (bf16), ``flash_attention`` (causal),
     ``decode_attention`` and ``ssm_scan``'s output. On CUDA tensors each
     launches its kernel (built at first use) or raises; on CPU tensors
     each runs its plain version."""

@@ -37,22 +37,33 @@ and PV (and the backward's five products), whatever the mask hides.
 
 ``decode_attention``: one query token against a KV cache. It is not a
 Pallas kernel in the JAX package either (a batched GEMV that XLA
-compiles); here it stays plain PyTorch on every device.
+compiles). For CPU tensors it runs the plain ``decode_attention_ref``;
+for CUDA tensors it launches the split-KV kernel of
+``csrc/decode_attention.cu`` (``split_plan`` picks the number of slices
+from the shapes alone; above one slice a second launch joins them), or
+raises. ``length`` is an int, passed by value, or a per-batch integer
+tensor already on q's device, read by the kernel: no host sync and no
+host-to-device copy per call. A q whose dtype is not the cache's is read
+as it is (no promotion): q' rounds to q's dtype, the cache is read in its
+own. ``decode_attention.launches`` counts calls that launched (one
+``split`` a call, whatever its number of slices); meta tensors are
+charged ``decode_work``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+import numbers
 
 import torch
 
 from .. import _build
 from .._meta import Work, aligned16, charge, einsum_flops, kernel_device, visible_pairs
-from .ref import attention_bwd_ref, attention_fwd_ref, attention_ref
+from .ref import attention_bwd_ref, attention_fwd_ref, attention_ref, decode_attention_ref
 
 __all__ = ["HEAD_DIMS", "VARIANTS", "flash_attention", "flash_attention_bwd", "decode_attention",
-           "plan", "work", "bwd_work"]
+           "plan", "work", "bwd_work", "decode_work", "split_plan", "visible_slots"]
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 80, 128, 256)  # built for both variants
@@ -61,6 +72,11 @@ _CODES = {"fma": 0, "mma": 1}
 _NO_WINDOW = 2**62  # wider than any sequence: no window mask
 _LIB = None
 _BWD_LIB = None
+_DECODE_LIB = None
+# decode: slots a tile; blocks a call aims at (two per SM of an H100's 132);
+# the largest GQA group a block takes (csrc/decode_attention.cu)
+_DECODE_TILE, _DECODE_BLOCKS, _DECODE_MAX_GROUP = 128, 264, 16
+_LENGTH_DTYPES = {torch.int32: 0, torch.int64: 1}
 
 
 def _lib() -> ctypes.CDLL:
@@ -90,6 +106,19 @@ def _bwd_lib() -> ctypes.CDLL:
         lib.flash_attention_bwd_launch.restype = ctypes.c_int
         _BWD_LIB = lib
     return _BWD_LIB
+
+
+def _decode_lib() -> ctypes.CDLL:
+    global _DECODE_LIB
+    if _DECODE_LIB is None:
+        lib = _build.load("decode_attention")
+        lib.decode_attention_launch.argtypes = (
+            [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 10
+            + [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
+               ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        lib.decode_attention_launch.restype = ctypes.c_int
+        _DECODE_LIB = lib
+    return _DECODE_LIB
 
 
 def plan(dtype: torch.dtype, head_dim: int, strides, aligned: bool) -> str:
@@ -308,44 +337,127 @@ flash_attention.launches = 0
 flash_attention.variants = dict.fromkeys(VARIANTS, 0)
 
 
+def split_plan(b: int, kvh: int, s: int) -> int:
+    """The number of slices a decode call splits each row's visible slots
+    into: enough blocks to fill the card twice over, no slice shorter than
+    a tile at the cache's full length, at most 64. From shapes alone, so
+    that lengths on the device never reach the host."""
+    want = -(-_DECODE_BLOCKS // max(1, b * kvh))
+    return max(1, min(want, -(-s // _DECODE_TILE), 64))
+
+
+def visible_slots(s: int, lengths, window) -> list[int]:
+    """Each row's visible slots: ``lengths`` (one int a row) clipped to the
+    cache's ``s`` slots and to the trailing ``window`` of them."""
+    out = []
+    for n in lengths:
+        hi, lo = min(n, s), max(0, n - window) if window is not None else 0
+        out.append(max(0, hi - lo))
+    return out
+
+
+def decode_work(b, s, h, kvh, d, q_es, kv_es, lengths, window=None, with_lse=False) -> Work:
+    """One decode call's work: q read once, each row's visible K and V
+    rows read once (``visible_slots`` of ``lengths``, one int a row), o
+    (f32 with ``with_lse``, else q's dtype) and the f32 lse written once;
+    4 D operations per visible slot and query head. The plain version's
+    FLOPs are its two einsums over every slot, 4 B H S D."""
+    vis = sum(visible_slots(s, lengths, window))
+    o_es = 4 if with_lse else q_es
+    n_bytes = b * h * d * q_es + 2 * kvh * d * kv_es * vis + b * h * d * o_es + 4 * b * h * with_lse
+    full = b * h * s * d
+    return Work(float(n_bytes), 4.0 * d * h * vis, einsum_flops((d, full), (s, full)))
+
+
+def _lengths(length, b, device):
+    """(length as an int, or 0; the per-batch tensor or None; its element
+    stride) of a kernel call. A tensor must already be on the kernel's
+    device: nothing is copied to it."""
+    if isinstance(length, torch.Tensor):
+        if length.device != device:
+            raise ValueError(f"decode_attention: lengths on {length.device}, the cache on "
+                             f"{device}; pass them on {device} or as an int")
+        if length.dtype not in _LENGTH_DTYPES or length.numel() not in (1, b):
+            raise ValueError(f"decode_attention: lengths {tuple(length.shape)} {length.dtype}; "
+                             f"want 1 or {b} int32/int64")
+        flat = length.reshape(-1)
+        return 0, flat, flat.stride(0) if flat.numel() == b and b > 1 else 0
+    if isinstance(length, numbers.Integral):
+        return int(length), None, 0
+    raise TypeError(f"decode_attention: length {type(length).__name__}; an int or a tensor")
+
+
 def decode_attention(q, k_cache, v_cache, *, length, window: int | None = None,
                      scale: float | None = None, return_lse: bool = False):
     """One decode step: q (B, 1, H, D) attends to the first ``length``
-    cache slots (and at most the trailing ``window`` of them, the newest
-    slot ``length - 1`` included). ``length`` is an int or a per-batch
-    tensor. A row with no valid slot returns exact zeros.
+    cache slots (B, S, KVH, D) (and at most the trailing ``window`` of
+    them, the newest slot ``length - 1`` included). ``length`` is an int
+    or a per-batch tensor. A row with no valid slot returns exact zeros.
 
     ``return_lse`` returns ``(o, lse)`` instead: o in f32 (not yet cast
     to q's dtype) and each row's log-sum-exp of its scaled scores, (B, 1,
     H) f32, -inf for a row with no valid slot, so that the partial results
     of a sequence-sharded cache can be merged (``models/layers.py``)."""
-    b, _, h, d = q.shape
+    kw = dict(length=length, window=window, scale=scale, return_lse=return_lse)
+    if q.device.type == "cpu":
+        return decode_attention_ref(q, k_cache, v_cache, **kw)
+    return _decode(q, k_cache, v_cache, **kw)
+
+
+def _decode(q, k_cache, v_cache, *, length, window, scale, return_lse):
+    """The decode kernel on CUDA tensors (or its charge on meta ones)."""
+    b, sq, h, d = q.shape
     _, s, kvh, _ = k_cache.shape
-    g = h // kvh
+    dev = q.device
+    if not kernel_device(q) or k_cache.device != dev or v_cache.device != dev:
+        raise ValueError(f"decode_attention: tensors on {dev}, {k_cache.device}, "
+                         f"{v_cache.device}")
+    if q.dtype not in _DTYPES or k_cache.dtype not in _DTYPES or v_cache.dtype != k_cache.dtype:
+        raise TypeError(f"decode_attention kernel: q f32 or bf16, k and v one of them; got "
+                        f"{q.dtype}, {k_cache.dtype}, {v_cache.dtype}")
+    if (sq != 1 or v_cache.shape != k_cache.shape or k_cache.shape[0] != b
+            or k_cache.shape[3] != d or h % kvh):
+        raise ValueError(f"decode_attention kernel: q {tuple(q.shape)}, k "
+                         f"{tuple(k_cache.shape)}, v {tuple(v_cache.shape)}")
+    if d not in HEAD_DIMS or h // kvh > _DECODE_MAX_GROUP:
+        raise ValueError(f"decode_attention kernel: head dim {d} (one of {HEAD_DIMS}), "
+                         f"group {h // max(kvh, 1)} (at most {_DECODE_MAX_GROUP})")
+    vec = 16 // k_cache.element_size()
+    if any(c.stride(3) != 1 or not aligned16(c) or any(x % vec for x in c.stride()[:3])
+           for c in (k_cache, v_cache)):
+        raise ValueError(f"decode_attention kernel: K and V rows must start on 16 bytes with "
+                         f"a unit head-dim stride; got strides {k_cache.stride()}, "
+                         f"{v_cache.stride()}")
+    n, lengths, lstride = _lengths(length, b, dev)
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    o = torch.empty((b, 1, h, d), dtype=torch.float32 if return_lse else q.dtype, device=dev)
+    lse = torch.empty((b, 1, h), dtype=torch.float32, device=dev) if return_lse else None
+    nsplit = split_plan(b, kvh, s)
+    part = (torch.empty((nsplit, b, h, d + 2), dtype=torch.float32, device=dev)
+            if nsplit > 1 and b * h else None)
+    if b * h:
+        if dev.type == "meta":
+            rows = [n] * b if lengths is None else [s] * b  # a meta length has no value: all
+            charge("decode_attention", "split", decode_work(
+                b, s, h, kvh, d, q.element_size(), k_cache.element_size(), rows, window,
+                return_lse))
+        else:
+            lib = _decode_lib()
+            err = lib.decode_attention_launch(
+                q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), o.data_ptr(),
+                None if lse is None else lse.data_ptr(), None if part is None else part.data_ptr(),
+                b, h, kvh, s, d, q.stride(0), q.stride(2), q.stride(3),
+                *k_cache.stride()[:3], *v_cache.stride()[:3], n,
+                None if lengths is None else lengths.data_ptr(),
+                _LENGTH_DTYPES[lengths.dtype] if lengths is not None else 0, lstride,
+                _NO_WINDOW if window is None else int(window), scale,
+                int(q.dtype == torch.bfloat16), int(k_cache.dtype == torch.bfloat16),
+                int(o.dtype == torch.float32), nsplit, torch.cuda.current_stream(dev).cuda_stream)
+            _build.check(lib, err, "decode_attention")
+            decode_attention.launches += 1
+            decode_attention.variants["split"] += 1
+    return (o, lse) if return_lse else o
 
-    qf = (q.float() * scale).to(q.dtype).reshape(b, kvh, g, d)
-    kc = k_cache.transpose(1, 2)  # (B, KVH, S, D)
-    vc = v_cache.transpose(1, 2)
-    logits = torch.einsum("bkgd,bksd->bkgs", qf.float(), kc.float())
 
-    pos = torch.arange(s, device=q.device)[None, :]
-    # an int length stays a Python scalar: no host-to-device copy per call
-    lengths = length if isinstance(length, int) else (
-        torch.as_tensor(length, device=q.device).reshape(-1, 1))
-    valid = pos < lengths
-    if window is not None:
-        valid = valid & (pos >= lengths - window)
-    vmask = valid.expand(b, s)[:, None, None, :]
-    logits = torch.where(vmask, logits, torch.finfo(torch.float32).min * 0.7)
-    m = logits.amax(dim=-1, keepdim=True)
-    # Masked slots are zeroed explicitly, so a row with no valid slot
-    # (length 0, or a window that excludes everything) is exact zeros.
-    p = torch.where(vmask, torch.exp(logits - m), 0.0)
-    denom = p.sum(dim=-1, keepdim=True)
-    p = p / torch.where(denom > 0.0, denom, 1.0)
-    o = torch.einsum("bkgs,bksd->bkgd", p.to(v_cache.dtype).float(), vc.float())
-    if return_lse:
-        lse = torch.where(denom > 0.0, m + torch.log(denom), -math.inf)
-        return o.reshape(b, 1, h, d), lse.reshape(b, 1, h)
-    return o.reshape(b, 1, h, d).to(q.dtype)
+decode_attention.launches = 0
+decode_attention.variants = {"split": 0}

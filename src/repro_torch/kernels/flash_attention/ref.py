@@ -22,7 +22,8 @@ import math
 
 import torch
 
-__all__ = ["attention_ref", "attention_fwd_ref", "attention_bwd_ref", "NEG_INF"]
+__all__ = ["attention_ref", "attention_fwd_ref", "attention_bwd_ref", "decode_attention_ref",
+           "NEG_INF"]
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
@@ -117,3 +118,49 @@ def attention_bwd_ref(q, k, v, o, do, lse, *, causal: bool = True, window: int |
     dq = torch.einsum("bkgqj,bjkd->bqkgd", ds, k.float()).reshape(b, sq, h, d)
     dk = torch.einsum("bkgqj,bqkgd->bjkd", ds, q.float().reshape(grouped))
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def decode_attention_ref(q, k_cache, v_cache, *, length, window: int | None = None,
+                         scale: float | None = None, return_lse: bool = False):
+    """The plain decode step (``decode_attention``'s CPU path): q (B, 1,
+    H, D) attends to the first ``length`` cache slots (and at most the
+    trailing ``window`` of them, the newest slot ``length - 1``
+    included). ``length`` is an int or a per-batch tensor. A row with no
+    valid slot returns exact zeros. The reference's arithmetic: q scaled
+    in f32 and rounded to its dtype, scores and output summed in f32, the
+    normalised p rounded to the cache's dtype before P V.
+
+    ``return_lse`` returns ``(o, lse)`` instead: o in f32 (not yet cast
+    to q's dtype) and each row's log-sum-exp of its scaled scores, (B, 1,
+    H) f32, -inf for a row with no valid slot, so that the partial results
+    of a sequence-sharded cache can be merged (``models/layers.py``)."""
+    b, _, h, d = q.shape
+    _, s, kvh, _ = k_cache.shape
+    g = h // kvh
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+
+    qf = (q.float() * scale).to(q.dtype).reshape(b, kvh, g, d)
+    kc = k_cache.transpose(1, 2)  # (B, KVH, S, D)
+    vc = v_cache.transpose(1, 2)
+    logits = torch.einsum("bkgd,bksd->bkgs", qf.float(), kc.float())
+
+    pos = torch.arange(s, device=q.device)[None, :]
+    # an int length stays a Python scalar: no host-to-device copy per call
+    lengths = length if isinstance(length, int) else (
+        torch.as_tensor(length, device=q.device).reshape(-1, 1))
+    valid = pos < lengths
+    if window is not None:
+        valid = valid & (pos >= lengths - window)
+    vmask = valid.expand(b, s)[:, None, None, :]
+    logits = torch.where(vmask, logits, torch.finfo(torch.float32).min * 0.7)
+    m = logits.amax(dim=-1, keepdim=True)
+    # Masked slots are zeroed explicitly, so a row with no valid slot
+    # (length 0, or a window that excludes everything) is exact zeros.
+    p = torch.where(vmask, torch.exp(logits - m), 0.0)
+    denom = p.sum(dim=-1, keepdim=True)
+    p = p / torch.where(denom > 0.0, denom, 1.0)
+    o = torch.einsum("bkgs,bksd->bkgd", p.to(v_cache.dtype).float(), vc.float())
+    if return_lse:
+        lse = torch.where(denom > 0.0, m + torch.log(denom), -math.inf)
+        return o.reshape(b, 1, h, d), lse.reshape(b, 1, h)
+    return o.reshape(b, 1, h, d).to(q.dtype)

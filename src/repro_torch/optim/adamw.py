@@ -19,6 +19,10 @@ writes the new parameters and moments into the given f32 tensors, leaf by
 leaf, so that a step never holds two copies of them. A caller that needs
 the old values clones them first. Nothing here synchronises with the
 device.
+
+Each leaf's update and each leaf's sum of squares is one call of
+``kernels.adamw`` (``adamw``, ``sum_squares``): on the card a hand-written
+kernel each (two launches a leaf), on the CPU their plain versions.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import math
 
 import torch
 
+from ..kernels.adamw import adamw, sum_squares
 from ..models.params import leaves, map_tree
 from ..parallel import collectives as C
 from ..parallel.axes import spec_axes
@@ -80,16 +85,18 @@ def global_norm(tree, shards=None):
     the leaves split over the same mesh axes are summed, and each such
     sum all-reduced over those axes (a leaf counts once, however many
     ranks hold it)."""
+    pairs = list(leaves(tree))
+    sums = sum_squares([x for _, x in pairs])
     if shards is None:
         total = 0
-        for x in _leaves(tree):
-            total = total + torch.sum(torch.square(x.float()))
+        for s in sums:
+            total = total + s
         return torch.sqrt(total)
     mesh, spec_of = shards
     by_axes: dict = {}
-    for path, x in leaves(tree):
+    for (path, _), s in zip(pairs, sums):
         axes = tuple(a for part in spec_of[path] for a in spec_axes(part))
-        by_axes[axes] = by_axes.get(axes, 0) + torch.sum(torch.square(x.float()))
+        by_axes[axes] = by_axes.get(axes, 0) + s
     return torch.sqrt(sum(C.psum(t, mesh, axes) for axes, t in by_axes.items()))
 
 
@@ -113,12 +120,6 @@ def adamw_update(params, grads, state, cfg: OptConfig, *, shards=None):
         if not p.dtype == m_.dtype == v_.dtype == torch.float32:
             raise TypeError(f"AdamW updates f32 parameters and moments in place; got "
                             f"{p.dtype}, {m_.dtype}, {v_.dtype}")
-        g = g.float() * scale
-        m_.mul_(b1).add_(g * (1 - b1))
-        v_.mul_(b2).add_((g * (1 - b2)).mul_(g))
-        del g  # before the update's temporaries: one leaf's at a time
-        u = m_ / bc1
-        u.div_((v_ / bc2).sqrt_().add_(cfg.eps))
-        u.add_(cfg.weight_decay * p)
-        p.sub_(u.mul_(lr))
+        adamw(p, g, m_, v_, scale, lr, bc1, bc2, b1=b1, b2=b2, eps=cfg.eps,
+              weight_decay=cfg.weight_decay)
     return params, {"m": state["m"], "v": state["v"], "step": step}, gnorm

@@ -31,6 +31,7 @@ the one ``plan`` picks (``reg`` for d a multiple of 16 up to 192) and
 """
 
 import dataclasses
+import math
 
 import pytest
 import torch
@@ -1071,3 +1072,138 @@ def test_a_cuda_tensor_launches_where_a_meta_tensor_is_charged(gen):
     assert dos_matmul.variants == before
     assert meta.launches == {"dos_matmul": launched}
     assert meta.kernels["dos_matmul"]["flops"] == 2 * 64 * 32 * 48
+
+
+# --- AdamW and decode attention ---------------------------------------------------------------
+#
+# The AdamW update against adamw_ref on the same card, bit for bit (the
+# kernel rounds every product and sum on its own, as torch's separate ops
+# do). The sum of squares: the same bits on every run, and within 1e-5 of
+# an f64 sum in f32 (another order). Decode attention against the f32
+# result of its own semantics on the same operands (q' rounded to q's
+# dtype, f32 scores and sums, p unrounded): 1e-5 absolute (phase 4's flash
+# gate) plus, for a bf16 output, one bf16 rounding of each entry; a row
+# with no visible slot exact zeros and lse -inf.
+
+
+def _adamw_operands(gen, shape, gdtype, layout):
+    """p, g, m, v of ``shape`` (v positive) in ``layout``: contiguous, one
+    element off 16 bytes (flat, unvectorised) or transposed (strided)."""
+    def make(positive=False, dtype=torch.float32):
+        n = int(torch.tensor(shape).prod())
+        x = torch.randn(n + 1, generator=gen, device="cuda")
+        x = (x.abs() if positive else x).to(dtype)
+        if layout == "offset":
+            return x[1:].view(shape)
+        if layout == "transposed":
+            return x[:n].view(shape[::-1]).transpose(0, -1)
+        return x[:n].view(shape)
+    return make(), make(dtype=gdtype), make(), make(positive=True)
+
+
+@pytest.mark.parametrize("shape", [(1,), (1001,), (577, 96), (3, 64, 129)])
+@pytest.mark.parametrize("gdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["contiguous", "offset", "transposed"])
+def test_adamw_kernel_is_bit_identical_to_plain(gen, shape, gdtype, layout):
+    from repro_torch.kernels import adamw
+    from repro_torch.kernels.adamw import adamw_ref
+
+    if layout == "transposed" and len(shape) == 1:
+        pytest.skip("a 1-d tensor has no transposed view")
+    p, g, m, v = _adamw_operands(gen, shape, gdtype, layout)
+    scalars = [torch.rand((), generator=gen, device="cuda") * 0.9 + 0.1 for _ in range(4)]
+    kw = dict(b1=0.9, b2=0.95, eps=1e-8, weight_decay=0.1)
+    want = [t.clone() for t in (p, m, v)]
+    adamw_ref(want[0], g, want[1], want[2], *scalars, **kw)
+    before = dict(adamw.variants)
+    adamw(p, g, m, v, *scalars, **kw)
+    torch.cuda.synchronize()
+    assert adamw.variants["update"] == before["update"] + 1
+    for got, w in zip((p, m, v), want):
+        assert torch.equal(got, w)
+
+
+@pytest.mark.parametrize("n", [0, 1, 4097, 3 * 2**20 + 5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sum_squares_kernel_is_deterministic(gen, n, dtype):
+    from repro_torch.kernels.adamw import sum_squares
+
+    xs = [torch.randn(n, generator=gen, device="cuda").to(dtype),
+          torch.randn(n + 7, generator=gen, device="cuda").to(dtype)[7:],
+          torch.randn(max(n, 2) // 2, 2, generator=gen, device="cuda").to(dtype).T]
+    got = sum_squares(xs)
+    assert torch.equal(got, sum_squares(xs))
+    want = torch.stack([x.double().square().sum() for x in xs]).float()
+    assert torch.allclose(got, want, rtol=1e-5, atol=0)
+    big = torch.full((1000,), 1e20, device="cuda", dtype=dtype)  # squares overflow f32
+    assert sum_squares([big]).item() == float("inf")
+
+
+def _decode_exact(q, kc, vc, length, window, scale):
+    """The f32 result of the kernel's semantics on the same operands."""
+    from repro_torch.kernels.flash_attention import decode_attention_ref
+
+    d = q.shape[-1]
+    scale = scale if scale is not None else d**-0.5
+    qr = (q.float() * scale).to(q.dtype).float()
+    length = length.cpu() if isinstance(length, torch.Tensor) else length
+    return decode_attention_ref(qr.cpu(), kc.float().cpu(), vc.float().cpu(), length=length,
+                                window=window, scale=1.0, return_lse=True)
+
+
+_DECODE_CASES = [  # b, s, h, kvh, d, length, window
+    (4, 160, 9, 3, 64, 131, None), (4, 1500, 16, 16, 64, 1500, None),
+    (4, 1600, 32, 8, 128, 1600, None), (2, 300, 32, 32, 80, [300, 0], None),
+    (3, 513, 4, 1, 256, [513, 7, 200], 64), (2, 40, 8, 1, 32, 40, 0),
+    (2, 200, 40, 8, 128, [1, 199], 24)]
+
+
+@pytest.mark.parametrize("case", _DECODE_CASES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("return_lse", [False, True])
+def test_decode_attention_kernel(gen, case, dtype, return_lse):
+    from repro_torch.kernels import decode_attention
+
+    b, s, h, kvh, d, length, window = case
+    q = torch.randn(b, 1, h, d, generator=gen, device="cuda").to(dtype)
+    kc = torch.randn(b, s, kvh, d, generator=gen, device="cuda").to(dtype)
+    vc = torch.randn(b, s, kvh, d, generator=gen, device="cuda").to(dtype)
+    if isinstance(length, list):
+        length = torch.tensor(length, device="cuda")
+    before = decode_attention.launches
+    got = decode_attention(q, kc, vc, length=length, window=window, return_lse=return_lse)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 1
+    o, lse = got if return_lse else (got, None)
+    exact_o, exact_lse = _decode_exact(q, kc, vc, length, window, None)
+    exact_o = exact_o.to(o.device)
+    assert o.dtype == (torch.float32 if return_lse else dtype) and o.shape == q.shape
+    tol = 1e-5 + (2.0**-8 * exact_o.abs() if o.dtype == torch.bfloat16 else 0)
+    assert bool(((o.float() - exact_o).abs() <= tol).all())
+    dead = torch.isinf(exact_lse).to(o.device)  # rows with no visible slot: exact zeros
+    assert bool((o.float()[dead] == 0).all())
+    if return_lse:
+        exact_lse = exact_lse.to(o.device)
+        assert bool((lse[dead] == -math.inf).all())
+        live = ~dead
+        assert bool(((lse - exact_lse)[live].abs() <= 1e-5 * exact_lse[live].abs().clamp(min=1))
+                    .all())
+
+
+def test_decode_attention_kernel_takes_strided_and_mixed_operands(gen):
+    """A rank's slice of the slots and a layer of a stacked cross cache (views
+    of larger tensors), and a bf16 q over an f32 cache (the vision model
+    with f32 image embeddings), read as they are; a per-batch length off
+    the card raises instead of being copied."""
+    from repro_torch.kernels import decode_attention
+
+    full = torch.randn(2, 3, 256, 8, 128, generator=gen, device="cuda")
+    kc, vc = full[1, :, 64:], full[0, :, 64:]  # strided, not contiguous
+    q = torch.randn(3, 1, 32, 128, generator=gen, device="cuda").to(torch.bfloat16)
+    got = decode_attention(q, kc, vc, length=150, window=None)
+    exact, _ = _decode_exact(q, kc, vc, 150, None, None)
+    exact = exact.to(got.device)
+    assert got.dtype == torch.bfloat16
+    assert bool(((got.float() - exact).abs() <= 1e-5 + 2.0**-8 * exact.abs()).all())
+    with pytest.raises(ValueError, match="lengths on cpu"):
+        decode_attention(q, kc, vc, length=torch.tensor([1, 2, 3]))

@@ -377,7 +377,7 @@ def test_meta_plans_read_the_same_rules_as_the_cards():
     assert ssm_ops.MAX_GROUP == {(64, 96): 1}
     assert set(KERNELS) == {"dos_matmul", "flash_attention", "flash_attention_bwd", "ssm_scan",
                             "ssm_scan_bwd", "slstm_scan", "slstm_scan_bwd", "grouped_matmul",
-                            "grouped_matmul_dw"}
+                            "grouped_matmul_dw", "decode_attention", "adamw"}
 
 
 def test_the_accounting_keeps_the_engines_in_place_sums():

@@ -57,7 +57,7 @@ CONFIGS = {
 # every registered kernel, none launched (the CPU runs the plain versions)
 NO_LAUNCHES = {"dos_matmul": 0, "flash_attention": 0, "flash_attention_bwd": 0, "ssm_scan": 0,
                "ssm_scan_bwd": 0, "slstm_scan": 0, "slstm_scan_bwd": 0, "grouped_matmul": 0,
-               "grouped_matmul_dw": 0}
+               "grouped_matmul_dw": 0, "decode_attention": 0, "adamw": 0}
 
 
 def _cfgs(name):

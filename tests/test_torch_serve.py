@@ -30,7 +30,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # every registered kernel, none launched (the CPU runs the plain versions)
 NO_LAUNCHES = {"dos_matmul": 0, "flash_attention": 0, "flash_attention_bwd": 0, "ssm_scan": 0,
                "ssm_scan_bwd": 0, "slstm_scan": 0, "slstm_scan_bwd": 0, "grouped_matmul": 0,
-               "grouped_matmul_dw": 0}
+               "grouped_matmul_dw": 0, "decode_attention": 0, "adamw": 0}
 JSON_KEYS = {"arch", "batch", "prompt_len", "gen_tokens", "prefill_s", "decode_tok_s",
              "step_p50_s", "step_p99_s"}
 
